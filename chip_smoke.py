@@ -1,0 +1,584 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (gsgen_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line:
+
+1. device: require CUDA, print the card's name and power limit, TF32 off;
+2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a;
+3. kernels: every kernel of the render path against its plain PyTorch
+   version on the card, at a small size, at the bench workload (100K
+   Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
+   render (chunk 256, dup_cap 2^20) and on an opaque early-exit scene,
+   with feature widths F=3 and F=5; plus a full small render against the
+   dense oracle;
+4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
+   full width through build_trainer / fit, with every kernel's launch
+   counter read around the run;
+5. times: each kernel, its plain version and, where one exists, one
+   PyTorch call computing the same function, at the bench and base.yaml
+   shapes, and the full render forward+backward;
+6. profile: two more training steps under torch.profiler; device busy
+   time, idle share and the top device kernels per step (the trace goes
+   to gsgen_torch/_build/train_step_trace.json);
+
+then one JSON line with the kernels, the card line, and the result line.
+Exits non-zero before the result line if any phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3
+SMALL_TOL = dict(T=(1e-5, 1e-6), img=(1e-4, 1e-5), grad=(2e-3, 2e-4))
+SCALE_TOL = dict(T=(1e-3, 3e-4), img=(2e-3, 5e-4), grad=(5e-3, 2e-3))
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def reference_line(rel_file: str, func: str) -> str:
+    """'path:line' of a TPU kernel in the JAX package, read as text."""
+    hits = sorted(p for p in ROOT.glob(f"*/{rel_file}")
+                  if p.parent.parent.name != "gsgen_torch")
+    require(hits, f"reference kernel file {rel_file} not found")
+    for i, line in enumerate(hits[0].read_text().splitlines(), 1):
+        if line.startswith(f"def {func}("):
+            return f"{hits[0].relative_to(ROOT)}:{i}"
+    raise SmokeFailure(f"{func} not found in {hits[0]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", flush=True)
+        return 1
+    if not (ROOT / "gsgen_torch" / "csrc").is_dir():
+        print("FAIL: the gsgen_torch package is not beside chip_smoke.py",
+              flush=True)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    try:
+        return run(torch)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", flush=True)
+        return 1
+
+
+def run(torch) -> int:
+    from gsgen_torch.config import build_trainer, load_config
+    from gsgen_torch.models.init import InitConfig, initialize
+    from gsgen_torch.models.scene import (RenderConfig, activate,
+                                          render_view)
+    from gsgen_torch.ops import (binning, cuda_lib, cuda_raster,
+                                 expansion_rank, gid_repack)
+    from gsgen_torch.ops.camera import (CameraIntrinsics, get_frustum,
+                                        sphere_in_frustum)
+    from gsgen_torch.ops.oracle import composite_dense, pixel_grid
+    from gsgen_torch.ops.projection import (conic_from_cov2d,
+                                            project_gaussians)
+    from gsgen_torch.ops.rasterize import (ch_out_for, chunk_weights,
+                                           make_geom, tile_pixels)
+
+    dev = torch.device("cuda")
+
+    # ---- phase 1: device ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        "nvidia-smi gave no answer"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    print(f"phase 1 device: ok {name} x{torch.cuda.device_count()} "
+          f"| nvidia-smi: {card}", flush=True)
+
+    # ---- phase 2: build ----
+    t0 = time.perf_counter()
+    cuda_lib.build(force=True)
+    cuda_lib.lib()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in cuda_lib.build_info["log"].splitlines()
+            if "registers" in ln]
+    print(f"phase 2 build: ok {build_s:.2f} s, "
+          f"{len(cuda_lib.sources())} sources | " + " ; ".join(regs),
+          flush=True)
+
+    # ---- helpers ----
+    gen = torch.Generator(device=dev)
+
+    def prepare(params, active, c2w, intr, rcfg, rgb_only):
+        """render_view's steps up to the rasterizer (no autograd)."""
+        with torch.no_grad():
+            c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+            f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa
+                                         device=dev)
+            fx, fy, cx, cy = map(f32, (intr.fx, intr.fy, intr.cx, intr.cy))
+            mean, qvec, svec, color, alpha = activate(params, rcfg)
+            normals, pts = get_frustum(c2w, intr)
+            cull = sphere_in_frustum(
+                mean, torch.amax(svec, -1) * rcfg.frustum_culling_radius,
+                normals, pts)
+            proj = project_gaussians(mean, qvec, svec, c2w, near=rcfg.near)
+            vis = active & cull & proj.in_front
+            conic, _ = conic_from_cov2d(proj.cov2d)
+            ntiles = (-(-intr.w // rcfg.tile_size)) ** 2
+            pad = int(ntiles * rcfg.chunk * rcfg.pad_frac + rcfg.chunk - 1
+                      ) // rcfg.chunk * rcfg.chunk
+            bin_args = (proj.mean2d, proj.cov2d, proj.depth, vis, fx, fy, cx,
+                        cy, intr.w, intr.h, rcfg.tile_size, rcfg.dup_cap)
+            bin_kw = dict(chunk=rcfg.chunk, alpha=alpha, pad_budget=pad,
+                          tile_culling_radius=rcfg.tile_culling_radius)
+            feats = color if rgb_only else torch.cat(
+                [color, proj.depth[:, None], proj.depth[:, None] ** 2], -1)
+            geom = make_geom((-cx / fx, -cy / fy), (1.0 / fx, 1.0 / fy), dev)
+            return dict(bin_args=bin_args, bin_kw=bin_kw, mean2d=proj.mean2d,
+                        conic=conic, alpha=alpha, feats=feats, geom=geom,
+                        intr=intr, rcfg=rcfg)
+
+    def plain_bins(*args, **kw):
+        saved = binning.expansion_gid, binning.repack_gid
+        binning.expansion_gid = expansion_rank.expansion_gid_plain
+        binning.repack_gid = gid_repack.repack_gid_plain
+        try:
+            return binning.bin_gaussians(*args, **kw)
+        finally:
+            binning.expansion_gid, binning.repack_gid = saved
+
+    def close(a, b, rtol, atol, what):
+        err = (a - b).abs()
+        bad = err > atol + rtol * b.abs()
+        require(torch.isfinite(a).all(), f"{what}: non-finite kernel output")
+        require(not bool(bad.any()),
+                f"{what}: {int(bad.sum())} of {bad.numel()} values outside "
+                f"rtol {rtol} atol {atol} (max abs err "
+                f"{float(err.max()):.3e})")
+        return float(err.max()) if err.numel() else 0.0
+
+    errs = {k: 0.0 for k in ("raster_fwd", "raster_bwd", "expansion_rank",
+                             "gid_repack")}
+    notes = []
+
+    def recorded_bins(prep):
+        """Bin with the kernels, recording the inputs K3 and K4 get."""
+        seen = {}
+        saved = binning.expansion_gid, binning.repack_gid
+
+        def rec(name, fn):
+            def wrapped(*args):
+                seen[name] = args
+                return fn(*args)
+            return wrapped
+
+        binning.expansion_gid = rec("expansion_rank", saved[0])
+        binning.repack_gid = rec("gid_repack", saved[1])
+        try:
+            with torch.no_grad():
+                bins = binning.bin_gaussians(*prep["bin_args"],
+                                             **prep["bin_kw"])
+        finally:
+            binning.expansion_gid, binning.repack_gid = saved
+        return bins, seen
+
+    def kernel_checks(label, prep, tol):
+        """K3/K4 and every BinnedTiles field bit-exact; K1/K2 within tol."""
+        bins, seen = recorded_bins(prep)
+        with torch.no_grad():
+            bins_p = plain_bins(*prep["bin_args"], **prep["bin_kw"])
+        for f in bins._fields:
+            a, b = getattr(bins, f), getattr(bins_p, f)
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"{label}: BinnedTiles.{f} differs from the plain path")
+        require(torch.equal(expansion_rank.expansion_gid(*seen["expansion_rank"]),
+                            expansion_rank.expansion_gid_plain(
+                                *seen["expansion_rank"])),
+                f"{label}: expansion_rank differs")
+        require(torch.equal(gid_repack.repack_gid(*seen["gid_repack"]),
+                            gid_repack.repack_gid_plain(*seen["gid_repack"])),
+                f"{label}: gid_repack differs")
+        rcfg, intr = prep["rcfg"], prep["intr"]
+        K = rcfg.chunk
+        F = prep["feats"].shape[-1]
+        st = dict(n_tiles_w=-(-intr.w // rcfg.tile_size),
+                  tile_size=rcfg.tile_size, chunk=K, F=F,
+                  ch_out=ch_out_for(F), T_thresh=rcfg.T_thresh)
+        dup = cuda_raster.pack_dup(prep["mean2d"], prep["conic"],
+                                   prep["alpha"], prep["feats"],
+                                   bins.padded_gid, bins.row_valid)
+        nck = ((bins.ends - bins.starts + K - 1) // K).to(torch.int32)
+        out = cuda_raster.raster_fwd(dup, bins.starts, nck, prep["geom"],
+                                     **st)
+        out_p = cuda_raster.raster_fwd_plain(dup, bins.starts, nck,
+                                             prep["geom"], **st)
+        torch.cuda.synchronize()
+        e1 = close(out[:, F], out_p[:, F], *tol["T"], f"{label}: K1 T")
+        e2 = close(out[:, :F], out_p[:, :F], *tol["img"],
+                   f"{label}: K1 features")
+        cnt, cnt_p = out[:, -1, 0], out_p[:, -1, 0]
+        require(torch.equal(cnt, cnt_p),
+                f"{label}: K1 processed-chunk counts differ in "
+                f"{int((cnt != cnt_p).sum())} tiles")
+        errs["raster_fwd"] = max(errs["raster_fwd"], e1, e2)
+        g = torch.randn(out.shape, generator=gen.manual_seed(7), device=dev)
+        grad = cuda_raster.raster_bwd(dup, out, g, bins.starts, nck,
+                                      prep["geom"], **st)
+        grad_p = cuda_raster.raster_bwd_plain(dup, out_p, g, bins.starts,
+                                              nck, prep["geom"], **st)
+        torch.cuda.synchronize()
+        rtol, atol = tol["grad"]
+        for r in range(6 + F):
+            scale = max(float(grad_p[r].abs().max()), 1e-3) \
+                if tol is SCALE_TOL else 1.0
+            e = close(grad[r], grad_p[r], rtol, atol * scale,
+                      f"{label}: K2 grad row {r}")
+            errs["raster_bwd"] = max(errs["raster_bwd"], e)
+        exited = int((cnt < nck.float()).sum())
+        notes.append(f"{label}: F={F} dups={int(bins.total)} "
+                     f"chunks={int(cnt.sum())} early-exit tiles={exited}")
+        return dict(bins=bins, dup=dup, nck=nck, st=st, out=out, g=g,
+                    geom=prep["geom"], seen=seen)
+
+    def scene_3d(n, capacity, mean_std, svec, alpha_val, seed):
+        cfg = InitConfig(num_points=n, capacity=capacity, mean_std=mean_std,
+                         svec_val=svec, alpha_val=alpha_val)
+        return initialize(cfg, RenderConfig(), gen.manual_seed(seed), dev)
+
+    c2w_front = [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.5]]
+
+    # ---- phase 3: kernels vs plain versions ----
+    # small: tests' sizes (RES 32, TILE 8, CHUNK 128) + a full render
+    # against the dense oracle (culling radius 60: the alpha-aware AABB
+    # then bins each Gaussian's exact support, so nothing is cut)
+    rc_small = RenderConfig(tile_size=8, chunk=128, dup_cap=4096,
+                            tile_culling_radius=60.0)
+    s_small = scene_3d(200, 256, 0.5, 0.05, 0.6, 1)
+    intr32 = CameraIntrinsics.from_reso(32)
+    for F_rgb in (True, False):
+        kernel_checks(f"small F={3 if F_rgb else 5}",
+                      prepare(s_small.params, s_small.active, c2w_front,
+                              intr32, rc_small, F_rgb), SMALL_TOL)
+    out = render_view(s_small.params, s_small.active, c2w_front, intr32,
+                      rc_small, torch.zeros(3, device=dev), rgb_only=True)
+    prep = prepare(s_small.params, s_small.active, c2w_front, intr32,
+                   rc_small, True)
+    pix = pixel_grid(intr32.image_topleft, intr32.pixel_size, 32, 32,
+                     device=dev)
+    with torch.no_grad():
+        ref, T_ref = composite_dense(
+            prep["mean2d"], prep["conic"], prep["alpha"], prep["feats"],
+            prep["bin_args"][2], prep["bin_args"][3], pix)
+    close(out["T"].reshape(-1), T_ref, *SMALL_TOL["T"], "small render T")
+    close(out["rgb"].reshape(-1, 3), ref, *SMALL_TOL["img"],
+          "small render rgb vs dense oracle")
+
+    # bench workload (the JAX package's bench.py): 100K Gaussians, 512^2
+    rc_bench = RenderConfig(dup_cap=1 << 18, chunk=128)
+    s_bench = scene_3d(100_000, None, 0.6, 0.01, 0.8, 0)
+    intr512 = CameraIntrinsics.from_reso(512)
+    bench = {}
+    for rgb_only in (True, False):
+        bench[rgb_only] = kernel_checks(
+            f"bench F={3 if rgb_only else 5}",
+            prepare(s_bench.params, s_bench.active, c2w_front, intr512,
+                    rc_bench, rgb_only), SCALE_TOL)
+
+    # configs/base.yaml's render: its initial scene and first camera
+    cfg_base = load_config(ROOT / "configs" / "base.yaml",
+                           ["guidance.type=mock"])
+    probe = build_trainer(cfg_base, device="cuda")
+    cam = probe.data.get_batch()
+    intr_b = probe.data.intrinsics()
+    f_cam = float(cam["fx"][0])
+    intr_view = CameraIntrinsics(fx=f_cam, fy=f_cam, cx=intr_b.cx,
+                                 cy=intr_b.cy, w=intr_b.w, h=intr_b.h,
+                                 near=intr_b.near, far=intr_b.far)
+    base_view = (probe.state.scene, cam["c2w"][0], intr_view, probe.rcfg)
+    base = kernel_checks(
+        "base.yaml F=5",
+        prepare(probe.state.scene.params, probe.state.scene.active,
+                cam["c2w"][0], intr_view, probe.rcfg, False), SCALE_TOL)
+    del probe
+
+    # opaque scene: tiles leave early, later chunks must stay zero
+    s_opq = scene_3d(20_000, None, 0.5, 0.03, 0.999, 3)
+    opq = kernel_checks("early-exit F=3",
+                        prepare(s_opq.params, s_opq.active, c2w_front,
+                                intr512, rc_bench, True), SCALE_TOL)
+    require(int((opq["out"][:, -1, 0] < opq["nck"].float()).sum()) > 0,
+            "early-exit scene: no tile left early")
+
+    # 1024^2: where the TPU package switches to its streaming backward
+    # (cotangents n_tiles * ch_out * P * 4 bytes > 9 MiB); one K2 serves both
+    s_large = scene_3d(30_000, None, 0.6, 0.01, 0.8, 4)
+    kernel_checks("1024^2 F=5",
+                  prepare(s_large.params, s_large.active, c2w_front,
+                          CameraIntrinsics.from_reso(1024),
+                          RenderConfig(dup_cap=1 << 19, chunk=128), False),
+                  SCALE_TOL)
+    del s_large
+    print("phase 3 kernels: ok | " + " | ".join(notes), flush=True)
+
+    # ---- phase 4: train configs/base.yaml (guidance.type=mock) ----
+    trainer = build_trainer(load_config(ROOT / "configs" / "base.yaml",
+                                        ["guidance.type=mock"]),
+                            device="cuda")
+    wrappers = dict(raster_fwd=cuda_raster.raster_fwd,
+                    raster_bwd=cuda_raster.raster_bwd,
+                    expansion_rank=expansion_rank.expansion_gid,
+                    gid_repack=gid_repack.repack_gid)
+    p0 = {k: v.detach().clone() for k, v in trainer.state.scene.params.items()}
+    losses, stamps = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(metrics["loss_total"]))
+
+    n_steps = 5
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    trainer.fit(n_steps, callback=on_step)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    views = n_steps * trainer.cfg.batch_size * trainer.cfg.grad_accum
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(len(set(losses)) > 1, f"loss never changed: {losses}")
+    moved = {k: float((v - p0[k]).abs().max())
+             for k, v in trainer.state.scene.params.items()}
+    require(all(m > 0 for m in moved.values()), f"params not moved {moved}")
+    require(trainer.state.step == n_steps, "step counter")
+    for k, c in launches.items():
+        require(c == views, f"{k} launched {c} times in {n_steps} steps, "
+                f"expected {views}")
+    step_ms = [1e3 * (b - a) for a, b in zip([t_start] + stamps, stamps)]
+    print(f"phase 4 train: ok configs/base.yaml guidance.type=mock "
+          f"{n_steps} steps, batch {trainer.cfg.batch_size}, "
+          f"512^2, capacity {trainer.state.scene.params['mean'].shape[0]} "
+          f"| losses {losses} | ms/step {[round(x, 3) for x in step_ms]} "
+          f"| launches {launches}", flush=True)
+
+    # ---- phase 5: times ----
+    def time_ms(fn, iters, warmup=1):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    def needed_lanes(r):
+        """(pixel, real duplicate row) pairs the forward has to composite:
+        lanes before each pixel's T cutoff, in chunks the tile processed."""
+        bins, st = r["bins"], r["st"]
+        K, F = st["chunk"], st["F"]
+        dup, starts, nck = r["dup"], bins.starts, r["nck"]
+        n_tiles = starts.shape[0]
+        P = st["tile_size"] ** 2
+        tiles = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+        pixx, pixy = tile_pixels(tiles, r["geom"], st["n_tiles_w"],
+                                 st["tile_size"])
+        T = torch.ones(n_tiles, P, 1, device=dev)
+        alive = nck > 0
+        lanes = torch.arange(K, device=dev)
+        total, i = 0, 0
+        with torch.no_grad():
+            while bool(alive.any()):
+                idx = alive.nonzero()[:, 0]
+                cols = starts[idx].long()[:, None] + i * K + lanes[None]
+                d = dup[:6 + F][:, cols].permute(1, 0, 2)
+                om, cp, proc, _ = chunk_weights(d, pixx[idx], pixy[idx],
+                                                T[idx], st["T_thresh"])
+                real = bins.row_valid[cols][:, None, :]
+                total += int((proc & real).sum())
+                q = torch.where(proc, cp * om, torch.full_like(om, math.inf))
+                T[idx] = T[idx] * torch.clamp(q.amin(2, keepdim=True),
+                                              max=1.0)
+                i += 1
+                alive = alive & (i < nck) & (T.amax((1, 2))
+                                             >= st["T_thresh"])
+        return total
+
+    def bounds(r):
+        """Least times (ms) on the card for each kernel's work, from this
+        run's inputs: max(bytes / 3.35 TB/s, flops / 67 TFLOP/s)."""
+        bins, st = r["bins"], r["st"]
+        F = st["F"]
+        lanes = needed_lanes(r)
+        rows = int(bins.row_valid.sum())
+        n_tiles = bins.starts.shape[0]
+        P = st["tile_size"] ** 2
+        out_b = n_tiles * st["ch_out"] * P * 4
+        dup_b = rows * (6 + F) * 4
+        cap = r["seen"]["expansion_rank"][1]
+        capp = bins.padded_gid.shape[0]
+        ms = lambda b, f: 1e3 * max(b / PEAK_BYTES, f / PEAK_FLOPS)  # noqa
+        by = lambda b, f: "bytes" if b / PEAK_BYTES >= f / PEAK_FLOPS \
+            else "operations"  # noqa
+        fwd = (dup_b + out_b + 8 * n_tiles, lanes * (23 + 2 * F))
+        bwd = (dup_b + 2 * n_tiles * (F + 2) * P * 4 + 8 * n_tiles
+               + 16 * capp * 4, lanes * (64 + 4 * F))
+        k3 = (r["seen"]["expansion_rank"][0].numel() * 4 + cap * 4, 0)
+        k4 = (cap * 4 + capp * 4 + (bins.chunk_tile.numel()
+                                    + 2 * n_tiles) * 4, 0)
+        return {k: (ms(*v), by(*v)) for k, v in
+                dict(raster_fwd=fwd, raster_bwd=bwd, expansion_rank=k3,
+                     gid_repack=k4).items()}
+
+    def kernel_times(r, iters, plain_iters):
+        bins, st, dup, nck = r["bins"], r["st"], r["dup"], r["nck"]
+        cap = r["seen"]["expansion_rank"][1]
+        geom, g, out = r["geom"], r["g"], r["out"]
+        fwd = lambda: cuda_raster.raster_fwd(dup, bins.starts, nck, geom,
+                                             **st)  # noqa: E731
+        fwd_p = lambda: cuda_raster.raster_fwd_plain(  # noqa: E731
+            dup, bins.starts, nck, geom, **st)
+        bwd = lambda: cuda_raster.raster_bwd(  # noqa: E731
+            dup, out, g, bins.starts, nck, geom, **st)
+        bwd_p = lambda: cuda_raster.raster_bwd_plain(  # noqa: E731
+            dup, out, g, bins.starts, nck, geom, **st)
+        k3_args, k4_args = r["seen"]["expansion_rank"], r["seen"]["gid_repack"]
+        cum = k3_args[0]
+        arange = torch.arange(cap, dtype=torch.int32, device=dev)
+        k3 = lambda: expansion_rank.expansion_gid(*k3_args)  # noqa: E731
+        k3_p = lambda: expansion_rank.expansion_gid_plain(*k3_args)  # noqa
+        k3_l = lambda: torch.searchsorted(cum, arange, right=True)  # noqa
+        k4 = lambda: gid_repack.repack_gid(*k4_args)  # noqa: E731
+        k4_p = lambda: gid_repack.repack_gid_plain(*k4_args)  # noqa: E731
+        bd = bounds(r)
+        res = {}
+        for k, (f, fp, fl) in dict(
+                raster_fwd=(fwd, fwd_p, None), raster_bwd=(bwd, bwd_p, None),
+                expansion_rank=(k3, k3_p, k3_l),
+                gid_repack=(k4, k4_p, None)).items():
+            res[k] = dict(
+                ms=time_ms(f, iters), plain_ms=time_ms(fp, plain_iters),
+                library_ms=None if fl is None else time_ms(fl, iters),
+                bound_ms=bd[k][0], bound_by=bd[k][1])
+        return res
+
+    times_base = kernel_times(base, 20, 3)
+    times_bench = kernel_times(bench[False], 20, 3)
+
+    # full render forward + backward of one 512^2 view, all parameter
+    # gradients, at the bench workload and at base.yaml's render
+    bg1 = torch.ones(3, device=dev)
+    cot = torch.randn(512, 512, 3, generator=gen.manual_seed(5), device=dev)
+
+    def render_ms(scene, c2w, intr, rcfg):
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in scene.params.items()}
+
+        def fb():
+            o = render_view(params, scene.active, c2w, intr, rcfg, bg1)
+            torch.autograd.grad((o["rgb"] * cot).sum(), list(params.values()))
+        return time_ms(fb, 10, warmup=2)
+
+    render = dict(bench=render_ms(s_bench, c2w_front, intr512, rc_bench),
+                  base=render_ms(*base_view))
+    print(f"phase 5 times: ok | card {card} | render fwd+bwd 512^2: "
+          + ", ".join(f"{k} {v:.3f} ms = {512 * 512 / v * 1e3:.0f} rays/s"
+                      for k, v in render.items()) + " | "
+          + " | ".join(f"{k}: base {v['ms']:.4f} ms (plain "
+                       f"{v['plain_ms']:.3f}, bound {v['bound_ms']:.4f} "
+                       f"{v['bound_by']}), bench "
+                       f"{times_bench[k]['ms']:.4f} ms"
+                       for k, v in times_base.items()), flush=True)
+
+    # ---- phase 6: where a train step's device time goes ----
+    from torch.profiler import ProfilerActivity, profile
+    prof_steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(prof_steps)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    trace = cuda_lib.BUILD / "train_step_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, -math.inf
+    by_name = {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        s, d = float(e["ts"]), float(e["dur"])
+        busy += max(0.0, s + d - max(s, end))
+        end = max(end, s + d)
+        key = e["name"].replace("(anonymous namespace)::", "")
+        key = key.replace("void ", "").split("(")[0].split("<")[0][-48:]
+        by_name[key] = by_name.get(key, 0.0) + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    busy_ms = busy / 1e3 / prof_steps
+    step_wall = wall_ms / prof_steps
+    profile_info = dict(
+        traced_ms_per_step=step_wall, device_busy_ms_per_step=busy_ms,
+        device_idle_share=1.0 - busy_ms / step_wall,
+        device_kernels_per_step=len(events) / prof_steps,
+        top_device_ms_per_step={k: v / 1e3 / prof_steps for k, v in top})
+    require(len(events) > 0, "the profiler saw no device work")
+    print(f"phase 6 profile: ok {prof_steps} traced steps, "
+          f"{step_wall:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
+          f"(idle share {profile_info['device_idle_share']:.3f}), "
+          f"{len(events) / prof_steps:.0f} device ops/step | top: "
+          + "; ".join(f"{k} {v / 1e3 / prof_steps:.3f} ms" for k, v in top),
+          flush=True)
+
+    meta = dict(
+        raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
+                    reference_line("ops/pallas_raster.py", "_fwd_kernel")),
+        raster_bwd=("gsgen_torch/csrc/raster_bwd.cu",
+                    reference_line("ops/pallas_raster.py", "_bwd_kernel_v2")),
+        expansion_rank=("gsgen_torch/csrc/expansion_rank.cu",
+                        reference_line("ops/expansion_rank.py", "_kernel")),
+        gid_repack=("gsgen_torch/csrc/gid_repack.cu",
+                    reference_line("ops/gid_repack.py", "_kernel")))
+    kernels = []
+    for k, (src, ref) in meta.items():
+        tb, tn = times_base[k], times_bench[k]
+        kernels.append(dict(
+            name=k, route="cuda", source=src, replaces=ref,
+            launches=launches[k], max_abs_err=errs[k], ms=tb["ms"],
+            plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
+            bound_by=tb["bound_by"], library_ms=tb["library_ms"],
+            shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
+                   "2^20)",
+            bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
+                              "2^18", **tn)))
+    print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
+                      "train_ms_per_step": step_ms, "build_s": build_s,
+                      "train_profile": profile_info}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,56 @@
+"""CLI entry point: train a text-to-3D Gaussian scene with the port.
+
+    python -m gsgen_torch.main --config configs/base.yaml guidance.type=mock --steps 5
+    python -m gsgen_torch.main --config configs/base.yaml guidance.type=mock ckpt=path/to/step_N
+
+``ckpt=`` resumes from a checkpoint directory of the JAX package
+(``arrays.npz``).  Runs on the card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="configs/base.yaml")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="number of steps to run (default: to max_steps)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("overrides", nargs="*",
+                    help="dotted config overrides, e.g. trainer.max_steps=100")
+    args = ap.parse_intermixed_args(argv)
+
+    from .config import build_trainer, load_config
+    from .training.trainer import train_state_from_jax_arrays
+
+    overrides = [o for o in args.overrides if "=" in o]
+    ckpt = None
+    for o in list(overrides):
+        if o.startswith("ckpt="):
+            ckpt = Path(o.split("=", 1)[1])
+            overrides.remove(o)
+    cfg = load_config(args.config, overrides)
+    trainer = build_trainer(cfg, device=args.device)
+    if ckpt is not None:
+        with np.load(ckpt / "arrays.npz") as data:
+            trainer.state = train_state_from_jax_arrays(dict(data),
+                                                        trainer.device)
+        print(f"resumed from {ckpt} at step {trainer.state.step}")
+
+    def cb(step, metrics):
+        if step % trainer.cfg.log_period == 0 or args.steps is not None:
+            print(f"step {step:6d} | loss {float(metrics['loss_total']):.6f}"
+                  f" | n_dup {int(metrics['n_dup_max'])}", flush=True)
+
+    trainer.fit(args.steps, callback=cb)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

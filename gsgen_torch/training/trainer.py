@@ -1,0 +1,347 @@
+"""Training orchestration: one text-to-3D training step, eagerly.
+
+Port of the JAX package's ``training/trainer.py``.  A step runs in the
+same order as the JAX package's jitted ``train_step``: backgrounds,
+render, guidance, the sparsity / opague / z_var terms, penalties,
+backward, per-field Adam, then the densify statistics (``grad_accum``,
+``grad_cnt``, ``max_radii2d``).  The host loop evaluates ``C()``
+schedules, samples numpy camera poses and keeps the duplicate-capacity
+bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
+compile-ahead threads have no counterpart.
+
+Not ported in this slice (``NotImplementedError``): densify / prune
+events, guidance other than mock, estimators, image-to-3D, auxiliary
+guidance, logging and checkpoints.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data.cameras import CameraPoseProvider, CameraSamplerConfig
+from ..guidance.mock import MockGuidance
+from ..models.background import (BackgroundConfig, apply_background,
+                                 init_background)
+from ..models.density import DensifyConfig, PruneConfig, should_run
+from ..models.init import InitConfig, initialize
+from ..models.scene import (FIELDS, RenderConfig, SceneState,
+                            render_batch, scene_from_numpy)
+from ..utils.schedule import C, make_lr_schedule
+from .losses import PENALTIES
+from .optimizer import AdamState, adam_init, adam_update
+
+
+@dataclasses.dataclass
+class LossConfig:
+    sds: Any = 0.1
+    vsd: Any = 1.0
+    lora: Any = 1.0
+    sparsity: Any = 0.0
+    opague: Any = 0.0          # sic — reference spelling
+    z_var: Any = 0.0
+    image: Any = 1000.0
+    depth: Any = 10.0
+    aux_guidance: Any = 0.0
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """Same keys as the JAX package's TrainerConfig; the logging, eval,
+    profiling and estimator keys are accepted and have no effect here."""
+
+    max_steps: int = 15000
+    batch_size: int = 4
+    grad_accum: int = 1
+    seed: int = 0
+    use_bg: bool = True
+    rgb_only: bool = False
+    lr: Dict[str, Any] = dataclasses.field(default_factory=lambda: dict(
+        mean=[0.005, 3.0e-5, 15000, "exp"],
+        svec=[0.003, 0.001, 15000, "exp"],
+        qvec=0.003, color=0.01, alpha=0.003, bg=0.003, guidance=1e-4))
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    penalty: Dict[str, Dict] = dataclasses.field(default_factory=lambda: {
+        "alpha": {"type": "center_weighted", "value": 0.0}})
+    log_period: int = 100
+    save_period: int = 2000
+    estimators: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+    auto_dup_bucket: bool = True
+    dup_bucket_min: int = 1 << 14
+    reso_prewarm_lead: int = 500
+    eval_image_period: int = 100
+    eval_video_period: int = 500
+    guidance_eval_period: int = 0
+    guidance_eval_steps: int = 25
+    eval_elevation: float = 45.0
+    eval_n_frames: int = 30
+    eval_camera_distance: float = 2.5
+    profile_steps: Any = None
+    field_stats_period: int = 0
+
+
+@dataclasses.dataclass
+class TrainState:
+    scene: SceneState
+    bg: Dict[str, torch.Tensor]
+    opt: AdamState       # over the scene fields and "bg/<name>" entries
+    step: int
+
+
+def _opt_params(params: Dict[str, torch.Tensor],
+                bg: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The optimizer's leaves: scene fields, then ``bg/<name>``."""
+    return {**params, **{f"bg/{k}": v for k, v in bg.items()}}
+
+
+def train_state_from_jax_arrays(arrays: Dict[str, np.ndarray], device
+                                ) -> TrainState:
+    """TrainState from the flattened key paths the JAX package's
+    checkpoints write to ``arrays.npz`` (``.scene/.params/.mean``,
+    ``.opt/.mu/[0]/.mean``, ``.bg/['name']``, ``.step``, ...).  The JAX
+    RNG key is not carried: the port draws from its own generator."""
+    def field(path, name):
+        return arrays[f"{path}/.{name}"]
+
+    scene = scene_from_numpy(
+        {**{f: field(".scene/.params", f) for f in FIELDS},
+         **{s: field(".scene", s) for s in
+            ("active", "max_radii2d", "grad_accum", "grad_cnt")}},
+        device)
+
+    def bg_dict(prefix):
+        out = {}
+        for key in arrays:
+            if key.startswith(prefix + "/['"):
+                out[key[len(prefix) + 3:-2]] = torch.as_tensor(
+                    np.array(arrays[key]), device=device)
+        return out
+
+    bg = bg_dict(".bg")
+    moments = {}
+    for m in ("mu", "nu"):
+        mom = {f: torch.as_tensor(np.array(field(f".opt/.{m}/[0]", f)),
+                                  device=device) for f in FIELDS}
+        mom.update({f"bg/{k}": v for k, v in
+                    bg_dict(f".opt/.{m}/[1]").items()})
+        moments[m] = mom
+    opt = AdamState(mu=moments["mu"], nu=moments["nu"],
+                    count=int(arrays[".opt/.count"]))
+    return TrainState(scene=scene, bg=bg, opt=opt,
+                      step=int(arrays[".step"]))
+
+
+class Trainer:
+    """Host loop around the eager train step; tensors live on ``device``
+    (the card unless the caller passes ``device="cpu"``)."""
+
+    def __init__(self, cfg: TrainerConfig, rcfg: RenderConfig,
+                 init_cfg: InitConfig, bg_cfg: BackgroundConfig,
+                 data_cfg: CameraSamplerConfig,
+                 guidance: Optional[MockGuidance] = None,
+                 dcfg: DensifyConfig = DensifyConfig(),
+                 pcfg: PruneConfig = PruneConfig(),
+                 init_points: Optional[np.ndarray] = None,
+                 init_colors: Optional[np.ndarray] = None,
+                 init_raw: Optional[Dict[str, np.ndarray]] = None,
+                 device="cuda"):
+        if cfg.estimators:
+            raise NotImplementedError("estimators")
+        for name in cfg.penalty:
+            if name not in PENALTIES:
+                raise NotImplementedError(f"penalty {name}")
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.rcfg = rcfg
+        self.bg_cfg = bg_cfg
+        self.dcfg = dcfg
+        self.pcfg = pcfg
+        self.guidance = guidance or MockGuidance()
+        self.data = CameraPoseProvider(data_cfg, seed=cfg.seed)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+
+        scene = initialize(init_cfg, rcfg, self.generator, self.device,
+                           points=init_points, colors=init_colors,
+                           raw_values=init_raw)
+        bg = init_background(bg_cfg, self.device)
+        self.state = TrainState(scene=scene, bg=bg,
+                                opt=adam_init(_opt_params(scene.params, bg)),
+                                step=0)
+        self.lr_fns = {k: make_lr_schedule(v, cfg.max_steps)
+                       for k, v in cfg.lr.items()}
+        self.dup_bucket = rcfg.dup_cap
+        self._shrink_streak = 0
+
+    # ---- schedules (host side) ----
+    def sched_scalars(self, step: int) -> Dict[str, float]:
+        c = lambda v: C(v, step, self.cfg.max_steps)  # noqa: E731
+        s = {
+            "w_sds": c(self.cfg.loss.sds),
+            "w_sparsity": c(self.cfg.loss.sparsity),
+            "w_opague": c(self.cfg.loss.opague),
+            "w_z_var": c(self.cfg.loss.z_var),
+        }
+        for f, fn in self.lr_fns.items():
+            s[f"lr_{f}"] = fn(step)
+        for name, p in self.cfg.penalty.items():
+            s[f"w_pen_{name}"] = c(p["value"])
+        return s
+
+    def _effective_rcfg(self) -> RenderConfig:
+        if self.dup_bucket == self.rcfg.dup_cap:
+            return self.rcfg
+        return dataclasses.replace(self.rcfg, dup_cap=self.dup_bucket)
+
+    def _loss(self, params, bg, taps, batch, sched, intr, rcfg):
+        cfg = self.cfg
+        B = batch["c2w"].shape[0]
+        bgs = torch.stack([apply_background(bg, self.bg_cfg, self.generator,
+                                            self.device, training=True)
+                           for _ in range(B)])
+        if not cfg.use_bg:
+            bgs = torch.zeros_like(bgs)
+        outs = render_batch(params, self.state.scene.active, batch["c2w"],
+                            intr, rcfg, bgs, batch["fx"], batch["fy"],
+                            batch["cx"], batch["cy"], rgb_only=cfg.rgb_only,
+                            mean2d_taps=taps)
+        g = self.guidance.loss(outs["rgb"])
+        loss = sched["w_sds"] * g["loss_sds"]
+        metrics = dict(g)
+        if not cfg.rgb_only:
+            opacity = outs["opacity"]
+            sparsity = torch.mean(torch.sqrt(opacity ** 2 + 0.01))
+            o = torch.clamp(opacity, 1e-3, 1.0 - 1e-3)
+            opague = torch.mean(-(o * torch.log(o)
+                                  + (1 - o) * torch.log(1 - o)))
+            z_var = torch.mean(outs["z_var"] / o * (o > 0.5))
+            loss = (loss + sched["w_sparsity"] * sparsity
+                    + sched["w_opague"] * opague
+                    + sched["w_z_var"] * z_var)
+            metrics.update(loss_sparsity=sparsity, loss_opague=opague,
+                           loss_z_var=z_var)
+        for name, p in cfg.penalty.items():
+            pen = PENALTIES[name](params, self.state.scene.active, cfg=rcfg,
+                                  kind=p.get("type", "center_weighted"))
+            loss = loss + sched[f"w_pen_{name}"] * pen
+            metrics[f"pen_{name}"] = pen
+        metrics["loss_total"] = loss
+        metrics["n_dup_max"] = torch.amax(outs["n_dup"])
+        return loss, outs, metrics
+
+    def _train_step(self, batches, sched, intr):
+        """One optimizer step over ``grad_accum`` micro-batches."""
+        cfg = self.cfg
+        state = self.state
+        scene = state.scene
+        rcfg = self._effective_rcfg()
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in scene.params.items()}
+        bg = {k: v.detach().requires_grad_(True)
+              for k, v in state.bg.items()}
+        leaves = _opt_params(params, bg)
+        A = cfg.grad_accum
+        gsum = {k: torch.zeros_like(v) for k, v in leaves.items()}
+        tap_grads, vis_list, radii_list = [], [], []
+        for batch in batches:
+            B = batch["c2w"].shape[0]
+            taps = torch.zeros(B, scene.params["mean"].shape[0], 2,
+                               device=self.device, requires_grad=True)
+            loss, outs, metrics = self._loss(params, bg, taps, batch, sched,
+                                             intr, rcfg)
+            names = list(leaves)
+            grads = torch.autograd.grad(
+                loss, [leaves[k] for k in names] + [taps], allow_unused=True)
+            for k, gr in zip(names, grads[:-1]):
+                if gr is not None:
+                    gsum[k] = gsum[k] + gr
+            tap_grads.append(grads[-1])
+            if not cfg.rgb_only:
+                vis_list.append(outs["visible"])
+                radii_list.append(outs["radii2d"].detach())
+        grads = {k: v / A for k, v in gsum.items()}
+        lrs = {k: sched[f"lr_{k}"] for k in scene.params}
+        lrs.update({f"bg/{k}": sched["lr_bg"] for k in state.bg})
+        new, opt = adam_update(grads, state.opt,
+                               _opt_params(scene.params, state.bg), lrs)
+
+        with torch.no_grad():
+            tg = torch.cat(tap_grads, dim=0)                 # [A*B, M, 2]
+            gnorm = torch.linalg.norm(tg, dim=-1)
+            grad_accum = scene.grad_accum + torch.sum(gnorm, dim=0)
+            if vis_list:
+                vis = torch.cat(vis_list, dim=0)
+                grad_cnt = scene.grad_cnt + torch.sum(vis, dim=0)
+                r = torch.amax(torch.cat(radii_list, dim=0), dim=0)
+                max_radii2d = torch.maximum(scene.max_radii2d, r)
+            else:
+                grad_cnt = scene.grad_cnt + torch.sum(gnorm > 0, dim=0)
+                max_radii2d = scene.max_radii2d
+        new_scene = SceneState(
+            params={k: new[k] for k in scene.params}, active=scene.active,
+            max_radii2d=max_radii2d, grad_accum=grad_accum,
+            grad_cnt=grad_cnt.to(torch.float32))
+        new_bg = {k: new[f"bg/{k}"] for k in state.bg}
+        self.state = TrainState(scene=new_scene, bg=new_bg, opt=opt,
+                                step=state.step + 1)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _adjust_dup_bucket(self, n_dup_max: int):
+        """Grow on (near-)overflow, shrink after 20 undersubscribed
+        feedback events in a row."""
+        cap = self.dup_bucket
+        if n_dup_max > 0.7 * cap:
+            self.dup_bucket = cap * 2
+            self._shrink_streak = 0
+        elif n_dup_max < 0.15 * cap and cap > self.cfg.dup_bucket_min:
+            self._shrink_streak += 1
+            if self._shrink_streak >= 20:
+                self.dup_bucket = cap // 2
+                self._shrink_streak = 0
+        else:
+            self._shrink_streak = 0
+
+    # ---- host loop ----
+    def _batch_tensors(self, batch: Dict[str, np.ndarray]):
+        return {k: torch.as_tensor(v, dtype=torch.float32,
+                                   device=self.device)
+                for k, v in batch.items()}
+
+    def train_step(self, step: int) -> Dict[str, torch.Tensor]:
+        """One training step on ``grad_accum`` batches of sampled poses."""
+        self.data.update(step)
+        intr = self.data.intrinsics()
+        sched = self.sched_scalars(step)
+        batches = [self.data.get_batch() for _ in range(self.cfg.grad_accum)]
+        metrics = self._train_step([self._batch_tensors(b) for b in batches],
+                                   sched, intr)
+        # bucket feedback every 10 steps: int() waits for the device
+        if self.cfg.auto_dup_bucket and step % 10 == 0:
+            self._adjust_dup_bucket(int(metrics["n_dup_max"]))
+        return metrics
+
+    def density_step(self, step: int) -> Dict[str, Any]:
+        if should_run(step, self.dcfg.enabled, self.dcfg.warm_up,
+                      self.dcfg.end, self.dcfg.period):
+            raise NotImplementedError(f"densify event at step {step}")
+        if should_run(step, self.pcfg.enabled, self.pcfg.warm_up,
+                      self.pcfg.end, self.pcfg.period):
+            raise NotImplementedError(f"prune event at step {step}")
+        return {}
+
+    def fit(self, n_steps: Optional[int] = None,
+            callback: Optional[Callable[[int, Dict], None]] = None):
+        """``n_steps`` more steps, or by default up to ``cfg.max_steps``
+        in total (a resumed trainer continues, it does not restart)."""
+        start = self.state.step
+        n = (n_steps if n_steps is not None
+             else max(self.cfg.max_steps - start, 0))
+        for step in range(start, start + n):
+            metrics = self.train_step(step)
+            dinfo = self.density_step(step)
+            if callback is not None:
+                callback(step, {**metrics, **dinfo})
+        return self.state

@@ -1,0 +1,109 @@
+"""gsgen_torch's CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA device and skip elsewhere.  The file imports
+neither JAX nor the JAX package, so it also runs on a machine without
+them; there, skip the JAX-importing conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances as in test_pallas.py: T rtol 1e-5 / atol 1e-6, image rtol
+1e-4 / atol 1e-5, gradients rtol 2e-3 / atol 2e-4; index kernels exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gsgen_torch.models.scene import RenderConfig, render_view
+from gsgen_torch.ops import binning, cuda_raster, expansion_rank, gid_repack
+from gsgen_torch.ops.camera import CameraIntrinsics
+from torch_fixtures import (CHUNK, FX, RES, TILE, conic_np, scene2d,
+                            scene3d, t)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_index_kernels_match_plain(cuda):
+    rng = np.random.default_rng(0)
+    counts = rng.integers(0, 30, 3000).astype(np.int32)
+    cum = t(np.cumsum(counts).astype(np.int32)).to(cuda)
+    for cap in (4096, 1 << 16):
+        n0 = expansion_rank.expansion_gid.launches
+        got = expansion_rank.expansion_gid(cum, cap)
+        assert expansion_rank.expansion_gid.launches == n0 + 1
+        assert torch.equal(got, expansion_rank.expansion_gid_plain(cum, cap))
+    seen = {}
+
+    def record(*args):
+        seen["args"] = args
+        return gid_repack.repack_gid(*args)
+
+    mean2d, cov2d, alpha, _, depth = scene2d(200, 1)
+    orig = binning.repack_gid
+    binning.repack_gid = record
+    try:
+        binning.bin_gaussians(*(t(x).to(cuda) for x in
+                                (mean2d, cov2d, depth)),
+                              torch.ones(200, dtype=torch.bool, device=cuda),
+                              FX, FX, RES / 2.0, RES / 2.0, RES, RES, TILE,
+                              4096, chunk=CHUNK, alpha=t(alpha).to(cuda))
+    finally:
+        binning.repack_gid = orig
+    assert torch.equal(gid_repack.repack_gid(*seen["args"]),
+                       gid_repack.repack_gid_plain(*seen["args"]))
+
+
+@pytest.mark.parametrize("F", [3, 5])
+def test_raster_kernels_match_plain(cuda, F):
+    mean2d, cov2d, alpha, feats, depth = scene2d(80, 2, F=F)
+    args = (mean2d, conic_np(cov2d), alpha, feats)
+    results = []
+    for dev in ("cpu", cuda):
+        bins = binning.bin_gaussians(
+            t(mean2d).to(dev), t(cov2d).to(dev), t(depth).to(dev),
+            torch.ones(80, dtype=torch.bool, device=dev), FX, FX, RES / 2.0,
+            RES / 2.0, RES, RES, TILE, 4096, chunk=CHUNK,
+            tile_culling_radius=60.0)
+        ps = [t(x).to(dev).requires_grad_(True) for x in args]
+        img, T = cuda_raster.rasterize_tiles_cuda(
+            *ps, bins, (-1.0, -1.0), (1 / FX, 1 / FX), w=RES, h=RES,
+            tile_size=TILE, chunk=CHUNK)
+        (img.square().sum() + T.sum()).backward()
+        results.append((img.detach().cpu(), T.detach().cpu(),
+                        [p.grad.cpu() for p in ps]))
+    (img_c, T_c, g_c), (img_k, T_k, g_k) = results
+    np.testing.assert_allclose(T_k.numpy(), T_c.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(img_k.numpy(), img_c.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(g_k, g_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                   atol=2e-4)
+
+
+def test_render_view_on_card_matches_cpu(cuda):
+    raw = scene3d(150, seed=3, capacity=160)
+    from gsgen_torch.models.scene import scene_from_numpy
+    cfg = RenderConfig(tile_size=8, chunk=128, dup_cap=4096)
+    c2w = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.5]],
+                   np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        sc = scene_from_numpy(raw, dev)
+        o = render_view(sc.params, sc.active, c2w,
+                        CameraIntrinsics.from_reso(RES), cfg,
+                        np.ones(3, np.float32))
+        outs.append({k: v.cpu() for k, v in o.items()})
+    for k in ("rgb", "T", "depth", "z_var"):
+        np.testing.assert_allclose(outs[1][k].numpy(), outs[0][k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    assert torch.equal(outs[1]["n_dup"], outs[0]["n_dup"])
