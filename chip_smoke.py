@@ -13,15 +13,28 @@ Phases, each reported on its own line:
    render (chunk 256, dup_cap 2^20) and on an opaque early-exit scene,
    with feature widths F=3 and F=5; plus a full small render against the
    dense oracle;
+   Phase 3 also holds K5 (flash self-attention forward) against its plain
+   version at SD 2.1's level 0 [8, 4096, 5, 64] in bf16 and fp32, SD
+   1.5's level 0 [8, 4096, 8, 40] in bf16 and a small [2, 256, 2, 64] in
+   fp32;
 4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
    full width through build_trainer / fit, with every kernel's launch
    counter read around the run;
 5. times: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, at the bench and base.yaml
-   shapes, and the full render forward+backward;
+   shapes (K5 at SD 2.1's level 0, SDPA its library yardstick), and the
+   full render forward+backward;
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
+7. sds: the slice, configs/base.yaml with SDS on the SD 2.1 UNet and VAE
+   in bf16 (random weights, mock prompt embeddings) for 3 steps at 512^2,
+   batch 4, with K1-K5's launch counters read around the run; first the
+   SDS loss and its render gradient on a TINY backbone on the card
+   against the same on the CPU; then 2 steps each of configs/base.yaml
+   as it is (SDS on MockUNet) and configs/flagship_rehearsal.yaml;
+8. sds profile: one slice step under torch.profiler, device time split
+   into render, VAE and UNet (trace: gsgen_torch/_build/sds_step_trace.json);
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -39,7 +52,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
+# K5 against its plain version: max abs error over max |plain output|
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SD21_ATTN = (8, 4096, 5, 64)    # SD 2.1 level-0 self-attention [B, L, H, D]
+SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
+         "guidance.backbone_dtype=bfloat16"]
 SMALL_TOL = dict(T=(1e-5, 1e-6), img=(1e-4, 1e-5), grad=(2e-3, 2e-4))
 SCALE_TOL = dict(T=(1e-3, 3e-4), img=(2e-3, 5e-4), grad=(5e-3, 2e-3))
 
@@ -88,7 +107,8 @@ def run(torch) -> int:
     from gsgen_torch.models.scene import (RenderConfig, activate,
                                           render_view)
     from gsgen_torch.ops import (binning, cuda_lib, cuda_raster,
-                                 expansion_rank, gid_repack)
+                                 expansion_rank, flash_attention,
+                                 gid_repack)
     from gsgen_torch.ops.camera import (CameraIntrinsics, get_frustum,
                                         sphere_in_frustum)
     from gsgen_torch.ops.oracle import composite_dense, pixel_grid
@@ -175,7 +195,7 @@ def run(torch) -> int:
         return float(err.max()) if err.numel() else 0.0
 
     errs = {k: 0.0 for k in ("raster_fwd", "raster_bwd", "expansion_rank",
-                             "gid_repack")}
+                             "gid_repack", "flash_attn_fwd")}
     notes = []
 
     def recorded_bins(prep):
@@ -335,47 +355,54 @@ def run(torch) -> int:
                           RenderConfig(dup_cap=1 << 19, chunk=128), False),
                   SCALE_TOL)
     del s_large
+
+    # K5: flash self-attention forward against its plain version
+    def qkv(shape, dtype, seed):
+        g = gen.manual_seed(seed)
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for _ in range(3)]
+
+    for i, (label, shape, dtn) in enumerate((
+            ("SD 2.1 level 0", SD21_ATTN, "bfloat16"),
+            ("SD 2.1 level 0", SD21_ATTN, "float32"),
+            ("SD 1.5 level 0", (8, 4096, 8, 40), "bfloat16"),
+            ("small", (2, 256, 2, 64), "float32"))):
+        dt = getattr(torch, dtn)
+        q, k, v = qkv(shape, dt, 20 + i)
+        scale = shape[-1] ** -0.5
+        got = flash_attention.flash_self_attention(q, k, v, scale)
+        want = flash_attention.flash_self_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        require(got.shape == q.shape and got.dtype == dt,
+                f"K5 {label} {dtn}: output {got.dtype} {tuple(got.shape)}")
+        require(bool(torch.isfinite(got).all()),
+                f"K5 {label} {dtn}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtn] * float(want.float().abs().max())
+        require(err <= tol, f"K5 {label} {shape} {dtn}: max abs err "
+                f"{err:.3e} above {tol:.3e}")
+        errs["flash_attn_fwd"] = max(errs["flash_attn_fwd"], err)
+        notes.append(f"K5 {label} {list(shape)} {dtn}: max abs err "
+                     f"{err:.2e} (tol {tol:.2e})")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
     print("phase 3 kernels: ok | " + " | ".join(notes), flush=True)
 
     # ---- phase 4: train configs/base.yaml (guidance.type=mock) ----
-    trainer = build_trainer(load_config(ROOT / "configs" / "base.yaml",
-                                        ["guidance.type=mock"]),
-                            device="cuda")
     wrappers = dict(raster_fwd=cuda_raster.raster_fwd,
                     raster_bwd=cuda_raster.raster_bwd,
                     expansion_rank=expansion_rank.expansion_gid,
-                    gid_repack=gid_repack.repack_gid)
-    p0 = {k: v.detach().clone() for k, v in trainer.state.scene.params.items()}
-    losses, stamps = [], []
-
-    def on_step(step, metrics):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        losses.append(float(metrics["loss_total"]))
-
-    n_steps = 5
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    trainer.fit(n_steps, callback=on_step)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    views = n_steps * trainer.cfg.batch_size * trainer.cfg.grad_accum
-    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    require(len(set(losses)) > 1, f"loss never changed: {losses}")
-    moved = {k: float((v - p0[k]).abs().max())
-             for k, v in trainer.state.scene.params.items()}
-    require(all(m > 0 for m in moved.values()), f"params not moved {moved}")
-    require(trainer.state.step == n_steps, "step counter")
-    for k, c in launches.items():
-        require(c == views, f"{k} launched {c} times in {n_steps} steps, "
-                f"expected {views}")
-    step_ms = [1e3 * (b - a) for a, b in zip([t_start] + stamps, stamps)]
+                    gid_repack=gid_repack.repack_gid,
+                    flash_attn_fwd=flash_attention.flash_self_attention)
+    trainer, mock = drive(torch, build_trainer, load_config, wrappers,
+                          "base.yaml", ["guidance.type=mock"], 5, 0)
+    step_ms = mock["ms_per_step"]
     print(f"phase 4 train: ok configs/base.yaml guidance.type=mock "
-          f"{n_steps} steps, batch {trainer.cfg.batch_size}, "
-          f"512^2, capacity {trainer.state.scene.params['mean'].shape[0]} "
-          f"| losses {losses} | ms/step {[round(x, 3) for x in step_ms]} "
-          f"| launches {launches}", flush=True)
+          f"{mock['steps']} steps, batch {mock['batch']}, {mock['reso']}^2, "
+          f"capacity {trainer.state.scene.params['mean'].shape[0]} "
+          f"| losses {mock['losses']} | ms/step "
+          f"{[round(x, 3) for x in step_ms]} | launches {mock['launches']}",
+          flush=True)
 
     # ---- phase 5: times ----
     def time_ms(fn, iters, warmup=1):
@@ -500,6 +527,48 @@ def run(torch) -> int:
 
     render = dict(bench=render_ms(s_bench, c2w_front, intr512, rc_bench),
                   base=render_ms(*base_view))
+
+    # K5 at SD 2.1's level 0 in bf16 (the slice's type); the yardstick is
+    # one SDPA call on [B, H, L, D] views of the same tensors
+    import torch.nn.functional as F
+    B, L, H, D = SD21_ATTN
+    scale = D ** -0.5
+    flash_ops = 4.0 * B * H * L * L * D
+    q, k, v = qkv(SD21_ATTN, torch.bfloat16, 30)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_err = float((F.scaled_dot_product_attention(
+        qh, kh, vh, scale=scale).transpose(1, 2).float()
+        - flash_attention.flash_self_attention_plain(
+            q, k, v, scale).float()).abs().max())
+    b_ms = 1e3 * 4 * B * L * H * D * 2 / PEAK_BYTES
+    o_ms = 1e3 * flash_ops / PEAK_BF16_FLOPS
+    times_flash = dict(
+        ms=time_ms(lambda: flash_attention.flash_self_attention(
+            q, k, v, scale), 20),
+        plain_ms=time_ms(lambda: flash_attention.flash_self_attention_plain(
+            q, k, v, scale), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), 20),
+        bound_ms=max(b_ms, o_ms),
+        bound_by="bytes" if b_ms >= o_ms else "operations")
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    flash_fp32_ms = time_ms(lambda: flash_attention.flash_self_attention(
+        q32, k32, v32, scale), 5)
+    flash_fp32_plain_ms = time_ms(
+        lambda: flash_attention.flash_self_attention_plain(
+            q32, k32, v32, scale), 3)
+    del q, k, v, qh, kh, vh, q32, k32, v32
+    torch.cuda.empty_cache()
+    print(f"phase 5 times: ok | card {card} | K5 {list(SD21_ATTN)} bf16 "
+          f"{times_flash['ms']:.4f} ms = "
+          f"{flash_ops / times_flash['ms'] / 1e9:.1f} TFLOP/s (plain "
+          f"{times_flash['plain_ms']:.3f}, SDPA "
+          f"{times_flash['library_ms']:.4f} [max abs diff to plain "
+          f"{sdpa_err:.2e}], bound {times_flash['bound_ms']:.4f} "
+          f"{times_flash['bound_by']}), fp32 {flash_fp32_ms:.3f} ms "
+          f"(plain {flash_fp32_plain_ms:.3f}, bound "
+          f"{1e3 * flash_ops / PEAK_FLOPS:.3f} at 67 TFLOP/s)",
+          flush=True)
     print(f"phase 5 times: ok | card {card} | render fwd+bwd 512^2: "
           + ", ".join(f"{k} {v:.3f} ms = {512 * 512 / v * 1e3:.0f} rays/s"
                       for k, v in render.items()) + " | "
@@ -522,17 +591,12 @@ def run(torch) -> int:
     trace = cuda_lib.BUILD / "train_step_trace.json"
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X" and e.get("cat") in
-              ("kernel", "gpu_memcpy", "gpu_memset")]
-    busy, end = 0.0, -math.inf
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    busy = busy_us(events)
     by_name = {}
-    for e in sorted(events, key=lambda e: e["ts"]):
-        s, d = float(e["ts"]), float(e["dur"])
-        busy += max(0.0, s + d - max(s, end))
-        end = max(end, s + d)
-        key = e["name"].replace("(anonymous namespace)::", "")
-        key = key.replace("void ", "").split("(")[0].split("<")[0][-48:]
-        by_name[key] = by_name.get(key, 0.0) + d
+    for e in events:
+        key = kernel_key(e["name"])
+        by_name[key] = by_name.get(key, 0.0) + float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     busy_ms = busy / 1e3 / prof_steps
     step_wall = wall_ms / prof_steps
@@ -548,6 +612,17 @@ def run(torch) -> int:
           f"{len(events) / prof_steps:.0f} device ops/step | top: "
           + "; ".join(f"{k} {v / 1e3 / prof_steps:.3f} ms" for k, v in top),
           flush=True)
+
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: SDS on the SD 2.1 UNet + VAE (the slice) ----
+    sds = sds_phases(torch, dev, build_trainer, load_config, wrappers)
+    launches = sds["launches"]
+
+    # ---- phase 8: where an SDS step's device time goes ----
+    sds_profile = profile_sds_step(torch, sds.pop("trainer"),
+                                   cuda_lib.BUILD / "sds_step_trace.json")
 
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
@@ -570,14 +645,261 @@ def run(torch) -> int:
                    "2^20)",
             bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
                               "2^18", **tn)))
+    kernels.append(dict(
+        name="flash_attn_fwd", route="cuda",
+        source="gsgen_torch/csrc/flash_attn_fwd.cu",
+        replaces=reference_line("guidance/unet2d.py",
+                                "_flash_self_attention"),
+        launches=launches["flash_attn_fwd"],
+        max_abs_err=errs["flash_attn_fwd"], **times_flash,
+        shapes=f"SD 2.1 level-0 self-attention {list(SD21_ATTN)} bf16",
+        fp32_ms=flash_fp32_ms, fp32_plain_ms=flash_fp32_plain_ms))
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
                       "train_ms_per_step": step_ms, "build_s": build_s,
-                      "train_profile": profile_info}), flush=True)
+                      "train_profile": profile_info, "sds": sds,
+                      "sds_profile": sds_profile}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(events):
+    """Union of the device events' [ts, ts + dur) spans, in us."""
+    busy, end = 0.0, -math.inf
+    for e in sorted(events, key=lambda e: e["ts"]):
+        s, d = float(e["ts"]), float(e["dur"])
+        busy += max(0.0, s + d - max(s, end))
+        end = max(end, s + d)
+    return busy
+
+
+def kernel_key(name):
+    """A device kernel's name without its template and argument lists."""
+    key = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return key.split("(")[0].split("<")[0][-48:]
+
+
+def drive(torch, build_trainer, load_config, wrappers, cfg_name, overrides,
+          n_steps, k5_per_step):
+    """``n_steps`` training steps of a config through build_trainer / fit
+    with every kernel counter set to 0 just before and read just after;
+    losses finite and changing, every scene parameter moved, K1-K4 once
+    per view and K5 ``k5_per_step`` times a step."""
+    label = " ".join([cfg_name] + overrides)
+    trainer = build_trainer(load_config(ROOT / "configs" / cfg_name,
+                                        overrides), device="cuda")
+    p0 = {k: v.detach().clone() for k, v in trainer.state.scene.params.items()}
+    losses, stamps = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(metrics["loss_total"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t_start = time.perf_counter()
+    trainer.fit(n_steps, callback=on_step)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    views = n_steps * trainer.cfg.batch_size * trainer.cfg.grad_accum
+    require(trainer.state.step == n_steps, f"{label}: step counter")
+    require(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    require(len(set(losses)) > 1, f"{label}: loss never changed: {losses}")
+    moved = {k: float((v - p0[k]).abs().max())
+             for k, v in trainer.state.scene.params.items()}
+    require(all(m > 0 for m in moved.values()),
+            f"{label}: params not moved {moved}")
+    for k, c in launches.items():
+        want = k5_per_step * n_steps if k == "flash_attn_fwd" else views
+        require(c == want, f"{label}: {k} launched {c} times in {n_steps} "
+                f"steps, expected {want}")
+    res = dict(config=label, steps=n_steps,
+               batch=trainer.cfg.batch_size,
+               reso=trainer.data.intrinsics().w, losses=losses,
+               ms_per_step=[1e3 * (b - a) for a, b in
+                            zip([t_start] + stamps, stamps)],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    return trainer, res
+
+
+def sds_phases(torch, dev, build_trainer, load_config, wrappers):
+    """Phase 7: the SDS loss on the card against the CPU (TINY backbone),
+    then the slice config, base.yaml and flagship_rehearsal.yaml."""
+    import copy
+
+    from gsgen_torch.guidance.sd_unet import TINY, SDUNetBackbone
+    from gsgen_torch.guidance.sds import SDSConfig, SDSGuidance
+    from gsgen_torch.guidance.unet2d import set_fused_attention
+    from gsgen_torch.prompt.processors import (PromptProcessor,
+                                               PromptProcessorConfig)
+
+    # the SDS loss and its render gradient, card vs CPU (fp32, TF32 off;
+    # latent 16 puts the TINY UNet's level 0 at L = 256: K5 in fp32,
+    # three launches)
+    cpu = torch.device("cpu")
+    bb_cpu = SDUNetBackbone(TINY, latent_size=16, device="cpu")
+    bb_dev = copy.deepcopy(bb_cpu).to(dev)
+    set_fused_attention(bb_dev, "on")
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rgb = torch.rand(2, 40, 40, 3, generator=g)
+    tt = torch.tensor([150, 800])
+    noise = torch.randn(2, 16, 16, 4, generator=g)
+    cams = (torch.tensor([10.0, 70.0]), torch.tensor([20.0, -160.0]),
+            torch.tensor([2.5, 2.5]))
+    out = {}
+    for d, bb in ((cpu, bb_cpu), (dev, bb_dev)):
+        guid = SDSGuidance(SDSConfig(), bb, device=d)
+        emb = PromptProcessor(PromptProcessorConfig(use_cache=False),
+                              device=d)()
+        x = rgb.to(d).detach().requires_grad_(True)
+        n0 = wrappers["flash_attn_fwd"].launches
+        r = guid.loss(x, emb, *(c.to(d) for c in cams), t=tt.to(d),
+                      noise=noise.to(d))
+        r["loss_sds"].backward()
+        out[d.type] = (float(r["loss_sds"].detach()), x.grad.cpu(),
+                       wrappers["flash_attn_fwd"].launches - n0)
+    (l_c, g_c, _), (l_d, g_d, k5) = out["cpu"], out["cuda"]
+    require(k5 == 3, f"TINY SDS on the card launched K5 {k5} times, not 3")
+    require(abs(l_d - l_c) <= 1e-3 * abs(l_c),
+            f"TINY SDS loss card {l_d} vs CPU {l_c}")
+    g_err = float((g_d - g_c).abs().max())
+    require(g_err <= 1e-3 * float(g_c.abs().max()),
+            f"TINY SDS rgb grad card vs CPU: max abs err {g_err:.3e}")
+    del bb_cpu, bb_dev
+
+    trainer, slice_res = drive(torch, build_trainer, load_config, wrappers,
+                               "base.yaml", SLICE, 3, 5)
+    res = dict(tiny_card_vs_cpu=dict(loss=[l_c, l_d], grad_max_abs_err=g_err),
+               slice=slice_res, launches=slice_res["launches"])
+    print(f"phase 7 sds: ok TINY SDS loss card {l_d:.6g} vs CPU {l_c:.6g}, "
+          f"rgb grad max abs err {g_err:.2e} | slice {slice_res['config']}: "
+          f"{slice_res['steps']} steps, batch {slice_res['batch']}, "
+          f"{slice_res['reso']}^2 | losses {slice_res['losses']} | ms/step "
+          f"{[round(x, 2) for x in slice_res['ms_per_step']]} | peak "
+          f"{slice_res['peak_gib']:.2f} GiB | launches "
+          f"{slice_res['launches']}", flush=True)
+    for name, k5 in (("base.yaml", 0), ("flagship_rehearsal.yaml", 5)):
+        other, r = drive(torch, build_trainer, load_config, wrappers, name,
+                         [], 2, k5)
+        del other
+        torch.cuda.empty_cache()
+        res[name] = r
+        print(f"phase 7 sds: ok {name}: 2 steps, batch {r['batch']}, "
+              f"{r['reso']}^2 | losses {r['losses']} | ms/step "
+              f"{[round(x, 2) for x in r['ms_per_step']]} | peak "
+              f"{r['peak_gib']:.2f} GiB | launches {r['launches']}",
+              flush=True)
+    res["trainer"] = trainer
+    return res
+
+
+def profile_sds_step(torch, trainer, trace):
+    """Phase 8: one SDS step under torch.profiler.  Each device op is
+    attributed to the host range its launch fell in: the render forward,
+    the UNet, the VAE forward and the VAE backward (between the gradient
+    reaching the latents and leaving the images); other launches from the
+    backward thread are the render backward, the rest is "other"
+    (optimizer, losses, SDS glue)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import gsgen_torch.training.trainer as trainer_mod
+
+    bb = trainer.guidance.backbone
+    orig = (trainer_mod.render_batch, bb.predict_noise, bb.encode_images)
+
+    def render_batch(*a, **kw):
+        with record_function("sds:render"):
+            return orig[0](*a, **kw)
+
+    def predict_noise(*a, **kw):
+        with record_function("sds:unet"):
+            return orig[1](*a, **kw)
+
+    def encode_images(imgs):
+        span = {}
+
+        def start(grad):
+            span["rf"] = record_function("sds:vae_bwd")
+            span["rf"].__enter__()
+
+        def stop(grad):
+            if "rf" in span:
+                span.pop("rf").__exit__(None, None, None)
+
+        if imgs.requires_grad:
+            imgs.register_hook(stop)
+        with record_function("sds:vae"):
+            z = orig[2](imgs)
+        if z.requires_grad:
+            z.register_hook(start)
+        return z
+
+    trainer_mod.render_batch = render_batch
+    bb.predict_noise, bb.encode_images = predict_noise, encode_images
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(1)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        trainer_mod.render_batch = orig[0]
+        del bb.predict_noise, bb.encode_images
+    prof.export_chrome_trace(str(trace))
+    ev = [e for e in json.loads(trace.read_text())["traceEvents"]
+          if e.get("ph") == "X"]
+    dev_ev = [e for e in ev if e.get("cat") in DEVICE_CATS]
+    require(len(dev_ev) > 0, "the profiler saw no device work in an SDS step")
+    launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in ev
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    spans = [(e["name"][4:], e["ts"], e["ts"] + e["dur"], e["tid"])
+             for e in ev if e.get("cat") == "user_annotation"
+             and e["name"].startswith("sds:")]
+    bwd_tids = {tid for name, _, _, tid in spans if name == "vae_bwd"}
+
+    def group(e):
+        hit = launch.get(e.get("args", {}).get("correlation"))
+        if hit is None:
+            return "unattributed"
+        ts, tid = hit
+        for name, a, b, stid in spans:
+            if stid == tid and a <= ts <= b:
+                return "vae" if name.startswith("vae") else name
+        return "render" if tid in bwd_tids else "other"
+
+    by_group, by_name = {}, {}
+    for e in dev_ev:
+        grp, d = group(e), float(e["dur"]) / 1e3
+        by_group[grp] = by_group.get(grp, 0.0) + d
+        key = (grp, kernel_key(e["name"]))
+        by_name[key] = by_name.get(key, 0.0) + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    busy_ms = busy_us(dev_ev) / 1e3
+    info = dict(traced_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                device_ops_per_step=len(dev_ev),
+                device_ms_by_part=by_group,
+                top_device_ms=[[g, k, v] for (g, k), v in top])
+    print(f"phase 8 sds profile: ok 1 traced step, {wall_ms:.2f} ms, device "
+          f"busy {busy_ms:.2f} ms (idle share "
+          f"{info['device_idle_share']:.3f}), {len(dev_ev)} device ops | "
+          "by part (device ms): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(by_group.items(),
+                                                 key=lambda kv: -kv[1]))
+          + " | top: " + "; ".join(f"[{g}] {k} {v:.3f} ms"
+                                   for (g, k), v in top), flush=True)
+    return info
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 Port of the JAX package's ``config.py``: ``load_config`` reads a YAML
 file, deep-merges its ``include:`` list and applies dotted CLI overrides
 with YAML-typed values (``guidance.type=mock``); ``build_trainer`` wires
-the subsystems this slice ports from the same ``configs/`` tree.
+the subsystems the port has from the same ``configs/`` tree: guidance
+``mock`` and ``sds`` (on ``MockUNet`` or the SD UNet + VAE backbone).
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import yaml
 
 from .data.cameras import CameraSamplerConfig
 from .guidance.mock import MockGuidance
+from .guidance.sds import SDSConfig, SDSGuidance
 from .models.background import BackgroundConfig
 from .models.density import DensifyConfig, PruneConfig
 from .models.init import InitConfig
 from .models.scene import RenderConfig
+from .prompt.encoders import build_encode_fn
+from .prompt.processors import PromptProcessor, PromptProcessorConfig
 from .training.trainer import LossConfig, Trainer, TrainerConfig
 
 # init keys that configure priors of later slices (checkpoint paths,
@@ -135,6 +139,47 @@ def load_config(path, overrides: Optional[List[str]] = None) -> Dict:
     return cfg
 
 
+def _build_prompt_processor(prompt_d: Dict, device) -> PromptProcessor:
+    """PromptProcessor on ``device`` (mock embeddings until the CLIP/T5
+    encoders are ported)."""
+    pcfg = _from_dict(PromptProcessorConfig, prompt_d)
+    return PromptProcessor(pcfg, encode_fn=build_encode_fn(pcfg.model_id),
+                           device=device)
+
+
+def _build_backbone(g_d: Dict, device):
+    """Pop the backbone keys from the guidance block; None means the
+    SDS default, MockUNet."""
+    kind = g_d.pop("backbone", "mock")
+    preset = g_d.pop("backbone_preset", "tiny")
+    weights = g_d.pop("weights_path", None)
+    dtype = g_d.pop("backbone_dtype", None)
+    # attention core: "auto" (K5 at the 4096-token level on the card) |
+    # "on" | "off" -- see unet2d.set_fused_attention; YAML reads a bare
+    # on / off as a boolean
+    fused_attn = g_d.pop("fused_attention", "auto")
+    fused_attn = {True: "on", False: "off"}.get(fused_attn, str(fused_attn))
+    from .guidance.unet2d import FUSED_ATTENTION_MODES, set_fused_attention
+    if fused_attn not in FUSED_ATTENTION_MODES:
+        raise ValueError(f"fused attention mode {fused_attn!r}")
+    if kind == "mock":
+        return None
+    if kind != "sd_unet":
+        raise NotImplementedError(f"backbone {kind}")
+    from .guidance.sd_unet import (SD15, SD21, TINY, SDUNetBackbone,
+                                   load_diffusers_weights)
+    presets = {"tiny": TINY, "sd15": SD15, "sd21": SD21}
+    if preset not in presets:
+        raise NotImplementedError(f"backbone preset {preset}")
+    if weights:
+        load_diffusers_weights(weights)
+    bb = SDUNetBackbone(presets[preset],
+                        latent_size=8 if preset == "tiny" else 64,
+                        compute_dtype=dtype, device=device)
+    set_fused_attention(bb, fused_attn)
+    return bb
+
+
 def build_trainer(cfg: Dict, device="cuda") -> Trainer:
     """Trainer for a loaded config, with its tensors on ``device``."""
     rcfg_d = dict(cfg.get("renderer", {}))
@@ -164,16 +209,25 @@ def build_trainer(cfg: Dict, device="cuda") -> Trainer:
 
     g_d = dict(cfg.get("guidance", {}))
     g_type = g_d.pop("type", "mock")
-    if g_type != "mock":
+    prompt_processor = None
+    if g_type == "mock":
+        # guidance.type=mock on a diffusion config leaves sds-only keys
+        # behind; MockGuidance takes only its own
+        guidance = MockGuidance(**{k: v for k, v in g_d.items()
+                                   if k in ("mode", "color")})
+    elif g_type == "sds":
+        prompt_processor = _build_prompt_processor(
+            dict(cfg.get("prompt", {})), device)
+        backbone = _build_backbone(g_d, device)
+        guidance = SDSGuidance(_from_dict(SDSConfig, g_d), backbone,
+                               device=device)
+    else:
         raise NotImplementedError(f"guidance type {g_type}")
-    # guidance.type=mock on a diffusion config leaves sds-only keys
-    # behind; MockGuidance takes only its own
-    guidance = MockGuidance(**{k: v for k, v in g_d.items()
-                               if k in ("mode", "color")})
     for block in ("auxiliary", "image"):
         sub = cfg.get(block) or {}
         if sub.get("enabled") or sub.get("path"):
             raise NotImplementedError(block)
     return Trainer(cfg=tcfg, rcfg=rcfg, init_cfg=init_cfg, bg_cfg=bg_cfg,
                    data_cfg=data_cfg, guidance=guidance, dcfg=dcfg,
-                   pcfg=pcfg, device=device)
+                   pcfg=pcfg, prompt_processor=prompt_processor,
+                   device=device)

@@ -18,8 +18,10 @@ class MockGuidance:
             raise NotImplementedError(f"mock guidance mode {mode}")
         self.color = tuple(float(c) for c in color)
 
-    def loss(self, rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """``rgb`` [B, H, W, 3] -> {"loss_sds": 0.5 * mean sq. error}."""
+    def loss(self, rgb: torch.Tensor, *_, **__) -> Dict[str, torch.Tensor]:
+        """``rgb`` [B, H, W, 3] -> {"loss_sds": 0.5 * mean sq. error}; the
+        prompt, camera and random arguments of SDS are accepted and
+        unused."""
         target = torch.tensor(self.color, dtype=torch.float32,
                               device=rgb.device)[None, None, None, :]
         return {"loss_sds": 0.5 * torch.mean((rgb - target) ** 2)}

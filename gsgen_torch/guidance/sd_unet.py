@@ -1,0 +1,135 @@
+"""Stable Diffusion backbone: the UNet and the VAE behind SDS.
+
+Port of the JAX package's ``guidance/sd_unet.py``.  The backbone offers
+the interface of :class:`.diffusion.MockUNet` (NHWC at the boundary):
+
+  .latent_size / .latent_channels / .image_size
+  .encode_images(imgs)  [B, H, W, 3] in [0, 1] -> scaled latents
+  .decode_latents(latents) -> [B, H, W, 3] in [0, 1]
+  .predict_noise(latents_noisy, t, text) -> eps (fp32)
+
+``compute_dtype="bfloat16"`` keeps frozen bf16 copies of the weights and
+casts the inputs (and, inside the UNet, the timestep embedding) to bf16;
+outputs come back in fp32, as in the JAX package.  SDS never
+differentiates through the UNet, but it does through the VAE encoder.
+
+Without weights the backbone draws random ones from flax's default
+family (variance-scaling 1/fan_in truncated normal kernels, zero biases,
+unit norm scales), so a rehearsal runs at the JAX package's activation
+scale.  :func:`backbone_from_jax_params` carries the JAX package's own
+parameters across.  Loading a diffusers checkpoint
+(``guidance.weights_path``) waits until such weights are in the repo.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+from torch import nn
+
+from .convert import flax_to_torch_state
+from .unet2d import SD15, SD21, TINY, UNet2DConditionModel, UNetConfig
+from .vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
+
+__all__ = ["SDUNetBackbone", "UNetConfig", "TINY", "SD21", "SD15",
+           "backbone_from_jax_params", "load_diffusers_weights"]
+
+# std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_default_init_(module: nn.Module, generator: torch.Generator):
+    """Re-initialise ``module`` in flax's default family, in module
+    order, from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class SDUNetBackbone(nn.Module):
+    """UNet + VAE pair behind the guidance; weights frozen."""
+
+    def __init__(self, cfg: UNetConfig = TINY, latent_size: int = 64,
+                 vae_cfg: Optional[VAEConfig] = None,
+                 compute_dtype: Optional[str] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 random_init: bool = True):
+        super().__init__()
+        dev = torch.device(device)
+        self.cfg = cfg
+        self.compute_dtype = (getattr(torch, compute_dtype)
+                              if compute_dtype else None)
+        self.latent_size = latent_size
+        self.latent_channels = cfg.in_channels
+        self.vae_cfg = vae_cfg or (SD_VAE if cfg in (SD21, SD15)
+                                   else TINY_VAE)
+        self.image_size = latent_size * 2 ** (
+            len(self.vae_cfg.block_out_channels) - 1)
+        with dev:
+            self.unet = UNet2DConditionModel(cfg)
+            self.vae = AutoencoderKL(self.vae_cfg)
+        if random_init and dev.type != "meta":
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            flax_default_init_(self, generator)
+        self.requires_grad_(False).eval()
+        if self.compute_dtype is not None:
+            self.to(self.compute_dtype)
+
+    def _dtype(self):
+        return self.compute_dtype or torch.float32
+
+    def encode_images(self, imgs):
+        """[B, H, W, 3] in [0, 1] -> scaled latents [B, h, w, c], fp32;
+        differentiable with respect to ``imgs``."""
+        z = self.vae.encode((imgs * 2.0 - 1.0).to(self._dtype()))
+        return z.to(torch.float32)
+
+    @torch.no_grad()
+    def decode_latents(self, latents):
+        """Scaled latents -> [B, H, W, 3] in [0, 1]."""
+        img = self.vae.decode(latents.to(self._dtype())).to(torch.float32)
+        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
+
+    def predict_noise(self, latents_noisy, t, text):
+        dt = self._dtype()
+        eps = self.unet(latents_noisy.to(dt), t, text.to(dt))
+        return eps.to(torch.float32)
+
+
+def backbone_from_jax_params(params_np: Mapping, cfg: UNetConfig = TINY,
+                             latent_size: int = 64,
+                             vae_cfg: Optional[VAEConfig] = None,
+                             compute_dtype: Optional[str] = None,
+                             device="cuda") -> SDUNetBackbone:
+    """Backbone holding the JAX package's SDUNetBackbone parameters,
+    given as ``{"unet": flax tree, "vae": flax tree}`` with numpy leaves."""
+    bb = SDUNetBackbone(cfg, latent_size=latent_size, vae_cfg=vae_cfg,
+                        device=device, random_init=False)
+    for name in ("unet", "vae"):
+        state = {k: torch.tensor(v) for k, v in
+                 flax_to_torch_state(params_np[name]).items()}
+        getattr(bb, name).load_state_dict(state, strict=True)
+    if compute_dtype:
+        bb.compute_dtype = getattr(torch, compute_dtype)
+        bb.to(bb.compute_dtype)
+    return bb
+
+
+def load_diffusers_weights(path: str, *args, **kwargs):
+    """Loading a diffusers checkpoint: not ported yet."""
+    raise NotImplementedError(
+        f"guidance.weights_path {path!r}: loading diffusers safetensors "
+        "waits until Stable Diffusion weights are in the repository; "
+        "without weights_path the backbone runs random weights at real "
+        "shapes")

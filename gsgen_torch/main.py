@@ -1,8 +1,13 @@
-"""CLI entry point: train a text-to-3D Gaussian scene with the port.
+r"""CLI entry point: train a text-to-3D Gaussian scene with the port.
 
-    python -m gsgen_torch.main --config configs/base.yaml guidance.type=mock --steps 5
-    python -m gsgen_torch.main --config configs/base.yaml guidance.type=mock ckpt=path/to/step_N
+    python -m gsgen_torch.main --config configs/base.yaml --steps 5
+    python -m gsgen_torch.main --config configs/base.yaml \
+        guidance.backbone=sd_unet guidance.backbone_preset=sd21 \
+        guidance.backbone_dtype=bfloat16 --steps 3
+    python -m gsgen_torch.main --config configs/base.yaml ckpt=path/to/step_N
 
+The first runs SDS on MockUNet, the second SDS on the SD 2.1 UNet and
+VAE with random weights (no weights are in the repository yet).
 ``ckpt=`` resumes from a checkpoint directory of the JAX package
 (``arrays.npz``).  Runs on the card unless ``--device cpu`` is given.
 """

@@ -9,8 +9,10 @@ is newer than every source.  Nothing here runs at import time.
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 ``--fmad=false`` keeps each multiply and add rounded on its own, as the
-plain PyTorch versions round them, so kernel and plain version differ
-only by summation order.
+plain PyTorch versions round them, so the render kernels and their plain
+versions differ only by summation order.  The sources in
+:data:`FUSED_FMA_SOURCES` are compared with their plain versions at a
+stated tolerance instead and keep nvcc's default fused multiply-add.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 LIB_NAME = "libgsgen_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+FUSED_FMA_SOURCES = {"flash_attn_fwd.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +47,7 @@ SIGNATURES = {
                          _I, _F, _P],
     "gsgen_expansion_rank": [_P, _I, _P, _I, _P],
     "gsgen_gid_repack": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gsgen_flash_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -60,6 +64,13 @@ def _nvcc() -> str:
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def flags(src: Path) -> list:
+    """nvcc flags for one source."""
+    if src.name in FUSED_FMA_SOURCES:
+        return list(NVCC_FLAGS)
+    return [*NVCC_FLAGS, "--fmad=false"]
 
 
 def _stale(lib: Path) -> bool:
@@ -82,7 +93,7 @@ def build(force: bool = False) -> Path:
     procs = []
     for src in sources():
         obj = BUILD / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags(src), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -9,9 +9,13 @@ schedules, samples numpy camera poses and keeps the duplicate-capacity
 bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
 compile-ahead threads have no counterpart.
 
-Not ported in this slice (``NotImplementedError``): densify / prune
-events, guidance other than mock, estimators, image-to-3D, auxiliary
-guidance, logging and checkpoints.
+Guidance is ``MockGuidance`` or SDS (:mod:`..guidance.sds`); the SD
+backbone freezes its own weights, and only the scene and background
+are optimizer leaves.
+
+Not ported yet (``NotImplementedError``): densify / prune events, VSD and
+DeepFloyd guidance, estimators, image-to-3D, auxiliary guidance,
+logging and checkpoints.
 """
 
 from __future__ import annotations
@@ -141,12 +145,13 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, rcfg: RenderConfig,
                  init_cfg: InitConfig, bg_cfg: BackgroundConfig,
                  data_cfg: CameraSamplerConfig,
-                 guidance: Optional[MockGuidance] = None,
+                 guidance: Optional[Any] = None,
                  dcfg: DensifyConfig = DensifyConfig(),
                  pcfg: PruneConfig = PruneConfig(),
                  init_points: Optional[np.ndarray] = None,
                  init_colors: Optional[np.ndarray] = None,
                  init_raw: Optional[Dict[str, np.ndarray]] = None,
+                 prompt_processor: Optional[Any] = None,
                  device="cuda"):
         if cfg.estimators:
             raise NotImplementedError("estimators")
@@ -160,6 +165,7 @@ class Trainer:
         self.dcfg = dcfg
         self.pcfg = pcfg
         self.guidance = guidance or MockGuidance()
+        self.prompt_processor = prompt_processor
         self.data = CameraPoseProvider(data_cfg, seed=cfg.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
@@ -189,6 +195,8 @@ class Trainer:
             s[f"lr_{f}"] = fn(step)
         for name, p in self.cfg.penalty.items():
             s[f"w_pen_{name}"] = c(p["value"])
+        if hasattr(self.guidance, "sched_scalars"):
+            s.update(self.guidance.sched_scalars(step, self.cfg.max_steps))
         return s
 
     def _effective_rcfg(self) -> RenderConfig:
@@ -208,7 +216,11 @@ class Trainer:
                             intr, rcfg, bgs, batch["fx"], batch["fy"],
                             batch["cx"], batch["cy"], rgb_only=cfg.rgb_only,
                             mean2d_taps=taps)
-        g = self.guidance.loss(outs["rgb"])
+        embedding = (self.prompt_processor()
+                     if self.prompt_processor is not None else None)
+        g = self.guidance.loss(outs["rgb"], embedding, batch["elevation"],
+                               batch["azimuth"], batch["camera_distance"],
+                               generator=self.generator, sched=sched)
         loss = sched["w_sds"] * g["loss_sds"]
         metrics = dict(g)
         if not cfg.rgb_only:

@@ -107,3 +107,29 @@ def test_render_view_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(outs[1][k].numpy(), outs[0][k].numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=k)
     assert torch.equal(outs[1]["n_dup"], outs[0]["n_dup"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [40, 64])
+def test_flash_attention_matches_plain(cuda, dtype, D):
+    """K5 against its plain version (fp32 scores and softmax): fp32 within
+    1e-4 of max|out|, bf16 within 2e-2 of max|out| (the plain path rounds
+    the normalised weights to bf16, K5 the unnormalised ones)."""
+    from gsgen_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(D)
+    dt = getattr(torch, dtype)
+    q, k, v = (t(rng.standard_normal((2, 256, 3, D)).astype(np.float32))
+               .to(cuda, dt) for _ in range(3))
+    scale = 1.0 / np.sqrt(D)
+    n0 = fa.flash_self_attention.launches
+    got = fa.flash_self_attention(q, k, v, scale)
+    assert fa.flash_self_attention.launches == n0 + 1
+    want = fa.flash_self_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = (2e-2 if dt == torch.bfloat16 else 1e-4) * float(
+        want.float().abs().max())
+    assert err <= tol, (err, tol)
+    with pytest.raises(ValueError):
+        fa.flash_self_attention(q[:, :100], k[:, :100], v[:, :100], scale)

@@ -153,8 +153,8 @@ def test_load_config_base_yaml_with_overrides(tmp_path):
     tr.fit(2)
     assert tr.state.step == 2
     with pytest.raises(NotImplementedError):
-        build_trainer(load_config(ROOT / "configs" / "base.yaml"),
-                      device="cpu")
+        build_trainer(load_config(ROOT / "configs" / "base.yaml",
+                                  ["guidance.type=vsd"]), device="cpu")
 
 
 def test_fit_runs_to_max_steps_and_densify_raises():
@@ -173,7 +173,7 @@ def test_fit_runs_to_max_steps_and_densify_raises():
 
 def test_port_imports_no_jax():
     code = ("import sys, gsgen_torch.config, gsgen_torch.main, "
-            "gsgen_torch.ops.cuda_raster; "
+            "gsgen_torch.ops.cuda_raster, gsgen_torch.guidance.sd_unet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gsgen_tpu')]; "
             "assert not bad, bad")
