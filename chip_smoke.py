@@ -16,13 +16,17 @@ Phases, each reported on its own line:
    Phase 3 also holds K5 (flash self-attention forward) against its plain
    version at SD 2.1's level 0 [8, 4096, 5, 64] in bf16 and fp32, SD
    1.5's level 0 [8, 4096, 8, 40] in bf16 and a small [2, 256, 2, 64] in
-   fp32;
+   fp32; and K5's lse, K6 (dK, dV) and K7 (dQ) against the plain backward
+   at the VSD path's [4, 4096, 5, 64] in fp32 and bf16 and a small
+   [2, 256, 2, 64] in fp32, and autograd through K5 + K6 + K7 against
+   autograd through the plain path;
 4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
    full width through build_trainer / fit, with every kernel's launch
    counter read around the run;
 5. times: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, at the bench and base.yaml
-   shapes (K5 at SD 2.1's level 0, SDPA its library yardstick), and the
+   shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7
+   at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs), and the
    full render forward+backward;
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
@@ -35,6 +39,15 @@ Phases, each reported on its own line:
    as it is (SDS on MockUNet) and configs/flagship_rehearsal.yaml;
 8. sds profile: one slice step under torch.profiler, device time split
    into render, VAE and UNet (trace: gsgen_torch/_build/sds_step_trace.json);
+9. vsd: the VSD losses and the gradients of the render and of every
+   trainable leaf on a TINY_VSD backbone (L = 256, fused attention on) on
+   the card against the CPU; then 3 steps of configs/base.yaml +
+   guidance/vsd.yaml + prompt/vsd.yaml (SD 2.1 UNet in fp32 with LoRA and
+   camera conditioning, VAE in bf16, 512^2, batch 4) with every launch
+   counter read around them (15 K5, 5 K6, 5 K7 a step) and a LoRA leaf
+   required to move; then one VSD step under torch.profiler, device time
+   split into render, VAE, UNet forward and UNet backward (trace:
+   gsgen_torch/_build/vsd_step_trace.json);
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -54,11 +67,17 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
-# K5 against its plain version: max abs error over max |plain output|
+# K5 (and its lse) against its plain version: max abs error over max
+# |plain output|; K6 / K7: the same over each gradient's max |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+FLASH_BWD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 SD21_ATTN = (8, 4096, 5, 64)    # SD 2.1 level-0 self-attention [B, L, H, D]
+VSD_ATTN = (4, 4096, 5, 64)     # the same under VSD's LoRA pass (batch 4)
 SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
          "guidance.backbone_dtype=bfloat16"]
+VSD_CONFIGS = ["base.yaml", "guidance/vsd.yaml", "prompt/vsd.yaml"]
+VSD_FLASH = dict(flash_attn_fwd=15, flash_attn_bwd_dkv=5, flash_attn_bwd_dq=5)
+LIB_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 SMALL_TOL = dict(T=(1e-5, 1e-6), img=(1e-4, 1e-5), grad=(2e-3, 2e-4))
 SCALE_TOL = dict(T=(1e-3, 3e-4), img=(2e-3, 5e-4), grad=(5e-3, 2e-3))
 
@@ -195,7 +214,8 @@ def run(torch) -> int:
         return float(err.max()) if err.numel() else 0.0
 
     errs = {k: 0.0 for k in ("raster_fwd", "raster_bwd", "expansion_rank",
-                             "gid_repack", "flash_attn_fwd")}
+                             "gid_repack", "flash_attn_fwd",
+                             "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
     notes = []
 
     def recorded_bins(prep):
@@ -386,6 +406,78 @@ def run(torch) -> int:
                      f"{err:.2e} (tol {tol:.2e})")
         del q, k, v, got, want
     torch.cuda.empty_cache()
+
+    # K6 / K7 (flash backward) against the plain formulas from the same
+    # lse and Di, and K5's lse against the plain lse
+    def qkvo(shape, dtype, seed):
+        return qkv(shape, dtype, seed) + [torch.randn(
+            shape, generator=gen.manual_seed(seed + 100),
+            device=dev).to(dtype)]
+
+    for i, (label, shape, dtn) in enumerate((
+            ("VSD level 0", VSD_ATTN, "float32"),
+            ("VSD level 0", VSD_ATTN, "bfloat16"),
+            ("small", (2, 256, 2, 64), "float32"))):
+        dt = getattr(torch, dtn)
+        q, k, v, dout = qkvo(shape, dt, 40 + i)
+        scale = shape[-1] ** -0.5
+        out, lse = flash_attention.flash_self_attention_lse(q, k, v, scale)
+        _, lse_p = flash_attention.flash_self_attention_plain_lse(q, k, v,
+                                                                  scale)
+        e_lse = float((lse - lse_p).abs().max())
+        require(e_lse <= FLASH_TOL[dtn] * float(lse_p.abs().max()),
+                f"K5 lse {label} {dtn}: max abs err {e_lse:.3e}")
+        delta = flash_attention.attention_delta(out, dout)
+        dk, dv = flash_attention.flash_bwd_dkv(q, k, v, dout, lse, delta,
+                                               scale)
+        dq = flash_attention.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
+        want = flash_attention.flash_self_attention_bwd_plain(
+            q, k, v, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        msg = []
+        for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            kname = "K7" if nm == "dq" else "K6"
+            require(got.shape == q.shape and got.dtype == dt,
+                    f"{kname} {label} {dtn}: {nm} {got.dtype} "
+                    f"{tuple(got.shape)}")
+            require(bool(torch.isfinite(got).all()),
+                    f"{kname} {label} {dtn}: non-finite {nm}")
+            err = float((got.float() - ref.float()).abs().max())
+            tol = FLASH_BWD_TOL[dtn] * float(ref.float().abs().max())
+            require(err <= tol, f"{kname} {label} {shape} {dtn}: {nm} max "
+                    f"abs err {err:.3e} above {tol:.3e}")
+            key = "flash_attn_bwd_dq" if nm == "dq" else "flash_attn_bwd_dkv"
+            errs[key] = max(errs[key], err)
+            msg.append(f"{nm} {err:.2e} (tol {tol:.2e})")
+        notes.append(f"K6/K7 {label} {list(shape)} {dtn}: "
+                     + ", ".join(msg) + f"; K5 lse {e_lse:.2e}")
+        del q, k, v, dout, out, lse, lse_p, delta, dk, dv, dq, want
+        torch.cuda.empty_cache()
+
+    # autograd: K5 + K6 + K7 through the Function against autograd through
+    # the plain path (fp32, the VSD path's type)
+    q, k, v, dout = qkvo((2, 1024, 5, 64), torch.float32, 60)
+    ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention.flash_self_attention(*ps, 0.125)
+    require(out.grad_fn is not None,
+            "flash_self_attention returned an output detached from inputs "
+            "that require grad")
+    got = torch.autograd.grad(out, ps, dout)
+    ref_ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention.flash_self_attention_plain(
+        *ref_ps, 0.125), ref_ps, dout)
+    torch.cuda.synchronize()
+    a_errs = []
+    for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = float((a - b).abs().max())
+        require(err <= FLASH_BWD_TOL["float32"] * float(b.abs().max()),
+                f"autograd through K5-K7 vs plain: {nm} max abs err "
+                f"{err:.3e}")
+        a_errs.append(f"{nm} {err:.2e}")
+    notes.append("autograd K5+K6+K7 vs plain [2, 1024, 5, 64] fp32: "
+                 + ", ".join(a_errs))
+    del q, k, v, dout, ps, out, got, ref_ps, want
+    torch.cuda.empty_cache()
     print("phase 3 kernels: ok | " + " | ".join(notes), flush=True)
 
     # ---- phase 4: train configs/base.yaml (guidance.type=mock) ----
@@ -393,9 +485,11 @@ def run(torch) -> int:
                     raster_bwd=cuda_raster.raster_bwd,
                     expansion_rank=expansion_rank.expansion_gid,
                     gid_repack=gid_repack.repack_gid,
-                    flash_attn_fwd=flash_attention.flash_self_attention)
+                    flash_attn_fwd=flash_attention.flash_self_attention,
+                    flash_attn_bwd_dkv=flash_attention.flash_bwd_dkv,
+                    flash_attn_bwd_dq=flash_attention.flash_bwd_dq)
     trainer, mock = drive(torch, build_trainer, load_config, wrappers,
-                          "base.yaml", ["guidance.type=mock"], 5, 0)
+                          "base.yaml", ["guidance.type=mock"], 5, {})
     step_ms = mock["ms_per_step"]
     print(f"phase 4 train: ok configs/base.yaml guidance.type=mock "
           f"{mock['steps']} steps, batch {mock['batch']}, {mock['reso']}^2, "
@@ -559,6 +653,54 @@ def run(torch) -> int:
             q32, k32, v32, scale), 3)
     del q, k, v, qh, kh, vh, q32, k32, v32
     torch.cuda.empty_cache()
+
+    # K6 / K7 at the VSD path's [4, 4096, 5, 64] (fp32 on the path, bf16
+    # beside it); the yardstick is SDPA's backward, one call computing all
+    # three gradients; K5 with its lse at the same shape
+    Bv, Lv, Hv, Dv = VSD_ATTN
+    units = Bv * Hv * Lv * Lv * Dv
+    times_bwd, k5_b4 = {}, {}
+    for dtn, peak in (("float32", PEAK_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
+        dt = getattr(torch, dtn)
+        q, k, v, dout = qkvo(VSD_ATTN, dt, 70)
+        out, lse = flash_attention.flash_self_attention_lse(q, k, v, scale)
+        delta = flash_attention.attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, scale)
+        k5_b4[dtn] = time_ms(lambda: flash_attention.flash_self_attention_lse(
+            q, k, v, scale), 10)
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        o_h = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        do_h = dout.transpose(1, 2)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            o_h, (qh, kh, vh), do_h, retain_graph=True), 10)
+        io = Bv * Lv * Hv * Dv * dt.itemsize
+        in_b = 4 * io + 2 * Bv * Hv * Lv * 4
+        for name, fn, fn_p, ops, out_b in (
+                ("flash_attn_bwd_dkv", flash_attention.flash_bwd_dkv,
+                 flash_attention.flash_bwd_dkv_plain, 8.0 * units, 2 * io),
+                ("flash_attn_bwd_dq", flash_attention.flash_bwd_dq,
+                 flash_attention.flash_bwd_dq_plain, 6.0 * units, io)):
+            b_ms = 1e3 * (in_b + out_b) / PEAK_BYTES
+            o_ms = 1e3 * ops / peak
+            times_bwd[(name, dtn)] = dict(
+                ms=time_ms(lambda fn=fn: fn(*args), 10),
+                plain_ms=time_ms(lambda fn_p=fn_p: fn_p(*args), 3),
+                library_ms=sdpa_bwd, bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations")
+        del q, k, v, dout, out, lse, delta, args, qh, kh, vh, o_h, do_h
+        torch.cuda.empty_cache()
+    bwd_bound = {d: 1e3 * 10.0 * units / pk for d, pk in
+                 (("float32", PEAK_FLOPS), ("bfloat16", PEAK_BF16_FLOPS))}
+    print(f"phase 5 times: ok | card {card} | K6/K7 {list(VSD_ATTN)}: "
+          + " | ".join(
+              f"{n} {d} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, SDPA "
+              f"bwd {v['library_ms']:.3f}, bound {v['bound_ms']:.4f} "
+              f"{v['bound_by']})" for (n, d), v in times_bwd.items())
+          + f" | whole backward bound 10 B H L^2 D: fp32 "
+            f"{bwd_bound['float32']:.3f} ms, bf16 {bwd_bound['bfloat16']:.4f}"
+            f" ms | K5 with lse at B=4: fp32 {k5_b4['float32']:.3f} ms, "
+            f"bf16 {k5_b4['bfloat16']:.4f} ms", flush=True)
     print(f"phase 5 times: ok | card {card} | K5 {list(SD21_ATTN)} bf16 "
           f"{times_flash['ms']:.4f} ms = "
           f"{flash_ops / times_flash['ms'] / 1e9:.1f} TFLOP/s (plain "
@@ -621,8 +763,15 @@ def run(torch) -> int:
     launches = sds["launches"]
 
     # ---- phase 8: where an SDS step's device time goes ----
-    sds_profile = profile_sds_step(torch, sds.pop("trainer"),
-                                   cuda_lib.BUILD / "sds_step_trace.json")
+    sds_profile = profile_step(torch, sds.pop("trainer"),
+                               cuda_lib.BUILD / "sds_step_trace.json", False)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: VSD on the SD 2.1 UNet (LoRA + camera), K6 / K7 ----
+    vsd = vsd_phases(torch, dev, build_trainer, load_config, wrappers)
+    vsd_profile = profile_step(torch, vsd.pop("trainer"),
+                               cuda_lib.BUILD / "vsd_step_trace.json", True)
+    vsd_launches = vsd["slice"]["launches"]
 
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
@@ -638,7 +787,8 @@ def run(torch) -> int:
         tb, tn = times_base[k], times_bench[k]
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=ref,
-            launches=launches[k], max_abs_err=errs[k], ms=tb["ms"],
+            launches=vsd_launches[k], sds_launches=launches[k],
+            max_abs_err=errs[k], ms=tb["ms"],
             plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
@@ -650,14 +800,32 @@ def run(torch) -> int:
         source="gsgen_torch/csrc/flash_attn_fwd.cu",
         replaces=reference_line("guidance/unet2d.py",
                                 "_flash_self_attention"),
-        launches=launches["flash_attn_fwd"],
+        launches=vsd_launches["flash_attn_fwd"],
+        sds_launches=launches["flash_attn_fwd"],
         max_abs_err=errs["flash_attn_fwd"], **times_flash,
         shapes=f"SD 2.1 level-0 self-attention {list(SD21_ATTN)} bf16",
-        fp32_ms=flash_fp32_ms, fp32_plain_ms=flash_fp32_plain_ms))
+        fp32_ms=flash_fp32_ms, fp32_plain_ms=flash_fp32_plain_ms,
+        fp32_b4_lse_ms=k5_b4["float32"]))
+    for name, func, line in (
+            ("flash_attn_bwd_dkv", "_flash_attention_dkv_kernel", 796),
+            ("flash_attn_bwd_dq", "_flash_attention_dq_kernel", 1146)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="gsgen_torch/csrc/flash_attn_bwd.cu",
+            replaces=f"{LIB_FLASH}:{line} {func} (jax 0.9.0), reached from "
+                     + reference_line("guidance/unet2d.py",
+                                      "_flash_self_attention"),
+            launches=vsd_launches[name], max_abs_err=errs[name],
+            **times_bwd[(name, "float32")],
+            shapes=f"VSD level-0 self-attention backward {list(VSD_ATTN)} "
+                   "fp32; library_ms: SDPA's backward (dQ, dK and dV)",
+            bf16=times_bwd[(name, "bfloat16")]))
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
                       "train_ms_per_step": step_ms, "build_s": build_s,
                       "train_profile": profile_info, "sds": sds,
-                      "sds_profile": sds_profile}), flush=True)
+                      "sds_profile": sds_profile, "vsd": vsd,
+                      "vsd_profile": vsd_profile,
+                      "flash_bwd_bound_ms": bwd_bound}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -684,16 +852,20 @@ def kernel_key(name):
     return key.split("(")[0].split("<")[0][-48:]
 
 
-def drive(torch, build_trainer, load_config, wrappers, cfg_name, overrides,
-          n_steps, k5_per_step):
-    """``n_steps`` training steps of a config through build_trainer / fit
-    with every kernel counter set to 0 just before and read just after;
-    losses finite and changing, every scene parameter moved, K1-K4 once
-    per view and K5 ``k5_per_step`` times a step."""
-    label = " ".join([cfg_name] + overrides)
-    trainer = build_trainer(load_config(ROOT / "configs" / cfg_name,
+def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
+          n_steps, flash_per_step):
+    """``n_steps`` training steps of a config (one file or a list merged in
+    order) through build_trainer / fit with every kernel counter set to 0
+    just before and read just after; losses finite and changing, every
+    scene parameter and some trainable guidance leaf (if any) moved, K1-K4
+    once per view and each flash kernel ``flash_per_step[name]`` (default
+    0) times a step."""
+    names = [cfg_names] if isinstance(cfg_names, str) else cfg_names
+    label = " + ".join(names) + "".join(" " + o for o in overrides)
+    trainer = build_trainer(load_config([ROOT / "configs" / n for n in names],
                                         overrides), device="cuda")
     p0 = {k: v.detach().clone() for k, v in trainer.state.scene.params.items()}
+    gp0 = {k: v.detach().clone() for k, v in trainer.state.gp.items()}
     losses, stamps = [], []
 
     def on_step(step, metrics):
@@ -716,8 +888,13 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_name, overrides,
              for k, v in trainer.state.scene.params.items()}
     require(all(m > 0 for m in moved.values()),
             f"{label}: params not moved {moved}")
+    gp_moved = max((float((v - gp0[k]).abs().max())
+                    for k, v in trainer.state.gp.items()), default=None)
+    require(gp_moved is None or gp_moved > 0,
+            f"{label}: no trainable guidance leaf moved")
     for k, c in launches.items():
-        want = k5_per_step * n_steps if k == "flash_attn_fwd" else views
+        want = (flash_per_step.get(k, 0) * n_steps
+                if k.startswith("flash") else views)
         require(c == want, f"{label}: {k} launched {c} times in {n_steps} "
                 f"steps, expected {want}")
     res = dict(config=label, steps=n_steps,
@@ -726,7 +903,7 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_name, overrides,
                ms_per_step=[1e3 * (b - a) for a, b in
                             zip([t_start] + stamps, stamps)],
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               launches=launches)
+               launches=launches, gp_max_move=gp_moved)
     return trainer, res
 
 
@@ -776,7 +953,8 @@ def sds_phases(torch, dev, build_trainer, load_config, wrappers):
     del bb_cpu, bb_dev
 
     trainer, slice_res = drive(torch, build_trainer, load_config, wrappers,
-                               "base.yaml", SLICE, 3, 5)
+                               "base.yaml", SLICE, 3,
+                               dict(flash_attn_fwd=5))
     res = dict(tiny_card_vs_cpu=dict(loss=[l_c, l_d], grad_max_abs_err=g_err),
                slice=slice_res, launches=slice_res["launches"])
     print(f"phase 7 sds: ok TINY SDS loss card {l_d:.6g} vs CPU {l_c:.6g}, "
@@ -788,7 +966,7 @@ def sds_phases(torch, dev, build_trainer, load_config, wrappers):
           f"{slice_res['launches']}", flush=True)
     for name, k5 in (("base.yaml", 0), ("flagship_rehearsal.yaml", 5)):
         other, r = drive(torch, build_trainer, load_config, wrappers, name,
-                         [], 2, k5)
+                         [], 2, dict(flash_attn_fwd=k5))
         del other
         torch.cuda.empty_cache()
         res[name] = r
@@ -801,49 +979,166 @@ def sds_phases(torch, dev, build_trainer, load_config, wrappers):
     return res
 
 
-def profile_sds_step(torch, trainer, trace):
-    """Phase 8: one SDS step under torch.profiler.  Each device op is
-    attributed to the host range its launch fell in: the render forward,
-    the UNet, the VAE forward and the VAE backward (between the gradient
-    reaching the latents and leaving the images); other launches from the
-    backward thread are the render backward, the rest is "other"
-    (optimizer, losses, SDS glue)."""
+def vsd_phases(torch, dev, build_trainer, load_config, wrappers):
+    """Phase 9: the VSD losses and gradients on the card against the CPU
+    (TINY_VSD backbone, injected draws), then the slice config."""
+    import copy
+
+    from gsgen_torch.guidance.sd_unet import TINY_VSD, SDUNetBackbone
+    from gsgen_torch.guidance.unet2d import set_fused_attention
+    from gsgen_torch.guidance.vsd import VSDConfig, VSDGuidance
+    from gsgen_torch.prompt.processors import (PromptProcessor,
+                                               PromptProcessorConfig)
+
+    # fp32, TF32 off; latent 16 puts TINY_VSD's level 0 at L = 256: per
+    # loss three UNet passes of three fused self-attentions (9 K5), one
+    # of them differentiated (3 K6, 3 K7)
+    cpu = torch.device("cpu")
+    bb_cpu = SDUNetBackbone(TINY_VSD, latent_size=16, device="cpu",
+                            fp32_unet=True)
+    bb_dev = copy.deepcopy(bb_cpu).to(dev)
+    set_fused_attention(bb_dev, "on")
+    g = torch.Generator(device="cpu").manual_seed(12)
+    rgb = torch.rand(2, 40, 40, 3, generator=g)
+    c2ws = torch.randn(2, 3, 4, generator=g)
+    draws = dict(t=torch.tensor([150, 800]),
+                 noise=torch.randn(2, 16, 16, 4, generator=g),
+                 t_lora=torch.tensor([40, 600]),
+                 noise_lora=torch.randn(2, 16, 16, 4, generator=g))
+    cams = (torch.tensor([10.0, 70.0]), torch.tensor([20.0, -160.0]),
+            torch.tensor([2.5, 2.5]))
+    # non-zero up-projections: every trainable leaf then has a gradient
+    train0 = {k: v + 0.02 * torch.randn(v.shape, generator=g)
+              if k.endswith("up.weight") else v for k, v in
+              VSDGuidance(VSDConfig(), bb_cpu,
+                          device="cpu").trainable_params.items()}
+    flash = [k for k in wrappers if k.startswith("flash")]
+    out = []
+    for d, bb in ((cpu, bb_cpu), (dev, bb_dev)):
+        guid = VSDGuidance(VSDConfig(), bb, device=d)
+        emb = PromptProcessor(PromptProcessorConfig(use_cache=False),
+                              device=d)()
+        x = rgb.to(d).requires_grad_(True)
+        train = {k: v.to(d).requires_grad_(True) for k, v in train0.items()}
+        n0 = {k: wrappers[k].launches for k in flash}
+        r = guid.loss(x, emb, *(c.to(d) for c in cams), c2ws=c2ws.to(d),
+                      train=train, drop=False,
+                      **{k: v.to(d) for k, v in draws.items()})
+        grads = torch.autograd.grad(r["loss_vsd"] + r["loss_lora"],
+                                    [x] + list(train.values()))
+        out.append((float(r["loss_vsd"].detach()),
+                    float(r["loss_lora"].detach()),
+                    [gr.cpu() for gr in grads],
+                    {k: wrappers[k].launches - n0[k] for k in flash}))
+    (v_c, l_c, g_c, _), (v_d, l_d, g_d, n_d) = out
+    require(n_d == dict(flash_attn_fwd=9, flash_attn_bwd_dkv=3,
+                        flash_attn_bwd_dq=3),
+            f"TINY VSD on the card: flash launches {n_d}")
+    require(abs(v_d - v_c) <= 1e-3 * abs(v_c),
+            f"TINY VSD loss_vsd card {v_d} vs CPU {v_c}")
+    require(abs(l_d - l_c) <= 1e-3 * abs(l_c),
+            f"TINY VSD loss_lora card {l_d} vs CPU {l_c}")
+    names = ["rgb"] + list(train0)
+    g_errs = {}
+    for nm, a, b in zip(names, g_d, g_c):
+        scale = float(b.abs().max())
+        require(scale > 0, f"TINY VSD: zero gradient for {nm}")
+        err = float((a - b).abs().max())
+        require(err <= 1e-3 * scale, f"TINY VSD grad {nm} card vs CPU: max "
+                f"abs err {err:.3e} (max |grad| {scale:.3e})")
+        g_errs[nm] = err / scale
+    worst = max(g_errs, key=g_errs.get)
+    del bb_cpu, bb_dev
+
+    trainer, slice_res = drive(torch, build_trainer, load_config, wrappers,
+                               VSD_CONFIGS, [], 3, VSD_FLASH)
+    res = dict(tiny_card_vs_cpu=dict(
+        loss_vsd=[v_c, v_d], loss_lora=[l_c, l_d], n_grads=len(names),
+        worst_grad=[worst, g_errs[worst]]), slice=slice_res)
+    print(f"phase 9 vsd: ok TINY_VSD card vs CPU: loss_vsd {v_d:.6g} vs "
+          f"{v_c:.6g}, loss_lora {l_d:.6g} vs {l_c:.6g}, {len(names)} "
+          f"gradients (rgb + every trainable leaf), worst {worst} max abs "
+          f"err / max |grad| {g_errs[worst]:.2e} | slice "
+          f"{slice_res['config']}: {slice_res['steps']} steps, batch "
+          f"{slice_res['batch']}, {slice_res['reso']}^2 | losses "
+          f"{slice_res['losses']} | ms/step "
+          f"{[round(x, 2) for x in slice_res['ms_per_step']]} | peak "
+          f"{slice_res['peak_gib']:.2f} GiB | LoRA max move "
+          f"{slice_res['gp_max_move']:.3e} | launches "
+          f"{slice_res['launches']}", flush=True)
+    res["trainer"] = trainer
+    return res
+
+
+def profile_step(torch, trainer, trace, vsd):
+    """Phase 8 (SDS) and the end of phase 9 (VSD): one step under
+    torch.profiler.  Each device op is attributed to the host range its
+    launch fell in: the render forward, the UNet (SDS: ``predict_noise``;
+    VSD: every UNet call, "unet_fwd"), the VAE forward and the VAE
+    backward (between the gradient reaching the latents and leaving the
+    images).  VSD's UNet backward ("unet_bwd") runs from the gradient
+    reaching the LoRA pass's output until the VAE backward starts: the
+    autograd engine takes the later-recorded UNet branch first.  Other
+    launches from the backward thread are the render backward, the rest is
+    "other" (optimizer, losses, guidance glue)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import gsgen_torch.training.trainer as trainer_mod
 
     bb = trainer.guidance.backbone
-    orig = (trainer_mod.render_batch, bb.predict_noise, bb.encode_images)
+    orig_render, orig_encode = trainer_mod.render_batch, bb.encode_images
+    span = {}
+
+    def open_span(name):
+        span[name] = record_function(f"step:{name}")
+        span[name].__enter__()
+
+    def close_span(name):
+        if name in span:
+            span.pop(name).__exit__(None, None, None)
 
     def render_batch(*a, **kw):
-        with record_function("sds:render"):
-            return orig[0](*a, **kw)
-
-    def predict_noise(*a, **kw):
-        with record_function("sds:unet"):
-            return orig[1](*a, **kw)
+        with record_function("step:render"):
+            return orig_render(*a, **kw)
 
     def encode_images(imgs):
-        span = {}
-
         def start(grad):
-            span["rf"] = record_function("sds:vae_bwd")
-            span["rf"].__enter__()
+            close_span("unet_bwd")
+            open_span("vae_bwd")
 
         def stop(grad):
-            if "rf" in span:
-                span.pop("rf").__exit__(None, None, None)
+            close_span("vae_bwd")
+            close_span("unet_bwd")
 
         if imgs.requires_grad:
             imgs.register_hook(stop)
-        with record_function("sds:vae"):
-            z = orig[2](imgs)
+        with record_function("step:vae"):
+            z = orig_encode(imgs)
         if z.requires_grad:
             z.register_hook(start)
         return z
 
+    if vsd:
+        orig_unet = bb.unet.forward
+
+        def unet_forward(*a, **kw):
+            with record_function("step:unet_fwd"):
+                out = orig_unet(*a, **kw)
+            if out.requires_grad:
+                out.register_hook(lambda grad: open_span("unet_bwd"))
+            return out
+
+        bb.unet.forward = unet_forward
+    else:
+        orig_pred = bb.predict_noise
+
+        def predict_noise(*a, **kw):
+            with record_function("step:unet"):
+                return orig_pred(*a, **kw)
+
+        bb.predict_noise = predict_noise
     trainer_mod.render_batch = render_batch
-    bb.predict_noise, bb.encode_images = predict_noise, encode_images
+    bb.encode_images = encode_images
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -853,19 +1148,24 @@ def profile_sds_step(torch, trainer, trace):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        trainer_mod.render_batch = orig[0]
-        del bb.predict_noise, bb.encode_images
+        trainer_mod.render_batch = orig_render
+        del bb.encode_images
+        if vsd:
+            del bb.unet.forward
+        else:
+            del bb.predict_noise
     prof.export_chrome_trace(str(trace))
+    what = "a VSD step" if vsd else "an SDS step"
     ev = [e for e in json.loads(trace.read_text())["traceEvents"]
           if e.get("ph") == "X"]
     dev_ev = [e for e in ev if e.get("cat") in DEVICE_CATS]
-    require(len(dev_ev) > 0, "the profiler saw no device work in an SDS step")
+    require(len(dev_ev) > 0, f"the profiler saw no device work in {what}")
     launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in ev
               if e.get("cat") == "cuda_runtime"
               and "correlation" in e.get("args", {})}
-    spans = [(e["name"][4:], e["ts"], e["ts"] + e["dur"], e["tid"])
+    spans = [(e["name"][5:], e["ts"], e["ts"] + e["dur"], e["tid"])
              for e in ev if e.get("cat") == "user_annotation"
-             and e["name"].startswith("sds:")]
+             and e["name"].startswith("step:")]
     bwd_tids = {tid for name, _, _, tid in spans if name == "vae_bwd"}
 
     def group(e):
@@ -878,27 +1178,33 @@ def profile_sds_step(torch, trainer, trace):
                 return "vae" if name.startswith("vae") else name
         return "render" if tid in bwd_tids else "other"
 
+    # a part's device ms is the union of its ops' spans: cuDNN runs some
+    # fp32 convolutions on side streams, so kernel times overlap
     by_group, by_name = {}, {}
     for e in dev_ev:
-        grp, d = group(e), float(e["dur"]) / 1e3
-        by_group[grp] = by_group.get(grp, 0.0) + d
+        grp = group(e)
+        by_group.setdefault(grp, []).append(e)
         key = (grp, kernel_key(e["name"]))
-        by_name[key] = by_name.get(key, 0.0) + d
+        by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
+    by_group = {k: busy_us(v) / 1e3 for k, v in by_group.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     busy_ms = busy_us(dev_ev) / 1e3
+    streams = {e.get("args", {}).get("stream") for e in dev_ev}
     info = dict(traced_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
                 device_idle_share=1.0 - busy_ms / wall_ms,
-                device_ops_per_step=len(dev_ev),
+                device_ops_per_step=len(dev_ev), device_streams=len(streams),
                 device_ms_by_part=by_group,
                 top_device_ms=[[g, k, v] for (g, k), v in top])
-    print(f"phase 8 sds profile: ok 1 traced step, {wall_ms:.2f} ms, device "
+    print(f"phase {9 if vsd else 8} {'vsd' if vsd else 'sds'} profile: ok 1 "
+          f"traced step, {wall_ms:.2f} ms, device "
           f"busy {busy_ms:.2f} ms (idle share "
-          f"{info['device_idle_share']:.3f}), {len(dev_ev)} device ops | "
-          "by part (device ms): " + ", ".join(
+          f"{info['device_idle_share']:.3f}), {len(dev_ev)} device ops on "
+          f"{len(streams)} streams | by part (device ms, union of its "
+          "ops' spans): " + ", ".join(
               f"{k} {v:.2f}" for k, v in sorted(by_group.items(),
                                                  key=lambda kv: -kv[1]))
-          + " | top: " + "; ".join(f"[{g}] {k} {v:.3f} ms"
-                                   for (g, k), v in top), flush=True)
+          + " | top (summed kernel ms): " + "; ".join(
+              f"[{g}] {k} {v:.3f} ms" for (g, k), v in top), flush=True)
     return info
 
 

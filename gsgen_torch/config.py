@@ -4,7 +4,8 @@ Port of the JAX package's ``config.py``: ``load_config`` reads a YAML
 file, deep-merges its ``include:`` list and applies dotted CLI overrides
 with YAML-typed values (``guidance.type=mock``); ``build_trainer`` wires
 the subsystems the port has from the same ``configs/`` tree: guidance
-``mock`` and ``sds`` (on ``MockUNet`` or the SD UNet + VAE backbone).
+``mock``, ``sds`` and ``vsd`` (on ``MockUNet`` or the SD UNet + VAE
+backbone).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import yaml
 from .data.cameras import CameraSamplerConfig
 from .guidance.mock import MockGuidance
 from .guidance.sds import SDSConfig, SDSGuidance
+from .guidance.vsd import VSDConfig, VSDGuidance
 from .models.background import BackgroundConfig
 from .models.density import DensifyConfig, PruneConfig
 from .models.init import InitConfig
@@ -132,7 +134,11 @@ def _load_yaml_tree(path: Path, _seen=None) -> Dict:
 
 
 def load_config(path, overrides: Optional[List[str]] = None) -> Dict:
-    cfg = _load_yaml_tree(Path(path))
+    """One YAML file, or a list of them deep-merged in order (as an
+    ``include:`` list merges), then the dotted overrides."""
+    cfg: Dict = {}
+    for one in ([path] if isinstance(path, (str, Path)) else path):
+        cfg = deep_merge(cfg, _load_yaml_tree(Path(one)))
     for ov in overrides or []:
         k, v = parse_override(ov)
         set_dotted(cfg, k, v)
@@ -147,9 +153,12 @@ def _build_prompt_processor(prompt_d: Dict, device) -> PromptProcessor:
                            device=device)
 
 
-def _build_backbone(g_d: Dict, device):
+def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
     """Pop the backbone keys from the guidance block; None means the
-    SDS default, MockUNet."""
+    default, MockUNet.  ``vsd`` (lora_rank, camera_condition_dim) upgrades
+    the UNet preset with LoRA adapters and a camera class embedding, and
+    keeps the UNet in fp32 (the JAX VSD path applies it to the fp32
+    masters; only the VAE runs in ``backbone_dtype``)."""
     kind = g_d.pop("backbone", "mock")
     preset = g_d.pop("backbone_preset", "tiny")
     weights = g_d.pop("weights_path", None)
@@ -173,9 +182,14 @@ def _build_backbone(g_d: Dict, device):
         raise NotImplementedError(f"backbone preset {preset}")
     if weights:
         load_diffusers_weights(weights)
-    bb = SDUNetBackbone(presets[preset],
-                        latent_size=8 if preset == "tiny" else 64,
-                        compute_dtype=dtype, device=device)
+    cfg = presets[preset]
+    if vsd:
+        cfg = dataclasses.replace(
+            cfg, lora_rank=int(vsd["lora_rank"]),
+            class_embed_proj_dim=int(vsd["camera_condition_dim"]))
+    bb = SDUNetBackbone(cfg, latent_size=8 if preset == "tiny" else 64,
+                        compute_dtype=dtype, device=device,
+                        fp32_unet=bool(vsd))
     set_fused_attention(bb, fused_attn)
     return bb
 
@@ -220,6 +234,15 @@ def build_trainer(cfg: Dict, device="cuda") -> Trainer:
             dict(cfg.get("prompt", {})), device)
         backbone = _build_backbone(g_d, device)
         guidance = SDSGuidance(_from_dict(SDSConfig, g_d), backbone,
+                               device=device)
+    elif g_type == "vsd":
+        prompt_processor = _build_prompt_processor(
+            dict(cfg.get("prompt", {})), device)
+        backbone = _build_backbone(
+            g_d, device, vsd={"lora_rank": g_d.get("lora_rank", 4),
+                              "camera_condition_dim":
+                                  g_d.get("camera_condition_dim", 16)})
+        guidance = VSDGuidance(_from_dict(VSDConfig, g_d), backbone,
                                device=device)
     else:
         raise NotImplementedError(f"guidance type {g_type}")

@@ -11,7 +11,10 @@
 // K and V tiles are staged in shared memory; each query row keeps a running
 // max m, a running sum l and an unnormalised output accumulator, all fp32;
 // a new key tile rescales them by exp(m_old - m_new).  The output is divided
-// by l once at the end and written in the input type.
+// by l once at the end and written in the input type.  When the caller
+// differentiates, the kernel also writes lse = m + log(l) per query row in
+// fp32 ([B, H, L], as the library saves l and m), from which the backward
+// kernels K6/K7 (flash_attn_bwd.cu) recompute P exactly.
 //
 //  * bf16: 4 warps, 16 query rows each.  S = Q K^T and O += P V run on the
 //    tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the
@@ -28,46 +31,23 @@
 // (0.174 ms at 989 TFLOP/s bf16 vs 0.025 ms at 3.35 TB/s).  This first
 // version uses mma.sync from shared memory without cp.async pipelining or
 // wgmma/TMA, so it reaches a fraction of the bf16 peak; those are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_attn_common.cuh"
 
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int kBlockQ = 64;   // queries per block (both kernels)
-constexpr int kBlockK = 64;   // keys per shared-memory tile (bf16)
 constexpr int kBlockKF = 32;  // keys per shared-memory tile (fp32)
-constexpr int kMaxD = 160;
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // KT_MAX: head dim in units of 16 that the registers are sized for
-// (4: D <= 64, 10: D <= 160).  Fragment layouts of m16n8k16 (lane = 4g + t):
-//   A: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
-//      a3 = A[g+8][2t+8..];   B: b0 = B[2t..2t+1][g], b1 = B[2t+8..][g];
-//   C: c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1].
+// (4: D <= 64, 10: D <= 160); fragment layouts in flash_attn_common.cuh.
 template <int KT_MAX>
 __global__ void __launch_bounds__(128)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int L, int H, int D,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int L, int H, int D,
                           float scale) {
   constexpr int kStride = KT_MAX * 16 + 8;  // smem row stride (elements)
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kStride];
@@ -215,6 +195,12 @@ __global__ void __launch_bounds__(128)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (lse != nullptr && t == 0) {
+    const long lrow =
+        (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L + q0 + g;
+    lse[lrow] = m[0] + logf(l[0]);
+    lse[lrow + 8] = m[1] + logf(l[1]);
+  }
   const float inv0 = 1.0f / l[0];
   const float inv1 = 1.0f / l[1];
 #pragma unroll
@@ -241,7 +227,8 @@ __global__ void __launch_bounds__(256)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int L, int H, int D, float scale) {
+                         float* __restrict__ lse, int L, int H, int D,
+                         float scale) {
   __shared__ __align__(16) float ks[kBlockKF * kMaxD];
   __shared__ __align__(16) float vs[kBlockKF * kMaxD];
 
@@ -329,6 +316,10 @@ __global__ void __launch_bounds__(256)
     }
   }
 
+  if (lse != nullptr && p == 0) {
+    lse[(static_cast<long>(blockIdx.z) * H + blockIdx.y) * L +
+        blockIdx.x * kBlockQ + (tid >> 2)] = m + logf(l);
+  }
   const float inv = 1.0f / l;
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
@@ -342,28 +333,31 @@ __global__ void __launch_bounds__(256)
 }  // namespace
 
 // q, k, v, o: [B, L, H, D] contiguous, 16-byte aligned; L % 64 == 0,
-// D % 8 == 0, D <= 160.  is_bf16: 1 for bfloat16, 0 for float32.
+// D % 8 == 0, D <= 160.  is_bf16: 1 for bfloat16, 0 for float32.  lse:
+// null, or [B, H, L] fp32 for the log-sum-exp of each query's scaled
+// scores (what the backward K6/K7 recomputes P from).
 extern "C" int gsgen_flash_attn_fwd(const void* q, const void* k,
-                                    const void* v, void* o, int B, int L,
-                                    int H, int D, float scale, int is_bf16,
-                                    void* stream) {
+                                    const void* v, void* o, void* lse, int B,
+                                    int L, int H, int D, float scale,
+                                    int is_bf16, void* stream) {
   if (L % kBlockQ != 0 || D % 8 != 0 || D <= 0 || D > kMaxD || B <= 0 ||
       H <= 0 || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(L / kBlockQ, H, B);
+  auto* lf = static_cast<float*>(lse);
   if (is_bf16) {
     const auto* qb = static_cast<const __nv_bfloat16*>(q);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
     auto* ob = static_cast<__nv_bfloat16*>(o);
     if (D <= 64) {
-      flash_fwd_bf16_kernel<4><<<grid, 128, 0, s>>>(qb, kb, vb, ob, L, H, D,
-                                                    scale);
+      flash_fwd_bf16_kernel<4><<<grid, 128, 0, s>>>(qb, kb, vb, ob, lf, L, H,
+                                                    D, scale);
     } else {
-      flash_fwd_bf16_kernel<10><<<grid, 128, 0, s>>>(qb, kb, vb, ob, L, H, D,
-                                                     scale);
+      flash_fwd_bf16_kernel<10><<<grid, 128, 0, s>>>(qb, kb, vb, ob, lf, L, H,
+                                                     D, scale);
     }
   } else {
     const auto* qf = static_cast<const float*>(q);
@@ -371,11 +365,11 @@ extern "C" int gsgen_flash_attn_fwd(const void* q, const void* k,
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(o);
     if (D <= 64) {
-      flash_fwd_f32_kernel<8><<<grid, 256, 0, s>>>(qf, kf, vf, of, L, H, D,
-                                                   scale);
+      flash_fwd_f32_kernel<8><<<grid, 256, 0, s>>>(qf, kf, vf, of, lf, L, H,
+                                                   D, scale);
     } else {
-      flash_fwd_f32_kernel<kMaxD / 8><<<grid, 256, 0, s>>>(qf, kf, vf, of, L,
-                                                           H, D, scale);
+      flash_fwd_f32_kernel<kMaxD / 8><<<grid, 256, 0, s>>>(qf, kf, vf, of, lf,
+                                                           L, H, D, scale);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,4 +1,4 @@
-"""Stable Diffusion backbone: the UNet and the VAE behind SDS.
+"""Stable Diffusion backbone: the UNet and the VAE behind SDS and VSD.
 
 Port of the JAX package's ``guidance/sd_unet.py``.  The backbone offers
 the interface of :class:`.diffusion.MockUNet` (NHWC at the boundary):
@@ -6,35 +6,42 @@ the interface of :class:`.diffusion.MockUNet` (NHWC at the boundary):
   .latent_size / .latent_channels / .image_size
   .encode_images(imgs)  [B, H, W, 3] in [0, 1] -> scaled latents
   .decode_latents(latents) -> [B, H, W, 3] in [0, 1]
-  .predict_noise(latents_noisy, t, text) -> eps (fp32)
+  .predict_noise(latents_noisy, t, text, class_labels=None,
+                 lora_scale=1.0) -> eps (fp32)
 
 ``compute_dtype="bfloat16"`` keeps frozen bf16 copies of the weights and
 casts the inputs (and, inside the UNet, the timestep embedding) to bf16;
 outputs come back in fp32, as in the JAX package.  SDS never
 differentiates through the UNet, but it does through the VAE encoder.
+``fp32_unet=True`` casts only the VAE: the JAX VSD path encodes in
+``compute_dtype`` but applies its UNet to the fp32 master weights.
 
 Without weights the backbone draws random ones from flax's default
 family (variance-scaling 1/fan_in truncated normal kernels, zero biases,
 unit norm scales), so a rehearsal runs at the JAX package's activation
-scale.  :func:`backbone_from_jax_params` carries the JAX package's own
+scale; LoRA adapters take their own init (``down`` N(0, 1/rank), ``up``
+zero).  Every weight is frozen: VSD trains copies of the LoRA and
+class-embedding leaves (:mod:`.vsd`).  :func:`backbone_from_jax_params` carries the JAX package's own
 parameters across.  Loading a diffusers checkpoint
 (``guidance.weights_path``) waits until such weights are in the repo.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Mapping, Optional
 
 import torch
 from torch import nn
 
-from .convert import flax_to_torch_state
-from .unet2d import SD15, SD21, TINY, UNet2DConditionModel, UNetConfig
+from . import convert
+from .unet2d import (SD15, SD21, TINY, TINY_VSD, UNet2DConditionModel,
+                     UNetConfig, init_lora_)
 from .vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
 
-__all__ = ["SDUNetBackbone", "UNetConfig", "TINY", "SD21", "SD15",
-           "backbone_from_jax_params", "load_diffusers_weights"]
+__all__ = ["SDUNetBackbone", "UNetConfig", "TINY", "TINY_VSD", "SD21",
+           "SD15", "backbone_from_jax_params", "load_diffusers_weights"]
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -63,15 +70,21 @@ class SDUNetBackbone(nn.Module):
                  vae_cfg: Optional[VAEConfig] = None,
                  compute_dtype: Optional[str] = None, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 random_init: bool = True):
+                 random_init: bool = True, fp32_unet: bool = False):
         super().__init__()
         dev = torch.device(device)
         self.cfg = cfg
         self.compute_dtype = (getattr(torch, compute_dtype)
                               if compute_dtype else None)
+        self.fp32_unet = fp32_unet
         self.latent_size = latent_size
         self.latent_channels = cfg.in_channels
-        self.vae_cfg = vae_cfg or (SD_VAE if cfg in (SD21, SD15)
+        # the SD presets keep the SD VAE when VSD adds LoRA and a camera
+        # embedding (the JAX package compares the whole config and falls
+        # back to TINY_VAE there: a 128^2 encode of the 512^2 render)
+        sd_family = dataclasses.replace(cfg, lora_rank=0,
+                                        class_embed_proj_dim=None)
+        self.vae_cfg = vae_cfg or (SD_VAE if sd_family in (SD21, SD15)
                                    else TINY_VAE)
         self.image_size = latent_size * 2 ** (
             len(self.vae_cfg.block_out_channels) - 1)
@@ -82,28 +95,41 @@ class SDUNetBackbone(nn.Module):
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
             flax_default_init_(self, generator)
+            init_lora_(self.unet, generator)
         self.requires_grad_(False).eval()
-        if self.compute_dtype is not None:
-            self.to(self.compute_dtype)
+        self._cast()
 
-    def _dtype(self):
+    def _cast(self):
+        if self.compute_dtype is not None:
+            (self.vae if self.fp32_unet else self).to(self.compute_dtype)
+
+    def _vae_dtype(self):
         return self.compute_dtype or torch.float32
+
+    def _unet_dtype(self):
+        return (torch.float32 if self.fp32_unet
+                else self.compute_dtype or torch.float32)
 
     def encode_images(self, imgs):
         """[B, H, W, 3] in [0, 1] -> scaled latents [B, h, w, c], fp32;
         differentiable with respect to ``imgs``."""
-        z = self.vae.encode((imgs * 2.0 - 1.0).to(self._dtype()))
+        z = self.vae.encode((imgs * 2.0 - 1.0).to(self._vae_dtype()))
         return z.to(torch.float32)
 
     @torch.no_grad()
     def decode_latents(self, latents):
         """Scaled latents -> [B, H, W, 3] in [0, 1]."""
-        img = self.vae.decode(latents.to(self._dtype())).to(torch.float32)
+        img = self.vae.decode(latents.to(self._vae_dtype())).to(
+            torch.float32)
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
 
-    def predict_noise(self, latents_noisy, t, text):
-        dt = self._dtype()
-        eps = self.unet(latents_noisy.to(dt), t, text.to(dt))
+    def predict_noise(self, latents_noisy, t, text, class_labels=None,
+                      lora_scale: float = 1.0):
+        dt = self._unet_dtype()
+        if class_labels is not None:
+            class_labels = class_labels.to(dt)
+        eps = self.unet(latents_noisy.to(dt), t, text.to(dt),
+                        class_labels=class_labels, lora_scale=lora_scale)
         return eps.to(torch.float32)
 
 
@@ -111,18 +137,21 @@ def backbone_from_jax_params(params_np: Mapping, cfg: UNetConfig = TINY,
                              latent_size: int = 64,
                              vae_cfg: Optional[VAEConfig] = None,
                              compute_dtype: Optional[str] = None,
-                             device="cuda") -> SDUNetBackbone:
+                             device="cuda", fp32_unet: bool = False
+                             ) -> SDUNetBackbone:
     """Backbone holding the JAX package's SDUNetBackbone parameters,
-    given as ``{"unet": flax tree, "vae": flax tree}`` with numpy leaves."""
+    given as ``{"unet": flax tree, "vae": flax tree}`` with numpy leaves
+    (LoRA and class-embedding leaves included when ``cfg`` has them)."""
     bb = SDUNetBackbone(cfg, latent_size=latent_size, vae_cfg=vae_cfg,
-                        device=device, random_init=False)
+                        device=device, random_init=False,
+                        fp32_unet=fp32_unet)
     for name in ("unet", "vae"):
         state = {k: torch.tensor(v) for k, v in
-                 flax_to_torch_state(params_np[name]).items()}
+                 convert.flax_to_torch_state(params_np[name]).items()}
         getattr(bb, name).load_state_dict(state, strict=True)
     if compute_dtype:
         bb.compute_dtype = getattr(torch, compute_dtype)
-        bb.to(bb.compute_dtype)
+        bb._cast()
     return bb
 
 

@@ -13,15 +13,19 @@ diffusers checkpoint's keys therefore match without renaming.
 * BasicTransformerBlock: pre-LN self-attention, cross-attention and a
   GEGLU feed-forward with the exact (erf) GELU.
 * Attention: to_q/k/v without bias, ``to_out.0`` with bias, fp32 scores
-  and softmax.  Self-attention goes through kernel K5
+  and softmax.  Self-attention goes through kernels K5-K7
   (:mod:`..ops.flash_attention`) as :func:`set_fused_attention` selects.
+* LoRA (``lora_rank``): diffusers' LoRALinearLayer pairs ``*_lora.down`` /
+  ``*_lora.up`` on to_q/k/v/out, scaled by ``lora_scale``; a projection
+  class embedding (``class_embed_proj_dim``, VSD's camera condition) adds
+  ``class_embedding(class_labels)`` to the time embedding.
 
 GroupNorm is ``nn.GroupNorm``; the JAX package's matmul form of it
 (``guidance/norm.py``) is a TPU layout workaround with the same values.
 ``UNet2DConditionModel`` takes and returns NHWC samples, as the JAX
-model does; inside, activations stay contiguous NCHW.  LoRA adapters,
-class embeddings and ``encoder_hid_proj`` (VSD and DeepFloyd IF) raise
-until their slices.
+model does; inside, activations stay contiguous NCHW.  The "timestep"
+class embedding and ``encoder_hid_proj`` (DeepFloyd IF) raise until their
+slice.
 """
 
 from __future__ import annotations
@@ -82,24 +86,62 @@ def set_fused_attention(module: nn.Module, mode: str) -> None:
             m.fused_attention = mode
 
 
+class LoRALinear(nn.Module):
+    """diffusers LoRALinearLayer: up(down(x)); ``down`` is drawn from
+    N(0, (1/rank)^2) and ``up`` starts at zero (:func:`init_lora_`)."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int):
+        super().__init__()
+        self.rank = rank
+        self.down = nn.Linear(in_features, rank, bias=False)
+        self.up = nn.Linear(rank, out_features, bias=False)
+
+    def forward(self, x):
+        return self.up(self.down(x))
+
+
+@torch.no_grad()
+def init_lora_(module: nn.Module, generator: torch.Generator):
+    """The JAX package's LoRA init for every :class:`LoRALinear` in
+    ``module``, in module order: ``down`` N(0, 1/rank) in std, ``up``
+    zeros."""
+    for m in module.modules():
+        if isinstance(m, LoRALinear):
+            m.down.weight.normal_(0.0, 1.0 / m.rank, generator=generator)
+            m.up.weight.zero_()
+
+
 class Attention(nn.Module):
-    """diffusers Attention: to_q/k/v without bias, to_out.0 with bias."""
+    """diffusers Attention: to_q/k/v without bias, to_out.0 with bias, and
+    LoRA adapters on each projection when ``lora_rank`` > 0."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
-                 out_dim: int, cross_dim: Optional[int] = None):
+                 out_dim: int, cross_dim: Optional[int] = None,
+                 lora_rank: int = 0):
         super().__init__()
         inner = heads * head_dim
+        kv_dim = cross_dim or query_dim
         self.heads = heads
         self.head_dim = head_dim
+        self.lora_rank = lora_rank
         self.fused_attention = "auto"
         self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(cross_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(cross_dim or query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, out_dim)])
+        if lora_rank:
+            self.to_q_lora = LoRALinear(query_dim, inner, lora_rank)
+            self.to_k_lora = LoRALinear(kv_dim, inner, lora_rank)
+            self.to_v_lora = LoRALinear(kv_dim, inner, lora_rank)
+            self.to_out_lora = LoRALinear(inner, out_dim, lora_rank)
 
-    def forward(self, x, ctx=None):
+    def forward(self, x, ctx=None, lora_scale: float = 1.0):
         ctx = x if ctx is None else ctx
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if self.lora_rank:
+            q = q + lora_scale * self.to_q_lora(x)
+            k = k + lora_scale * self.to_k_lora(ctx)
+            v = v + lora_scale * self.to_v_lora(ctx)
         B, L, _ = q.shape
         S = k.shape[1]
         q = q.reshape(B, L, self.heads, self.head_dim)
@@ -116,7 +158,11 @@ class Attention(nn.Module):
             out = flash_self_attention(q, k, v, scale)
         else:
             out = flash_self_attention_plain(q, k, v, scale)
-        return self.to_out[0](out.reshape(B, L, self.heads * self.head_dim))
+        out = out.reshape(B, L, self.heads * self.head_dim)
+        y = self.to_out[0](out)
+        if self.lora_rank:
+            y = y + lora_scale * self.to_out_lora(out)
+        return y
 
 
 class GEGLU(nn.Module):
@@ -144,25 +190,28 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, head_dim: int, cross_dim: int):
+    def __init__(self, dim: int, heads: int, head_dim: int, cross_dim: int,
+                 lora_rank: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, head_dim, dim)
+        self.attn1 = Attention(dim, heads, head_dim, dim,
+                               lora_rank=lora_rank)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, head_dim, dim, cross_dim)
+        self.attn2 = Attention(dim, heads, head_dim, dim, cross_dim,
+                               lora_rank=lora_rank)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, ctx):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), ctx)
+    def forward(self, x, ctx, lora_scale: float = 1.0):
+        x = x + self.attn1(self.norm1(x), None, lora_scale)
+        x = x + self.attn2(self.norm2(x), ctx, lora_scale)
         return x + self.ff(self.norm3(x))
 
 
 class Transformer2DModel(nn.Module):
     def __init__(self, in_channels: int, heads: int, head_dim: int,
                  cross_dim: int, depth: int = 1,
-                 use_linear_projection: bool = True):
+                 use_linear_projection: bool = True, lora_rank: int = 0):
         super().__init__()
         inner = heads * head_dim
         self.use_linear_projection = use_linear_projection
@@ -174,10 +223,11 @@ class Transformer2DModel(nn.Module):
             self.proj_in = nn.Conv2d(in_channels, inner, 1)
             self.proj_out = nn.Conv2d(inner, in_channels, 1)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, heads, head_dim, cross_dim)
+            BasicTransformerBlock(inner, heads, head_dim, cross_dim,
+                                  lora_rank)
             for _ in range(depth)])
 
-    def forward(self, x, ctx):
+    def forward(self, x, ctx, lora_scale: float = 1.0):
         B, C, H, W = x.shape
         h = self.norm(x)
         if self.use_linear_projection:
@@ -186,7 +236,7 @@ class Transformer2DModel(nn.Module):
             h = self.proj_in(h)
             h = h.permute(0, 2, 3, 1).reshape(B, H * W, h.shape[1])
         for blk in self.transformer_blocks:
-            h = blk(h, ctx)
+            h = blk(h, ctx, lora_scale)
         # back to contiguous NCHW: a channels-last view here would mix
         # memory formats through every later elementwise op and norm
         if self.use_linear_projection:
@@ -254,7 +304,7 @@ class Upsample2D(nn.Module):
 class CrossAttnDownBlock2D(nn.Module):
     def __init__(self, in_channels, out_channels, num_layers, heads,
                  head_dim, temb_channels, cross_dim, add_downsample=True,
-                 use_linear_projection=True):
+                 use_linear_projection=True, lora_rank=0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -262,15 +312,16 @@ class CrossAttnDownBlock2D(nn.Module):
             for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, head_dim, cross_dim,
-                               use_linear_projection=use_linear_projection)
+                               use_linear_projection=use_linear_projection,
+                               lora_rank=lora_rank)
             for _ in range(num_layers)])
         if add_downsample:
             self.downsamplers = nn.ModuleList([Downsample2D(out_channels)])
 
-    def forward(self, x, temb, ctx):
+    def forward(self, x, temb, ctx, lora_scale=1.0):
         skips = []
         for res, attn in zip(self.resnets, self.attentions):
-            x = attn(res(x, temb), ctx)
+            x = attn(res(x, temb), ctx, lora_scale)
             skips.append(x)
         if hasattr(self, "downsamplers"):
             x = self.downsamplers[0](x)
@@ -289,7 +340,7 @@ class DownBlock2D(nn.Module):
         if add_downsample:
             self.downsamplers = nn.ModuleList([Downsample2D(out_channels)])
 
-    def forward(self, x, temb, ctx=None):
+    def forward(self, x, temb, ctx=None, lora_scale=1.0):
         skips = []
         for res in self.resnets:
             x = res(x, temb)
@@ -302,17 +353,18 @@ class DownBlock2D(nn.Module):
 
 class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, channels, heads, head_dim, temb_channels, cross_dim,
-                 use_linear_projection=True):
+                 use_linear_projection=True, lora_rank=0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_channels)
             for _ in range(2)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(channels, heads, head_dim, cross_dim,
-                               use_linear_projection=use_linear_projection)])
+                               use_linear_projection=use_linear_projection,
+                               lora_rank=lora_rank)])
 
-    def forward(self, x, temb, ctx):
-        x = self.attentions[0](self.resnets[0](x, temb), ctx)
+    def forward(self, x, temb, ctx, lora_scale=1.0):
+        x = self.attentions[0](self.resnets[0](x, temb), ctx, lora_scale)
         return self.resnets[1](x, temb)
 
 
@@ -330,21 +382,23 @@ def _up_resnets(in_channels, out_channels, prev_output_channel, num_layers,
 class CrossAttnUpBlock2D(nn.Module):
     def __init__(self, in_channels, out_channels, prev_output_channel,
                  num_layers, heads, head_dim, temb_channels, cross_dim,
-                 add_upsample=True, use_linear_projection=True):
+                 add_upsample=True, use_linear_projection=True, lora_rank=0):
         super().__init__()
         self.resnets = _up_resnets(in_channels, out_channels,
                                    prev_output_channel, num_layers,
                                    temb_channels)
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, head_dim, cross_dim,
-                               use_linear_projection=use_linear_projection)
+                               use_linear_projection=use_linear_projection,
+                               lora_rank=lora_rank)
             for _ in range(num_layers)])
         if add_upsample:
             self.upsamplers = nn.ModuleList([Upsample2D(out_channels)])
 
-    def forward(self, x, skips, temb, ctx):
+    def forward(self, x, skips, temb, ctx, lora_scale=1.0):
         for res, attn in zip(self.resnets, self.attentions):
-            x = attn(res(torch.cat([x, skips.pop()], dim=1), temb), ctx)
+            x = attn(res(torch.cat([x, skips.pop()], dim=1), temb), ctx,
+                     lora_scale)
         if hasattr(self, "upsamplers"):
             x = self.upsamplers[0](x)
         return x
@@ -360,7 +414,7 @@ class UpBlock2D(nn.Module):
         if add_upsample:
             self.upsamplers = nn.ModuleList([Upsample2D(out_channels)])
 
-    def forward(self, x, skips, temb, ctx=None):
+    def forward(self, x, skips, temb, ctx=None, lora_scale=1.0):
         for res in self.resnets:
             x = res(torch.cat([x, skips.pop()], dim=1), temb)
         if hasattr(self, "upsamplers"):
@@ -398,6 +452,7 @@ SD15 = UNetConfig(cross_attention_dim=768, attention_head_dim=(8, 8, 8, 8),
 TINY = UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
                   cross_attention_dim=1024, attention_head_dim=(2, 2),
                   cross_attn_levels=(True, True))
+TINY_VSD = dataclasses.replace(TINY, class_embed_proj_dim=16, lora_rank=4)
 
 
 class UNet2DConditionModel(nn.Module):
@@ -405,12 +460,9 @@ class UNet2DConditionModel(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.lora_rank:
-            raise NotImplementedError("LoRA adapters wait for the VSD slice")
-        if cfg.class_embed_proj_dim is not None or \
-                cfg.class_embed_type != "projection":
-            raise NotImplementedError("class embeddings wait for the VSD "
-                                      "and IF slices")
+        if cfg.class_embed_type != "projection":
+            raise NotImplementedError("timestep class embeddings wait for "
+                                      "the IF slice")
         if cfg.encoder_hid_dim is not None:
             raise NotImplementedError("encoder_hid_proj waits for the IF "
                                       "slice")
@@ -419,8 +471,12 @@ class UNet2DConditionModel(nn.Module):
         tdim = ch0 * 4
         xdim = c.cross_attention_dim
         lin = c.use_linear_projection
+        lora = c.lora_rank
         self.conv_in = nn.Conv2d(c.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, tdim)
+        if c.class_embed_proj_dim is not None:
+            self.class_embedding = TimestepEmbedding(c.class_embed_proj_dim,
+                                                     tdim)
 
         down = []
         out_ch = ch0
@@ -432,7 +488,7 @@ class UNet2DConditionModel(nn.Module):
                 down.append(CrossAttnDownBlock2D(
                     in_ch, ch, c.layers_per_block, heads, ch // heads, tdim,
                     xdim, add_downsample=not last,
-                    use_linear_projection=lin))
+                    use_linear_projection=lin, lora_rank=lora))
             else:
                 down.append(DownBlock2D(in_ch, ch, c.layers_per_block, tdim,
                                         add_downsample=not last))
@@ -442,7 +498,7 @@ class UNet2DConditionModel(nn.Module):
         mid_ch = c.block_out_channels[-1]
         self.mid_block = UNetMidBlock2DCrossAttn(
             mid_ch, mid_heads, mid_ch // mid_heads, tdim, xdim,
-            use_linear_projection=lin)
+            use_linear_projection=lin, lora_rank=lora)
 
         up = []
         rev = list(reversed(c.block_out_channels))
@@ -457,7 +513,7 @@ class UNet2DConditionModel(nn.Module):
                 up.append(CrossAttnUpBlock2D(
                     in_ch, ch, prev, c.layers_per_block + 1, heads,
                     ch // heads, tdim, xdim, add_upsample=not last,
-                    use_linear_projection=lin))
+                    use_linear_projection=lin, lora_rank=lora))
             else:
                 up.append(UpBlock2D(in_ch, ch, prev, c.layers_per_block + 1,
                                     tdim, add_upsample=not last))
@@ -467,9 +523,11 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = nn.GroupNorm(32, ch0, eps=1e-5)
         self.conv_out = nn.Conv2d(ch0, c.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states):
-        """sample [B, H, W, C] (NHWC), timesteps [B], states [B, S, D]
-        -> eps [B, H, W, C_out]."""
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                class_labels=None, lora_scale: float = 1.0):
+        """sample [B, H, W, C] (NHWC), timesteps [B], states [B, S, D],
+        class_labels [B, class_embed_proj_dim] or None -> eps
+        [B, H, W, C_out]."""
         c = self.cfg
         temb = get_timestep_embedding(
             timesteps, c.block_out_channels[0],
@@ -479,18 +537,20 @@ class UNet2DConditionModel(nn.Module):
         # must match the sample, or `h + time_emb_proj(temb)` promotes
         # every resnet trunk back to fp32
         temb = self.time_embedding(temb.to(sample.dtype))
+        if class_labels is not None and c.class_embed_proj_dim is not None:
+            temb = temb + self.class_embedding(class_labels.to(sample.dtype))
         ctx = encoder_hidden_states
 
         h = self.conv_in(sample.permute(0, 3, 1, 2).contiguous())
         skips = [h]
         for blk in self.down_blocks:
-            h, s = blk(h, temb, ctx)
+            h, s = blk(h, temb, ctx, lora_scale)
             skips.extend(s)
-        h = self.mid_block(h, temb, ctx)
+        h = self.mid_block(h, temb, ctx, lora_scale)
         n = c.layers_per_block + 1
         for blk in self.up_blocks:
             blk_skips = skips[-n:]
             del skips[-n:]
-            h = blk(h, blk_skips, temb, ctx)
+            h = blk(h, blk_skips, temb, ctx, lora_scale)
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
         return h.permute(0, 2, 3, 1)

@@ -4,10 +4,15 @@ r"""CLI entry point: train a text-to-3D Gaussian scene with the port.
     python -m gsgen_torch.main --config configs/base.yaml \
         guidance.backbone=sd_unet guidance.backbone_preset=sd21 \
         guidance.backbone_dtype=bfloat16 --steps 3
+    python -m gsgen_torch.main --config configs/base.yaml \
+        --config configs/guidance/vsd.yaml --config configs/prompt/vsd.yaml \
+        --steps 3
     python -m gsgen_torch.main --config configs/base.yaml ckpt=path/to/step_N
 
 The first runs SDS on MockUNet, the second SDS on the SD 2.1 UNet and
-VAE with random weights (no weights are in the repository yet).
+VAE with random weights (no weights are in the repository yet), the
+third VSD (LoRA and camera conditioning on the SD 2.1 UNet): several
+``--config`` files merge in order, as an ``include:`` list does.
 ``ckpt=`` resumes from a checkpoint directory of the JAX package
 (``arrays.npz``).  Runs on the card unless ``--device cpu`` is given.
 """
@@ -23,7 +28,9 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", default="configs/base.yaml")
+    ap.add_argument("--config", action="append",
+                    help="config file; repeat to merge overlays in order "
+                         "(default: configs/base.yaml)")
     ap.add_argument("--steps", type=int, default=None,
                     help="number of steps to run (default: to max_steps)")
     ap.add_argument("--device", default="cuda")
@@ -40,7 +47,7 @@ def main(argv=None):
         if o.startswith("ckpt="):
             ckpt = Path(o.split("=", 1)[1])
             overrides.remove(o)
-    cfg = load_config(args.config, overrides)
+    cfg = load_config(args.config or ["configs/base.yaml"], overrides)
     trainer = build_trainer(cfg, device=args.device)
     if ckpt is not None:
         with np.load(ckpt / "arrays.npz") as data:

@@ -33,7 +33,9 @@ BUILD = PKG / "_build"
 LIB_NAME = "libgsgen_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-FUSED_FMA_SOURCES = {"flash_attn_fwd.cu"}
+# K5, K6 and K7: held to their plain versions at 1e-4 x max|value| in fp32
+# and 2e-2 (K5) / 3e-2 (K6, K7) in bf16 (chip_smoke.py FLASH_TOL)
+FUSED_FMA_SOURCES = {"flash_attn_fwd.cu", "flash_attn_bwd.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,7 +49,11 @@ SIGNATURES = {
                          _I, _F, _P],
     "gsgen_expansion_rank": [_P, _I, _P, _I, _P],
     "gsgen_gid_repack": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "gsgen_flash_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "gsgen_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "gsgen_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _I, _P],
+    "gsgen_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,11 +9,13 @@ schedules, samples numpy camera poses and keeps the duplicate-capacity
 bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
 compile-ahead threads have no counterpart.
 
-Guidance is ``MockGuidance`` or SDS (:mod:`..guidance.sds`); the SD
-backbone freezes its own weights, and only the scene and background
-are optimizer leaves.
+Guidance is ``MockGuidance``, SDS (:mod:`..guidance.sds`) or VSD
+(:mod:`..guidance.vsd`); the SD backbone freezes its own weights.  The
+optimizer's leaves are the scene fields, the background (``bg/<name>``)
+and the guidance's trainable leaves (``gp/<name>``: VSD's LoRA and camera
+embedding, at ``lr_guidance``).
 
-Not ported yet (``NotImplementedError``): densify / prune events, VSD and
+Not ported yet (``NotImplementedError``): densify / prune events,
 DeepFloyd guidance, estimators, image-to-3D, auxiliary guidance,
 logging and checkpoints.
 """
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..data.cameras import CameraPoseProvider, CameraSamplerConfig
+from ..guidance import convert
 from ..guidance.mock import MockGuidance
 from ..models.background import (BackgroundConfig, apply_background,
                                  init_background)
@@ -91,22 +94,40 @@ class TrainerConfig:
 class TrainState:
     scene: SceneState
     bg: Dict[str, torch.Tensor]
-    opt: AdamState       # over the scene fields and "bg/<name>" entries
+    gp: Dict[str, torch.Tensor]   # trainable guidance leaves; {} if none
+    opt: AdamState       # over the scene fields, "bg/<name>", "gp/<name>"
     step: int
 
 
 def _opt_params(params: Dict[str, torch.Tensor],
-                bg: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The optimizer's leaves: scene fields, then ``bg/<name>``."""
-    return {**params, **{f"bg/{k}": v for k, v in bg.items()}}
+                bg: Dict[str, torch.Tensor],
+                gp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The optimizer's leaves: scene fields, ``bg/<name>``, ``gp/<name>``."""
+    return {**params, **{f"bg/{k}": v for k, v in bg.items()},
+            **{f"gp/{k}": v for k, v in gp.items()}}
+
+
+def _gp_leaf(name: str, arr: np.ndarray):
+    """A JAX ``gp`` leaf in the port's naming and layout: a flax path
+    (``params/.../to_q_lora/down/kernel``) becomes its torch key with the
+    kernel transposed; a plain name (the MockUNet adapter's) stays as it
+    is."""
+    if "/" not in name:
+        return name, arr
+    path = tuple(name.split("/"))
+    key, kind = convert.flax_path_to_torch_key(
+        path[1:] if path[0] == "params" else path)
+    return key, np.ascontiguousarray(convert.to_torch_leaf(kind, arr))
 
 
 def train_state_from_jax_arrays(arrays: Dict[str, np.ndarray], device
                                 ) -> TrainState:
     """TrainState from the flattened key paths the JAX package's
     checkpoints write to ``arrays.npz`` (``.scene/.params/.mean``,
-    ``.opt/.mu/[0]/.mean``, ``.bg/['name']``, ``.step``, ...).  The JAX
-    RNG key is not carried: the port draws from its own generator."""
+    ``.opt/.mu/[0]/.mean``, ``.bg/['name']``, ``.gp/['name']``,
+    ``.opt/.mu/[2]/['name']``, ``.step``, ...).  Guidance leaves and their
+    moments take the port's names and layouts (:func:`_gp_leaf`).  The
+    JAX RNG key is not carried: the port draws from its own generator."""
     def field(path, name):
         return arrays[f"{path}/.{name}"]
 
@@ -116,25 +137,27 @@ def train_state_from_jax_arrays(arrays: Dict[str, np.ndarray], device
             ("active", "max_radii2d", "grad_accum", "grad_cnt")}},
         device)
 
-    def bg_dict(prefix):
+    def named(prefix, leaf=lambda k, a: (k, a)):
         out = {}
         for key in arrays:
             if key.startswith(prefix + "/['"):
-                out[key[len(prefix) + 3:-2]] = torch.as_tensor(
-                    np.array(arrays[key]), device=device)
+                k, a = leaf(key[len(prefix) + 3:-2], np.array(arrays[key]))
+                out[k] = torch.as_tensor(a, device=device)
         return out
 
-    bg = bg_dict(".bg")
+    bg, gp = named(".bg"), named(".gp", _gp_leaf)
     moments = {}
     for m in ("mu", "nu"):
         mom = {f: torch.as_tensor(np.array(field(f".opt/.{m}/[0]", f)),
                                   device=device) for f in FIELDS}
         mom.update({f"bg/{k}": v for k, v in
-                    bg_dict(f".opt/.{m}/[1]").items()})
+                    named(f".opt/.{m}/[1]").items()})
+        mom.update({f"gp/{k}": v for k, v in
+                    named(f".opt/.{m}/[2]", _gp_leaf).items()})
         moments[m] = mom
     opt = AdamState(mu=moments["mu"], nu=moments["nu"],
                     count=int(arrays[".opt/.count"]))
-    return TrainState(scene=scene, bg=bg, opt=opt,
+    return TrainState(scene=scene, bg=bg, gp=gp, opt=opt,
                       step=int(arrays[".step"]))
 
 
@@ -174,9 +197,11 @@ class Trainer:
                            points=init_points, colors=init_colors,
                            raw_values=init_raw)
         bg = init_background(bg_cfg, self.device)
-        self.state = TrainState(scene=scene, bg=bg,
-                                opt=adam_init(_opt_params(scene.params, bg)),
-                                step=0)
+        gp = {k: v.detach().clone() for k, v in getattr(
+            self.guidance, "trainable_params", {}).items()}
+        self.state = TrainState(
+            scene=scene, bg=bg, gp=gp,
+            opt=adam_init(_opt_params(scene.params, bg, gp)), step=0)
         self.lr_fns = {k: make_lr_schedule(v, cfg.max_steps)
                        for k, v in cfg.lr.items()}
         self.dup_bucket = rcfg.dup_cap
@@ -187,6 +212,8 @@ class Trainer:
         c = lambda v: C(v, step, self.cfg.max_steps)  # noqa: E731
         s = {
             "w_sds": c(self.cfg.loss.sds),
+            "w_vsd": c(self.cfg.loss.vsd),
+            "w_lora": c(self.cfg.loss.lora),
             "w_sparsity": c(self.cfg.loss.sparsity),
             "w_opague": c(self.cfg.loss.opague),
             "w_z_var": c(self.cfg.loss.z_var),
@@ -204,7 +231,7 @@ class Trainer:
             return self.rcfg
         return dataclasses.replace(self.rcfg, dup_cap=self.dup_bucket)
 
-    def _loss(self, params, bg, taps, batch, sched, intr, rcfg):
+    def _loss(self, params, bg, gp, taps, batch, sched, intr, rcfg):
         cfg = self.cfg
         B = batch["c2w"].shape[0]
         bgs = torch.stack([apply_background(bg, self.bg_cfg, self.generator,
@@ -220,8 +247,13 @@ class Trainer:
                      if self.prompt_processor is not None else None)
         g = self.guidance.loss(outs["rgb"], embedding, batch["elevation"],
                                batch["azimuth"], batch["camera_distance"],
-                               generator=self.generator, sched=sched)
-        loss = sched["w_sds"] * g["loss_sds"]
+                               generator=self.generator, sched=sched,
+                               c2ws=batch["c2w"], train=gp)
+        loss = sched["w_sds"] * g.get("loss_sds", 0.0)
+        if "loss_vsd" in g:
+            loss = loss + sched["w_vsd"] * g["loss_vsd"]
+        if "loss_lora" in g:
+            loss = loss + sched["w_lora"] * g["loss_lora"]
         metrics = dict(g)
         if not cfg.rgb_only:
             opacity = outs["opacity"]
@@ -254,7 +286,9 @@ class Trainer:
                   for k, v in scene.params.items()}
         bg = {k: v.detach().requires_grad_(True)
               for k, v in state.bg.items()}
-        leaves = _opt_params(params, bg)
+        gp = {k: v.detach().requires_grad_(True)
+              for k, v in state.gp.items()}
+        leaves = _opt_params(params, bg, gp)
         A = cfg.grad_accum
         gsum = {k: torch.zeros_like(v) for k, v in leaves.items()}
         tap_grads, vis_list, radii_list = [], [], []
@@ -262,8 +296,8 @@ class Trainer:
             B = batch["c2w"].shape[0]
             taps = torch.zeros(B, scene.params["mean"].shape[0], 2,
                                device=self.device, requires_grad=True)
-            loss, outs, metrics = self._loss(params, bg, taps, batch, sched,
-                                             intr, rcfg)
+            loss, outs, metrics = self._loss(params, bg, gp, taps, batch,
+                                             sched, intr, rcfg)
             names = list(leaves)
             grads = torch.autograd.grad(
                 loss, [leaves[k] for k in names] + [taps], allow_unused=True)
@@ -277,8 +311,11 @@ class Trainer:
         grads = {k: v / A for k, v in gsum.items()}
         lrs = {k: sched[f"lr_{k}"] for k in scene.params}
         lrs.update({f"bg/{k}": sched["lr_bg"] for k in state.bg})
+        lrs.update({f"gp/{k}": sched.get("lr_guidance", 1e-4)
+                    for k in state.gp})
         new, opt = adam_update(grads, state.opt,
-                               _opt_params(scene.params, state.bg), lrs)
+                               _opt_params(scene.params, state.bg, state.gp),
+                               lrs)
 
         with torch.no_grad():
             tg = torch.cat(tap_grads, dim=0)                 # [A*B, M, 2]
@@ -297,8 +334,9 @@ class Trainer:
             max_radii2d=max_radii2d, grad_accum=grad_accum,
             grad_cnt=grad_cnt.to(torch.float32))
         new_bg = {k: new[f"bg/{k}"] for k in state.bg}
-        self.state = TrainState(scene=new_scene, bg=new_bg, opt=opt,
-                                step=state.step + 1)
+        new_gp = {k: new[f"gp/{k}"] for k in state.gp}
+        self.state = TrainState(scene=new_scene, bg=new_bg, gp=new_gp,
+                                opt=opt, step=state.step + 1)
         return {k: v.detach() for k, v in metrics.items()}
 
     def _adjust_dup_bucket(self, n_dup_max: int):

@@ -133,3 +133,67 @@ def test_flash_attention_matches_plain(cuda, dtype, D):
     assert err <= tol, (err, tol)
     with pytest.raises(ValueError):
         fa.flash_self_attention(q[:, :100], k[:, :100], v[:, :100], scale)
+
+
+def _qkv_dout(cuda, shape, dt, seed):
+    rng = np.random.default_rng(seed)
+    return [t(rng.standard_normal(shape).astype(np.float32)).to(cuda, dt)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [40, 64, 160])
+def test_flash_backward_kernels_match_plain(cuda, dtype, D):
+    """K5's lse within 1e-5 (fp32) / 2e-2 (bf16) of the plain lse's
+    largest value; K6 and K7 against flash_self_attention_bwd_plain within
+    1e-4 (fp32) / 3e-2 (bf16) of each gradient's largest value (bf16: the
+    kernels round P and dS to bf16 for the second products)."""
+    from gsgen_torch.ops import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _qkv_dout(cuda, (2, 256, 2, D), dt, D + 1)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa.flash_self_attention_lse(q, k, v, scale)
+    out_p, lse_p = fa.flash_self_attention_plain_lse(q, k, v, scale)
+    ftol = 1e-4 if dt == torch.float32 else 3e-2
+    ltol = 1e-5 if dt == torch.float32 else 2e-2
+    assert float((lse - lse_p).abs().max()) <= ltol * float(
+        lse_p.abs().max())
+    delta = fa.attention_delta(out, dout)
+    n6, n7 = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
+    assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
+        n6 + 1, n7 + 1)
+    want = fa.flash_self_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dt and got.shape == q.shape
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= ftol * float(ref.float().abs().max()), (name, err)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_dq(q, k, v, dout, lse[:, :, :128], delta, scale)
+
+
+def test_flash_attention_autograd_on_card(cuda):
+    """The output stays attached to inputs that require grad, and the
+    gradients of K5 + K6 + K7 match autograd through the plain path
+    (fp32, 1e-4 of each gradient's largest value); under no_grad no lse
+    is kept and the backward kernels do not launch."""
+    from gsgen_torch.ops import flash_attention as fa
+    q, k, v, dout = _qkv_dout(cuda, (2, 128, 3, 64), torch.float32, 5)
+    ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n = (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
+         fa.flash_bwd_dq.launches)
+    out = fa.flash_self_attention(*ps, 0.125)
+    assert out.grad_fn is not None and out.requires_grad
+    got = torch.autograd.grad(out, ps, dout)
+    assert (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    ref_ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(
+        fa.flash_self_attention_plain(*ref_ps, 0.125), ref_ps, dout)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    with torch.no_grad():
+        assert fa.flash_self_attention(*ps, 0.125).grad_fn is None
+    assert fa.flash_bwd_dkv.launches == n[1] + 1

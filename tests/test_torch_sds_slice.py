@@ -137,7 +137,7 @@ def test_base_yaml_tiny_sd_backbone_trains_two_steps():
 def test_config_guidance_selection(tmp_path, monkeypatch):
     """base.yaml as it is builds SDS on MockUNet; the flagship rehearsal
     builds (TINY preset here) and steps at its c2f stage 0; what is not
-    ported raises."""
+    ported (DeepFloyd IF guidance, weights, encoders) raises."""
     monkeypatch.chdir(tmp_path)          # the prompt cache is cwd-relative
     tr = build_trainer(load_config(ROOT / "configs" / "base.yaml"),
                        device="cpu")
@@ -160,7 +160,7 @@ def test_config_guidance_selection(tmp_path, monkeypatch):
     assert tr.state.step == 1
 
     base = ROOT / "configs" / "base.yaml"
-    for bad in (["guidance.type=vsd"], ["guidance.type=deep_floyd"],
+    for bad in (["guidance.type=if"], ["guidance.type=deep_floyd"],
                 TINY_SD + ["guidance.weights_path=/nonexistent/sd21"],
                 ["prompt.model_id=/nonexistent/clip"]):
         with pytest.raises(NotImplementedError):

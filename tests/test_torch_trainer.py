@@ -154,7 +154,8 @@ def test_load_config_base_yaml_with_overrides(tmp_path):
     assert tr.state.step == 2
     with pytest.raises(NotImplementedError):
         build_trainer(load_config(ROOT / "configs" / "base.yaml",
-                                  ["guidance.type=vsd"]), device="cpu")
+                                  ["guidance.type=deep_floyd"]),
+                      device="cpu")
 
 
 def test_fit_runs_to_max_steps_and_densify_raises():
@@ -209,3 +210,43 @@ def test_state_from_jax_arrays_roundtrip():
     np.testing.assert_array_equal(st.scene.params["qvec"].numpy(),
                                   arrays[".scene/.params/.qvec"])
     assert torch.equal(st.opt.nu["mean"], st.scene.params["mean"])
+
+
+def test_state_from_jax_arrays_with_gp():
+    """The ``gp`` subtree and its Adam moments (``[2]``): a flax LoRA path
+    (with its ``params`` root) becomes the torch key, its kernel
+    transposed like the weights; a plain name stays as it is."""
+    rng = np.random.default_rng(1)
+    arrays = {f".scene/.params/.{f}": rng.standard_normal(s).astype(
+        np.float32) for f, s in (("mean", (2, 3)), ("qvec", (2, 4)),
+                                 ("svec", (2, 3)), ("color", (2, 3)),
+                                 ("alpha", (2,)))}
+    arrays.update({".scene/.active": np.ones(2, bool),
+                   ".scene/.max_radii2d": np.ones(2, np.float32),
+                   ".scene/.grad_accum": np.zeros(2, np.float32),
+                   ".scene/.grad_cnt": np.zeros(2, np.float32),
+                   ".opt/.count": np.int32(1), ".step": np.int32(1)})
+    lora = "params/down_blocks_0/attentions_0/transformer_blocks_0/attn1/" \
+           "to_q_lora/down/kernel"
+    kern = rng.standard_normal((320, 4)).astype(np.float32)       # [in, r]
+    bias = rng.standard_normal(1280).astype(np.float32)
+    for m, scale in (("", 1.0), (".opt/.mu/[2]", 0.1), (".opt/.nu/[2]", 0.01)):
+        pre = m or ".gp"
+        arrays[f"{pre}/['{lora}']"] = kern * scale
+        arrays[f"{pre}/['params/class_embedding/linear_1/bias']"] = \
+            bias * scale
+        arrays[f"{pre}/['cam_b']"] = np.full(4, scale, np.float32)
+    for m in ("mu", "nu"):
+        for f in FIELDS:
+            arrays[f".opt/.{m}/[0]/.{f}"] = arrays[f".scene/.params/.{f}"]
+    st = train_state_from_jax_arrays(arrays, "cpu")
+    key = ("down_blocks.0.attentions.0.transformer_blocks.0.attn1."
+           "to_q_lora.down.weight")
+    assert set(st.gp) == {key, "class_embedding.linear_1.bias", "cam_b"}
+    np.testing.assert_array_equal(st.gp[key].numpy(), kern.T)
+    assert st.gp[key].is_contiguous()
+    np.testing.assert_allclose(st.opt.mu[f"gp/{key}"].numpy(), 0.1 * kern.T)
+    np.testing.assert_allclose(st.opt.nu["gp/class_embedding.linear_1.bias"]
+                               .numpy(), 0.01 * bias)
+    assert float(st.opt.mu["gp/cam_b"][0]) == np.float32(0.1)
+    assert st.bg == {}

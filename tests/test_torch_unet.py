@@ -5,10 +5,14 @@ modules, with the flax parameters carried across through the port's
 The JAX modules run their einsum attention (``set_fused_attention
 ("off")``).  Tolerances (fp32 on the CPU, convolution and matmul
 summation order): attention rtol 1e-5 / atol 1e-5; UNet eps and VAE
-outputs within 1e-4 of the output's largest value.  The port's bf16
+outputs within 1e-4 of the output's largest value; the plain flash
+backward and the LoRA gradients within 1e-5 of each gradient's largest
+value (2e-4 through a whole UNet).  The port's bf16
 path against its fp32 path within a relative L2 error of 0.05, the gate
 of the JAX package's tests/test_sd_unet.py.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -114,6 +118,132 @@ def test_flash_plain_matches_softmax_reference(dtype):
     assert fa.supported(tq) and not fa.supported(tq[:, :100])
 
 
+@pytest.mark.parametrize("D", [40, 64])
+def test_flash_backward_plain_matches_jax_vjp(D):
+    """flash_self_attention_bwd_plain (from the lse of
+    flash_self_attention_plain_lse) against jax.vjp of the JAX einsum
+    core (unet2d.py:199-203) and against torch autograd of the plain
+    forward; the autograd Function (K5-K7's plain versions on the CPU)
+    gives the same gradients."""
+    rng = np.random.default_rng(D)
+    q, k, v, dout = (rng.standard_normal((2, 128, 3, D)).astype(np.float32)
+                     for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+
+    def core(q_, k_, v_):
+        attn = jnp.einsum("blhd,bshd->bhls", q_, k_,
+                          preferred_element_type=jnp.float32) * scale
+        attn = jax.nn.softmax(attn.astype(jnp.float32), axis=-1)
+        return jnp.einsum("bhls,bshd->blhd", attn.astype(v_.dtype), v_)
+
+    out_j, vjp = jax.vjp(core, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv, tdo = (t(x) for x in (q, k, v, dout))
+    out, lse = fa.flash_self_attention_plain_lse(tq, tk, tv, scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(jax.nn.logsumexp(jnp.einsum(
+            "blhd,bshd->bhls", q, k) * scale, axis=-1)), rtol=1e-5)
+    got = fa.flash_self_attention_bwd_plain(tq, tk, tv, out, lse, tdo, scale)
+    ps = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    auto = torch.autograd.grad(fa.flash_self_attention_plain(*ps, scale), ps,
+                               tdo)
+    ps = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    func_out = fa.flash_self_attention(*ps, scale)
+    assert func_out.grad_fn is not None
+    func = torch.autograd.grad(func_out, ps, tdo)
+    for name, a, b, c, w in zip("qkv", got, auto, func, want):
+        for x in (a, b, c):
+            _close(x.numpy(), w, 1e-5)
+
+
+def _lora_params(params, seed):
+    """JAX params with the LoRA up-projections made non-zero."""
+    rng = np.random.default_rng(seed)
+
+    def bump(path, x):
+        name = "/".join(str(getattr(p, "key", p)) for p in path)
+        if name.endswith("up/kernel"):
+            return x + 0.05 * rng.standard_normal(x.shape).astype(np.float32)
+        return np.asarray(x)
+    return jax.tree_util.tree_map_with_path(bump, params)
+
+
+@pytest.mark.parametrize("lora_scale", [0.0, 1.0])
+def test_lora_attention_matches_jax(lora_scale):
+    """LoRA self-attention (L = 256, through the autograd Function in "on"
+    mode) and cross-attention: outputs and the gradients of every LoRA
+    leaf."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 256, 128)).astype(np.float32)
+    ctx = rng.standard_normal((2, 77, 96)).astype(np.float32)
+    dy = rng.standard_normal((2, 256, 128)).astype(np.float32)
+    m_j = unet_j.Attention(heads=2, head_dim=64, out_dim=128, lora_rank=4)
+    for cross in (False, True):
+        args = (jnp.asarray(x),) + ((jnp.asarray(ctx),) if cross else ())
+        p = _lora_params(m_j.init(jax.random.PRNGKey(cross), *args), 8)
+        m_t = _load(unet2d.Attention(128, 2, 64, 128,
+                                     cross_dim=96 if cross else None,
+                                     lora_rank=4), p)
+        unet2d.set_fused_attention(m_t, "on")
+
+        def f(params):
+            ctx_ = args[1] if cross else None
+            y = m_j.apply(params, args[0], ctx_, lora_scale)
+            return jnp.sum(y * jnp.asarray(dy)), y
+
+        (_, y_j), g_j = jax.value_and_grad(f, has_aux=True)(p)
+        y_t = m_t(t(x), t(ctx) if cross else None, lora_scale)
+        _close(y_t.detach().numpy(), y_j, 1e-5)
+        lora = {k: v for k, v in m_t.named_parameters() if "lora" in k}
+        for v in lora.values():
+            v.requires_grad_(True)
+        grads = torch.autograd.grad((y_t * t(dy)).sum(), list(lora.values()),
+                                    allow_unused=True)
+        want = flax_to_torch_state(_np_tree(g_j))
+        for (k, _), gr in zip(lora.items(), grads):
+            gr = torch.zeros_like(lora[k]) if gr is None else gr
+            if lora_scale == 0.0:
+                assert float(np.abs(want[k]).max()) == 0.0, k
+            _close(gr.numpy(), want[k], 1e-5)
+
+
+@pytest.mark.parametrize("lora_scale", [0.0, 1.0])
+def test_unet_vsd_eps_matches_jax(lora_scale):
+    """TINY_VSD (LoRA rank 4, camera class embedding) with class labels:
+    eps, and the gradients of the class embedding and LoRA leaves."""
+    rng = np.random.default_rng(9)
+    model_j = unet_j.UNet2DConditionModel(unet_j.TINY_VSD)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    tt = np.array([10, 700], np.int32)
+    ctx = rng.standard_normal((2, 7, 1024)).astype(np.float32)
+    cam = rng.standard_normal((2, 16)).astype(np.float32)
+    params = _lora_params(jax.jit(model_j.init)(
+        jax.random.PRNGKey(4), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+        jnp.zeros((1, 4, 1024)), class_labels=jnp.zeros((1, 16))), 10)
+
+    def f(p):
+        eps = model_j.apply(p, jnp.asarray(x), jnp.asarray(tt),
+                            jnp.asarray(ctx), class_labels=jnp.asarray(cam),
+                            lora_scale=lora_scale)
+        return jnp.sum(eps ** 2), eps
+
+    (_, eps_j), g_j = jax.value_and_grad(f, has_aux=True)(params)
+    model_t = _load(unet2d.UNet2DConditionModel(unet2d.TINY_VSD), params)
+    train = {k: v.requires_grad_(True) for k, v in model_t.named_parameters()
+             if "lora" in k or k.startswith("class_embedding")}
+    eps = model_t(t(x), t(tt), t(ctx), class_labels=t(cam),
+                  lora_scale=lora_scale)
+    _close(eps.detach().numpy(), eps_j)
+    grads = torch.autograd.grad((eps ** 2).sum(), list(train.values()),
+                                allow_unused=True)
+    want = flax_to_torch_state(_np_tree(g_j))
+    for (k, v), gr in zip(train.items(), grads):
+        gr = torch.zeros_like(v) if gr is None else gr
+        _close(gr.numpy(), want[k], 2e-4)
+
+
 @pytest.mark.parametrize("preset", ["tiny", "sd15_small"])
 def test_unet_eps_matches_jax(preset, tiny_j):
     """TINY (linear projections, SD 2.x style) and an SD 1.5-style small
@@ -210,22 +340,36 @@ def test_bf16_compute_dtype_tracks_fp32():
     assert torch.isfinite(img.grad).all() and img.grad.abs().max() > 0
 
 
-@pytest.mark.parametrize("which", ["unet", "vae"])
+@pytest.mark.parametrize("which", ["unet", "vae", "unet_vsd"])
 def test_full_width_weight_mapping(which):
-    """SD 2.1's UNet and the SD VAE at full width, shapes only: every
-    flax leaf maps to a port parameter of the same shape, and every port
-    parameter is covered."""
+    """SD 2.1's UNet (plain, and with VSD's LoRA rank 4 and 16-wide camera
+    embedding) and the SD VAE at full width, shapes only: every flax leaf
+    maps to a port parameter of the same shape, and every port parameter
+    is covered."""
     key = jax.random.PRNGKey(0)
-    if which == "unet":
-        model = unet_j.UNet2DConditionModel(unet_j.SD21)
+    vsd = dict(lora_rank=4, class_embed_proj_dim=16)
+    if which.startswith("unet"):
+        cfg_j = unet_j.SD21
+        cls = None
+        if which == "unet_vsd":
+            cfg_j = dataclasses.replace(cfg_j, **vsd)
+            cls = jnp.zeros((1, 16))
+        model = unet_j.UNet2DConditionModel(cfg_j)
         shapes = jax.eval_shape(model.init, key, jnp.zeros((1, 8, 8, 4)),
-                                jnp.zeros((1,)), jnp.zeros((1, 4, 1024)))
+                                jnp.zeros((1,)), jnp.zeros((1, 4, 1024)),
+                                class_labels=cls)
     else:
         model = vae_j.AutoencoderKL(vae_j.SD_VAE)
         shapes = jax.eval_shape(model.init, key, jnp.zeros((1, 32, 32, 3)))
-    bb = SDUNetBackbone(unet2d.SD21, device="meta")
+    cfg_t = unet2d.SD21
+    if which == "unet_vsd":
+        cfg_t = dataclasses.replace(cfg_t, **vsd)
+    bb = SDUNetBackbone(cfg_t, device="meta")
+    # VSD's LoRA and camera embedding keep the SD VAE (512^2 images)
+    assert bb.vae_cfg == vae.SD_VAE and bb.image_size == 512
     port = {k: tuple(v.shape)
-            for k, v in getattr(bb, which).state_dict().items()}
+            for k, v in getattr(bb, which[:4] if which != "vae" else
+                                "vae").state_dict().items()}
     # zero-stride stand-ins: no memory for 866M parameters
     zeros = jax.tree_util.tree_map(
         lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
@@ -235,4 +379,6 @@ def test_full_width_weight_mapping(which):
         mapped[key_t] = tuple(to_torch_leaf(kind, leaf).shape)
     assert mapped == port
     n = sum(int(np.prod(s)) for s in port.values())
-    assert n == (865_910_724 if which == "unet" else 83_653_863)
+    # VSD adds 2,491,392 trainable LoRA and camera-embedding parameters
+    assert n == dict(unet=865_910_724, vae=83_653_863,
+                     unet_vsd=868_402_116)[which]
