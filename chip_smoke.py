@@ -12,7 +12,11 @@ Phases, each reported on its own line:
    Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
    render (chunk 256, dup_cap 2^20) and on an opaque early-exit scene,
    with feature widths F=3 and F=5; plus a full small render against the
-   dense oracle;
+   dense oracle; the same scenes but 1024^2 in the compact layout: its
+   BinnedTiles bit-exact against the plain binning, K8 and K9 against
+   their plain versions (window counts exact), K8's image and T against
+   K1's, with the empty tiles of unaligned start and the windows shared
+   by two tiles counted;
    Phase 3 also holds K5 (flash self-attention forward) against its plain
    version at SD 2.1's level 0 [8, 4096, 5, 64] in bf16 and fp32, SD
    1.5's level 0 [8, 4096, 8, 40] in bf16 and a small [2, 256, 2, 64] in
@@ -26,8 +30,9 @@ Phases, each reported on its own line:
 5. times: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, at the bench and base.yaml
    shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7
-   at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs), and the
-   full render forward+backward;
+   at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs; SDPA in
+   fp32 beside K5's fp32 instance at B=8 and B=4), K8 and K9 beside K1 and
+   K2, and the full render forward+backward in both layouts;
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
@@ -48,6 +53,15 @@ Phases, each reported on its own line:
    required to move; then one VSD step under torch.profiler, device time
    split into render, VAE, UNet forward and UNet backward (trace:
    gsgen_torch/_build/vsd_step_trace.json);
+10. density: 3 SDS steps of the slice config in the compact layout
+   (renderer.binning_layout=compact: K8, K9 and K3 once per view, K1, K2,
+   K4 never), one of them profiled as in phase 8; 6 steps of
+   configs/base.yaml + renderer/regular.yaml
+   (compact, mock guidance) with a densify event at step 3 and a prune
+   event at step 5 (overrides in DENSITY): the live count rises, then
+   falls, and the Adam moments of new and freed slots are 0; the next
+   view of that scene through kernel_checks in both layouts; one
+   densify_compactness event at capacity 65,536 with its peak memory;
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -55,6 +69,7 @@ Exits non-zero before the result line if any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -78,6 +93,17 @@ SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
 VSD_CONFIGS = ["base.yaml", "guidance/vsd.yaml", "prompt/vsd.yaml"]
 VSD_FLASH = dict(flash_attn_fwd=15, flash_attn_bwd_dkv=5, flash_attn_bwd_dq=5)
 LIB_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+COMPACT = ["renderer.binning_layout=compact"]
+# base.yaml + renderer/regular.yaml on mock guidance, with a densify event
+# at step 3 and a prune event at step 5: every live Gaussian that got any
+# gradient is a densify candidate (mean2d_thresh 1e-9), and one whose
+# largest screen radius (camera-plane units) passed 3e-5, about the median
+# after the densify, is pruned
+DENSITY_CONFIGS = ["base.yaml", "renderer/regular.yaml"]
+DENSITY = ["guidance.type=mock", *COMPACT, "renderer.densify.warm_up=3",
+           "renderer.densify.period=3", "renderer.densify.mean2d_thresh=1.0e-9",
+           "renderer.prune.warm_up=5", "renderer.prune.period=5",
+           "renderer.prune.radii2d_thresh=3.0e-5"]
 SMALL_TOL = dict(T=(1e-5, 1e-6), img=(1e-4, 1e-5), grad=(2e-3, 2e-4))
 SCALE_TOL = dict(T=(1e-3, 3e-4), img=(2e-3, 5e-4), grad=(5e-3, 2e-3))
 
@@ -89,6 +115,17 @@ class SmokeFailure(Exception):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def call_line(rel_file: str, func: str, needle: str) -> str:
+    """'line' of the first line holding ``needle`` after ``def func(`` in
+    the JAX package's ``rel_file``, read as text."""
+    start = int(reference_line(rel_file, func).rsplit(":", 1)[1])
+    path = ROOT / reference_line(rel_file, func).rsplit(":", 1)[0]
+    for i, line in enumerate(path.read_text().splitlines(), 1):
+        if i > start and needle in line:
+            return str(i)
+    raise SmokeFailure(f"{needle!r} not found after {func} in {path}")
 
 
 def reference_line(rel_file: str, func: str) -> str:
@@ -215,8 +252,20 @@ def run(torch) -> int:
 
     errs = {k: 0.0 for k in ("raster_fwd", "raster_bwd", "expansion_rank",
                              "gid_repack", "flash_attn_fwd",
-                             "flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
+                             "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
+                             "raster_fwd_compact", "raster_bwd_compact")}
     notes = []
+
+    def same_bins(label, bins, bins_p):
+        """Every field the layout fills bit-exact; the others None."""
+        for f in bins._fields:
+            a, b = getattr(bins, f), getattr(bins_p, f)
+            if a is None or b is None:
+                require(a is None and b is None,
+                        f"{label}: BinnedTiles.{f} set on one path only")
+                continue
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"{label}: BinnedTiles.{f} differs from the plain path")
 
     def recorded_bins(prep):
         """Bin with the kernels, recording the inputs K3 and K4 get."""
@@ -244,10 +293,7 @@ def run(torch) -> int:
         bins, seen = recorded_bins(prep)
         with torch.no_grad():
             bins_p = plain_bins(*prep["bin_args"], **prep["bin_kw"])
-        for f in bins._fields:
-            a, b = getattr(bins, f), getattr(bins_p, f)
-            require(a.dtype == b.dtype and torch.equal(a, b),
-                    f"{label}: BinnedTiles.{f} differs from the plain path")
+        same_bins(label, bins, bins_p)
         require(torch.equal(expansion_rank.expansion_gid(*seen["expansion_rank"]),
                             expansion_rank.expansion_gid_plain(
                                 *seen["expansion_rank"])),
@@ -297,6 +343,71 @@ def run(torch) -> int:
         return dict(bins=bins, dup=dup, nck=nck, st=st, out=out, g=g,
                     geom=prep["geom"], seen=seen)
 
+    layout_stats = dict(empty_unaligned=0, shared_windows=0)
+
+    def compact_checks(label, prep, tol, padded):
+        """The compact layout on the scene of ``padded`` (kernel_checks'
+        result): its BinnedTiles bit-exact against the plain binning, K8
+        against its plain version (window counts exact), K9 against the
+        plain gradient, and K8's image and T against K1's."""
+        kw = dict(prep["bin_kw"], layout="compact")
+        with torch.no_grad():
+            bins = binning.bin_gaussians(*prep["bin_args"], **kw)
+            bins_p = plain_bins(*prep["bin_args"], **kw)
+        same_bins(f"{label} compact", bins, bins_p)
+        st, g = padded["st"], padded["g"]
+        F, K = st["F"], st["chunk"]
+        dup = cuda_raster.pack_dup(
+            prep["mean2d"], prep["conic"], prep["alpha"], prep["feats"],
+            bins.gid_s, torch.ones_like(bins.gid_s, dtype=torch.bool))
+        starts, ends = bins.starts, bins.ends
+        wc = cuda_raster.window_counts(starts, ends, K)
+        geom = prep["geom"]
+        out = cuda_raster.raster_fwd_compact(dup, starts, ends, wc, geom,
+                                             **st)
+        out_p = cuda_raster.raster_fwd_compact_plain(dup, starts, ends, wc,
+                                                     geom, **st)
+        torch.cuda.synchronize()
+        e1 = close(out[:, F], out_p[:, F], *tol["T"], f"{label}: K8 T")
+        e2 = close(out[:, :F], out_p[:, :F], *tol["img"],
+                   f"{label}: K8 features")
+        cnt, cnt_p = out[:, -1, 0], out_p[:, -1, 0]
+        require(torch.equal(cnt, cnt_p),
+                f"{label}: K8 window counts differ in "
+                f"{int((cnt != cnt_p).sum())} tiles")
+        empty = (starts == ends) & (starts % K != 0)
+        require(bool((cnt[empty] == 1).all()),
+                f"{label}: an empty unaligned tile did not count 1 window")
+        close(out[:, F], padded["out"][:, F], *tol["T"],
+              f"{label}: K8 T vs K1 T")
+        close(out[:, :F], padded["out"][:, :F], *tol["img"],
+              f"{label}: K8 image vs K1 image")
+        errs["raster_fwd_compact"] = max(errs["raster_fwd_compact"], e1, e2)
+        grad = cuda_raster.raster_bwd_compact(dup, out, g, starts, ends, wc,
+                                              geom, **st)
+        grad_p = cuda_raster.raster_bwd_compact_plain(
+            dup, out_p, g, starts, ends, wc, geom, **st)
+        torch.cuda.synchronize()
+        rtol, atol = tol["grad"]
+        for r in range(6 + F):
+            scale = max(float(grad_p[r].abs().max()), 1e-3) \
+                if tol is SCALE_TOL else 1.0
+            e = close(grad[r], grad_p[r], rtol, atol * scale,
+                      f"{label}: K9 grad row {r}")
+            errs["raster_bwd_compact"] = max(errs["raster_bwd_compact"], e)
+        n_empty = int(empty.sum())
+        # a non-empty tile starting inside a window shares it with the
+        # earlier tiles whose rows fill the window's first lanes
+        n_shared = int(((starts % K != 0) & (ends > starts)).sum())
+        layout_stats["empty_unaligned"] += n_empty
+        layout_stats["shared_windows"] += n_shared
+        notes.append(f"{label} compact: rows={int(bins.total)} "
+                     f"windows={int(cnt.sum())} (padded chunks "
+                     f"{int(padded['out'][:, -1, 0].sum())}) empty unaligned "
+                     f"tiles={n_empty} shared windows={n_shared}")
+        return dict(bins=bins, dup=dup, nck=wc, st=st, out=out, g=g,
+                    geom=geom, seen=padded["seen"])
+
     def scene_3d(n, capacity, mean_std, svec, alpha_val, seed):
         cfg = InitConfig(num_points=n, capacity=capacity, mean_std=mean_std,
                          svec_val=svec, alpha_val=alpha_val)
@@ -313,9 +424,11 @@ def run(torch) -> int:
     s_small = scene_3d(200, 256, 0.5, 0.05, 0.6, 1)
     intr32 = CameraIntrinsics.from_reso(32)
     for F_rgb in (True, False):
-        kernel_checks(f"small F={3 if F_rgb else 5}",
-                      prepare(s_small.params, s_small.active, c2w_front,
-                              intr32, rc_small, F_rgb), SMALL_TOL)
+        label = f"small F={3 if F_rgb else 5}"
+        prep = prepare(s_small.params, s_small.active, c2w_front, intr32,
+                       rc_small, F_rgb)
+        compact_checks(label, prep, SMALL_TOL,
+                       kernel_checks(label, prep, SMALL_TOL))
     out = render_view(s_small.params, s_small.active, c2w_front, intr32,
                       rc_small, torch.zeros(3, device=dev), rgb_only=True)
     prep = prepare(s_small.params, s_small.active, c2w_front, intr32,
@@ -334,12 +447,14 @@ def run(torch) -> int:
     rc_bench = RenderConfig(dup_cap=1 << 18, chunk=128)
     s_bench = scene_3d(100_000, None, 0.6, 0.01, 0.8, 0)
     intr512 = CameraIntrinsics.from_reso(512)
-    bench = {}
+    bench, bench_c = {}, {}
     for rgb_only in (True, False):
-        bench[rgb_only] = kernel_checks(
-            f"bench F={3 if rgb_only else 5}",
-            prepare(s_bench.params, s_bench.active, c2w_front, intr512,
-                    rc_bench, rgb_only), SCALE_TOL)
+        label = f"bench F={3 if rgb_only else 5}"
+        prep = prepare(s_bench.params, s_bench.active, c2w_front, intr512,
+                       rc_bench, rgb_only)
+        bench[rgb_only] = kernel_checks(label, prep, SCALE_TOL)
+        bench_c[rgb_only] = compact_checks(label, prep, SCALE_TOL,
+                                           bench[rgb_only])
 
     # configs/base.yaml's render: its initial scene and first camera
     cfg_base = load_config(ROOT / "configs" / "base.yaml",
@@ -352,19 +467,27 @@ def run(torch) -> int:
                                  cy=intr_b.cy, w=intr_b.w, h=intr_b.h,
                                  near=intr_b.near, far=intr_b.far)
     base_view = (probe.state.scene, cam["c2w"][0], intr_view, probe.rcfg)
-    base = kernel_checks(
-        "base.yaml F=5",
-        prepare(probe.state.scene.params, probe.state.scene.active,
-                cam["c2w"][0], intr_view, probe.rcfg, False), SCALE_TOL)
+    prep = prepare(probe.state.scene.params, probe.state.scene.active,
+                   cam["c2w"][0], intr_view, probe.rcfg, False)
+    base = kernel_checks("base.yaml F=5", prep, SCALE_TOL)
+    base_c = compact_checks("base.yaml F=5", prep, SCALE_TOL, base)
     del probe
 
     # opaque scene: tiles leave early, later chunks must stay zero
     s_opq = scene_3d(20_000, None, 0.5, 0.03, 0.999, 3)
-    opq = kernel_checks("early-exit F=3",
-                        prepare(s_opq.params, s_opq.active, c2w_front,
-                                intr512, rc_bench, True), SCALE_TOL)
+    prep = prepare(s_opq.params, s_opq.active, c2w_front, intr512, rc_bench,
+                   True)
+    opq = kernel_checks("early-exit F=3", prep, SCALE_TOL)
     require(int((opq["out"][:, -1, 0] < opq["nck"].float()).sum()) > 0,
             "early-exit scene: no tile left early")
+    opq_c = compact_checks("early-exit F=3", prep, SCALE_TOL, opq)
+    require(int((opq_c["out"][:, -1, 0] < opq_c["nck"].float()).sum()) > 0,
+            "early-exit scene: no tile left early in the compact layout")
+    require(layout_stats["empty_unaligned"] > 0
+            and layout_stats["shared_windows"] > 0,
+            f"compact scenes lack an empty unaligned tile or a shared "
+            f"window: {layout_stats}")
+    notes.append(f"compact layout over the scenes above: {layout_stats}")
 
     # 1024^2: where the TPU package switches to its streaming backward
     # (cotangents n_tiles * ch_out * P * 4 bytes > 9 MiB); one K2 serves both
@@ -487,7 +610,9 @@ def run(torch) -> int:
                     gid_repack=gid_repack.repack_gid,
                     flash_attn_fwd=flash_attention.flash_self_attention,
                     flash_attn_bwd_dkv=flash_attention.flash_bwd_dkv,
-                    flash_attn_bwd_dq=flash_attention.flash_bwd_dq)
+                    flash_attn_bwd_dq=flash_attention.flash_bwd_dq,
+                    raster_fwd_compact=cuda_raster.raster_fwd_compact,
+                    raster_bwd_compact=cuda_raster.raster_bwd_compact)
     trainer, mock = drive(torch, build_trainer, load_config, wrappers,
                           "base.yaml", ["guidance.type=mock"], 5, {})
     step_ms = mock["ms_per_step"]
@@ -514,10 +639,13 @@ def run(torch) -> int:
 
     def needed_lanes(r):
         """(pixel, real duplicate row) pairs the forward has to composite:
-        lanes before each pixel's T cutoff, in chunks the tile processed."""
+        lanes before each pixel's T cutoff, in chunks (windows) the tile
+        processed."""
         bins, st = r["bins"], r["st"]
         K, F = st["chunk"], st["F"]
         dup, starts, nck = r["dup"], bins.starts, r["nck"]
+        compact = bins.gid_s is not None
+        base = starts.long() // K * K if compact else starts.long()
         n_tiles = starts.shape[0]
         P = st["tile_size"] ** 2
         tiles = torch.arange(n_tiles, dtype=torch.int32, device=dev)
@@ -530,11 +658,17 @@ def run(torch) -> int:
         with torch.no_grad():
             while bool(alive.any()):
                 idx = alive.nonzero()[:, 0]
-                cols = starts[idx].long()[:, None] + i * K + lanes[None]
+                cols = base[idx][:, None] + i * K + lanes[None]
                 d = dup[:6 + F][:, cols].permute(1, 0, 2)
-                om, cp, proc, _ = chunk_weights(d, pixx[idx], pixy[idx],
-                                                T[idx], st["T_thresh"])
-                real = bins.row_valid[cols][:, None, :]
+                if compact:
+                    real = ((cols >= starts[idx].long()[:, None])
+                            & (cols < bins.ends[idx].long()[:, None])
+                            )[:, None, :]
+                else:
+                    real = bins.row_valid[cols][:, None, :]
+                om, cp, proc, _ = chunk_weights(
+                    d, pixx[idx], pixy[idx], T[idx], st["T_thresh"],
+                    real if compact else None)
                 total += int((proc & real).sum())
                 q = torch.where(proc, cp * om, torch.full_like(om, math.inf))
                 T[idx] = T[idx] * torch.clamp(q.amin(2, keepdim=True),
@@ -550,19 +684,26 @@ def run(torch) -> int:
         bins, st = r["bins"], r["st"]
         F = st["F"]
         lanes = needed_lanes(r)
-        rows = int(bins.row_valid.sum())
+        compact = bins.gid_s is not None
+        rows = int(bins.total) if compact else int(bins.row_valid.sum())
         n_tiles = bins.starts.shape[0]
         P = st["tile_size"] ** 2
         out_b = n_tiles * st["ch_out"] * P * 4
         dup_b = rows * (6 + F) * 4
         cap = r["seen"]["expansion_rank"][1]
-        capp = bins.padded_gid.shape[0]
+        capp = bins.gid_s.shape[0] if compact else bins.padded_gid.shape[0]
         ms = lambda b, f: 1e3 * max(b / PEAK_BYTES, f / PEAK_FLOPS)  # noqa
         by = lambda b, f: "bytes" if b / PEAK_BYTES >= f / PEAK_FLOPS \
             else "operations"  # noqa
         fwd = (dup_b + out_b + 8 * n_tiles, lanes * (23 + 2 * F))
         bwd = (dup_b + 2 * n_tiles * (F + 2) * P * 4 + 8 * n_tiles
                + 16 * capp * 4, lanes * (64 + 4 * F))
+        if compact:    # K8/K9: ends read as well
+            fwd = (fwd[0] + 4 * n_tiles, fwd[1])
+            bwd = (bwd[0] + 4 * n_tiles, bwd[1])
+            return {k: (ms(*v), by(*v)) for k, v in
+                    dict(raster_fwd_compact=fwd,
+                         raster_bwd_compact=bwd).items()}
         k3 = (r["seen"]["expansion_rank"][0].numel() * 4 + cap * 4, 0)
         k4 = (cap * 4 + capp * 4 + (bins.chunk_tile.numel()
                                     + 2 * n_tiles) * 4, 0)
@@ -602,8 +743,29 @@ def run(torch) -> int:
                 bound_ms=bd[k][0], bound_by=bd[k][1])
         return res
 
+    def compact_times(r, iters, plain_iters):
+        """K8 and K9 (and their plain versions) on the compact bins."""
+        bins, st, dup, wc = r["bins"], r["st"], r["dup"], r["nck"]
+        a = (bins.starts, bins.ends, wc, r["geom"])
+        g, out = r["g"], r["out"]
+        bd = bounds(r)
+        fns = dict(
+            raster_fwd_compact=(
+                lambda: cuda_raster.raster_fwd_compact(dup, *a, **st),
+                lambda: cuda_raster.raster_fwd_compact_plain(dup, *a, **st)),
+            raster_bwd_compact=(
+                lambda: cuda_raster.raster_bwd_compact(dup, out, g, *a, **st),
+                lambda: cuda_raster.raster_bwd_compact_plain(dup, out, g, *a,
+                                                             **st)))
+        return {k: dict(ms=time_ms(f, iters),
+                        plain_ms=time_ms(fp, plain_iters), library_ms=None,
+                        bound_ms=bd[k][0], bound_by=bd[k][1])
+                for k, (f, fp) in fns.items()}
+
     times_base = kernel_times(base, 20, 3)
     times_bench = kernel_times(bench[False], 20, 3)
+    times_base.update(compact_times(base_c, 20, 3))
+    times_bench.update(compact_times(bench_c[False], 20, 3))
 
     # full render forward + backward of one 512^2 view, all parameter
     # gradients, at the bench workload and at base.yaml's render
@@ -619,8 +781,20 @@ def run(torch) -> int:
             torch.autograd.grad((o["rgb"] * cot).sum(), list(params.values()))
         return time_ms(fb, 10, warmup=2)
 
+    compact = lambda rc: dataclasses.replace(  # noqa: E731
+        rc, binning_layout="compact")
     render = dict(bench=render_ms(s_bench, c2w_front, intr512, rc_bench),
                   base=render_ms(*base_view))
+    n8 = cuda_raster.raster_fwd_compact.launches
+    render_compact = dict(
+        bench=render_ms(s_bench, c2w_front, intr512, compact(rc_bench)),
+        base=render_ms(*base_view[:3], compact(base_view[3])))
+    require(cuda_raster.raster_fwd_compact.launches - n8 == 24,
+            "the compact renders did not run K8 once per render")
+    # the two layouts once more, in the other order (chip noise)
+    render_again = dict(
+        base_compact=render_ms(*base_view[:3], compact(base_view[3])),
+        base_padded=render_ms(*base_view))
 
     # K5 at SD 2.1's level 0 in bf16 (the slice's type); the yardstick is
     # one SDPA call on [B, H, L, D] views of the same tensors
@@ -651,7 +825,15 @@ def run(torch) -> int:
     flash_fp32_plain_ms = time_ms(
         lambda: flash_attention.flash_self_attention_plain(
             q32, k32, v32, scale), 3)
-    del q, k, v, qh, kh, vh, q32, k32, v32
+    # SDPA in fp32 (TF32 off) at K5's fp32 shapes: B=8, and B=4, where the
+    # VSD path's K5 also writes its lse
+    qh32, kh32, vh32 = (x.transpose(1, 2) for x in (q32, k32, v32))
+    sdpa_fp32 = dict(
+        b8=time_ms(lambda: F.scaled_dot_product_attention(
+            qh32, kh32, vh32, scale=scale), 5),
+        b4=time_ms(lambda: F.scaled_dot_product_attention(
+            qh32[:4], kh32[:4], vh32[:4], scale=scale), 5))
+    del q, k, v, qh, kh, vh, q32, k32, v32, qh32, kh32, vh32
     torch.cuda.empty_cache()
 
     # K6 / K7 at the VSD path's [4, 4096, 5, 64] (fp32 on the path, bf16
@@ -708,12 +890,19 @@ def run(torch) -> int:
           f"{times_flash['library_ms']:.4f} [max abs diff to plain "
           f"{sdpa_err:.2e}], bound {times_flash['bound_ms']:.4f} "
           f"{times_flash['bound_by']}), fp32 {flash_fp32_ms:.3f} ms "
-          f"(plain {flash_fp32_plain_ms:.3f}, bound "
-          f"{1e3 * flash_ops / PEAK_FLOPS:.3f} at 67 TFLOP/s)",
-          flush=True)
+          f"(plain {flash_fp32_plain_ms:.3f}, SDPA fp32 "
+          f"{sdpa_fp32['b8']:.3f}, bound "
+          f"{1e3 * flash_ops / PEAK_FLOPS:.3f} at 67 TFLOP/s) | SDPA fp32 "
+          f"at B=4: {sdpa_fp32['b4']:.3f} ms (K5 with lse "
+          f"{k5_b4['float32']:.3f})", flush=True)
     print(f"phase 5 times: ok | card {card} | render fwd+bwd 512^2: "
           + ", ".join(f"{k} {v:.3f} ms = {512 * 512 / v * 1e3:.0f} rays/s"
-                      for k, v in render.items()) + " | "
+                      for k, v in render.items())
+          + " | compact layout: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in render_compact.items())
+          + " | again: " + ", ".join(f"{k} {v:.3f} ms"
+                                     for k, v in render_again.items())
+          + " | "
           + " | ".join(f"{k}: base {v['ms']:.4f} ms (plain "
                        f"{v['plain_ms']:.3f}, bound {v['bound_ms']:.4f} "
                        f"{v['bound_by']}), bench "
@@ -772,12 +961,47 @@ def run(torch) -> int:
     vsd_profile = profile_step(torch, vsd.pop("trainer"),
                                cuda_lib.BUILD / "vsd_step_trace.json", True)
     vsd_launches = vsd["slice"]["launches"]
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the compact layout and density control at full width --
+    dens = slice_phases(torch, dev, build_trainer, load_config, wrappers)
+    trainer = dens.pop("trainer")
+    cam = trainer.data.get_batch()
+    intr_t = trainer.data.intrinsics()
+    f_cam = float(cam["fx"][0])
+    intr_view = CameraIntrinsics(fx=f_cam, fy=f_cam, cx=intr_t.cx,
+                                 cy=intr_t.cy, w=intr_t.w, h=intr_t.h,
+                                 near=intr_t.near, far=intr_t.far)
+    prep = prepare(trainer.state.scene.params, trainer.state.scene.active,
+                   cam["c2w"][0], intr_view, trainer.rcfg, False)
+    notes.clear()
+    compact_checks("densified", prep, SCALE_TOL,
+                   kernel_checks("densified", prep, SCALE_TOL))
+    print("phase 10 density: ok the densified, pruned scene's next view "
+          "through K1-K4 and K8/K9 against the plain path | "
+          + " | ".join(notes), flush=True)
+    dens["compactness"] = compactness_event(torch, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    compact_launches = dens["sds_compact"]["launches"]
 
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
         raster_bwd=("gsgen_torch/csrc/raster_bwd.cu",
                     reference_line("ops/pallas_raster.py", "_bwd_kernel_v2")),
+        raster_fwd_compact=(
+            "gsgen_torch/csrc/raster_fwd.cu",
+            reference_line("ops/pallas_raster.py", "_fwd_kernel")
+            + " (compact=True, call "
+            + call_line("ops/pallas_raster.py", "_make_core_compact",
+                        "fwd_call = pl.pallas_call(") + ")"),
+        raster_bwd_compact=(
+            "gsgen_torch/csrc/raster_bwd.cu",
+            reference_line("ops/pallas_raster.py", "_bwd_kernel_v3")
+            + " (call " + call_line("ops/pallas_raster.py",
+                                    "_make_core_compact",
+                                    "bwd_call = pl.pallas_call(") + ")"),
         expansion_rank=("gsgen_torch/csrc/expansion_rank.cu",
                         reference_line("ops/expansion_rank.py", "_kernel")),
         gid_repack=("gsgen_torch/csrc/gid_repack.cu",
@@ -785,9 +1009,10 @@ def run(torch) -> int:
     kernels = []
     for k, (src, ref) in meta.items():
         tb, tn = times_base[k], times_bench[k]
+        on_path = compact_launches if "compact" in k else vsd_launches
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=ref,
-            launches=vsd_launches[k], sds_launches=launches[k],
+            launches=on_path[k], sds_launches=launches[k],
             max_abs_err=errs[k], ms=tb["ms"],
             plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
@@ -805,7 +1030,8 @@ def run(torch) -> int:
         max_abs_err=errs["flash_attn_fwd"], **times_flash,
         shapes=f"SD 2.1 level-0 self-attention {list(SD21_ATTN)} bf16",
         fp32_ms=flash_fp32_ms, fp32_plain_ms=flash_fp32_plain_ms,
-        fp32_b4_lse_ms=k5_b4["float32"]))
+        fp32_library_ms=sdpa_fp32["b8"], fp32_b4_lse_ms=k5_b4["float32"],
+        fp32_b4_library_ms=sdpa_fp32["b4"]))
     for name, func, line in (
             ("flash_attn_bwd_dkv", "_flash_attention_dkv_kernel", 796),
             ("flash_attn_bwd_dq", "_flash_attention_dq_kernel", 1146)):
@@ -821,6 +1047,9 @@ def run(torch) -> int:
                    "fp32; library_ms: SDPA's backward (dQ, dK and dV)",
             bf16=times_bwd[(name, "bfloat16")]))
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
+                      "render_fwd_bwd_ms_compact": render_compact,
+                      "render_fwd_bwd_ms_again": render_again,
+                      "density": dens, "compact_layout": layout_stats,
                       "train_ms_per_step": step_ms, "build_s": build_s,
                       "train_profile": profile_info, "sds": sds,
                       "sds_profile": sds_profile, "vsd": vsd,
@@ -852,14 +1081,22 @@ def kernel_key(name):
     return key.split("(")[0].split("<")[0][-48:]
 
 
+PER_VIEW = dict(padded=("raster_fwd", "raster_bwd", "expansion_rank",
+                        "gid_repack"),
+                compact=("raster_fwd_compact", "raster_bwd_compact",
+                         "expansion_rank"))
+
+
 def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
-          n_steps, flash_per_step):
+          n_steps, flash_per_step, layout="padded", on_step=None):
     """``n_steps`` training steps of a config (one file or a list merged in
     order) through build_trainer / fit with every kernel counter set to 0
     just before and read just after; losses finite and changing, every
-    scene parameter and some trainable guidance leaf (if any) moved, K1-K4
-    once per view and each flash kernel ``flash_per_step[name]`` (default
-    0) times a step."""
+    scene parameter and some trainable guidance leaf (if any) moved, the
+    render kernels of ``layout`` (K1-K4, or K8, K9 and K3) once per view and
+    no other render kernel, and each flash kernel ``flash_per_step[name]``
+    (default 0) times a step.  ``on_step(trainer, step, metrics)`` runs
+    after each step."""
     names = [cfg_names] if isinstance(cfg_names, str) else cfg_names
     label = " + ".join(names) + "".join(" " + o for o in overrides)
     trainer = build_trainer(load_config([ROOT / "configs" / n for n in names],
@@ -868,17 +1105,19 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
     gp0 = {k: v.detach().clone() for k, v in trainer.state.gp.items()}
     losses, stamps = [], []
 
-    def on_step(step, metrics):
+    def step_cb(step, metrics):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         losses.append(float(metrics["loss_total"]))
+        if on_step is not None:
+            on_step(trainer, step, metrics)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     t_start = time.perf_counter()
-    trainer.fit(n_steps, callback=on_step)
+    trainer.fit(n_steps, callback=step_cb)
     launches = {k: w.launches for k, w in wrappers.items()}
     views = n_steps * trainer.cfg.batch_size * trainer.cfg.grad_accum
     require(trainer.state.step == n_steps, f"{label}: step counter")
@@ -893,8 +1132,8 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
     require(gp_moved is None or gp_moved > 0,
             f"{label}: no trainable guidance leaf moved")
     for k, c in launches.items():
-        want = (flash_per_step.get(k, 0) * n_steps
-                if k.startswith("flash") else views)
+        want = (flash_per_step.get(k, 0) * n_steps if k.startswith("flash")
+                else views if k in PER_VIEW[layout] else 0)
         require(c == want, f"{label}: {k} launched {c} times in {n_steps} "
                 f"steps, expected {want}")
     res = dict(config=label, steps=n_steps,
@@ -1070,8 +1309,107 @@ def vsd_phases(torch, dev, build_trainer, load_config, wrappers):
     return res
 
 
-def profile_step(torch, trainer, trace, vsd):
-    """Phase 8 (SDS) and the end of phase 9 (VSD): one step under
+def slice_phases(torch, dev, build_trainer, load_config, wrappers):
+    """Phase 10: 3 SDS steps of base.yaml in the compact layout (K8, K9 and
+    K3 once per view, K1, K2 and K4 never), then 6 steps of base.yaml +
+    renderer/regular.yaml (compact, mock guidance) through a densify event
+    (step 3) and a prune event (step 5): the live count must rise at the
+    first and fall at the second, and the Adam moments of every slot that
+    turned live or dead must be 0.  Returns the trainer of the second run
+    for the checks on its scene."""
+    from gsgen_torch.models.scene import FIELDS
+
+    trainer, sds_c = drive(torch, build_trainer, load_config, wrappers,
+                           "base.yaml", SLICE + COMPACT, 3,
+                           dict(flash_attn_fwd=5), layout="compact")
+    print(f"phase 10 compact sds: ok {sds_c['config']}: {sds_c['steps']} "
+          f"steps, batch {sds_c['batch']}, {sds_c['reso']}^2 | losses "
+          f"{sds_c['losses']} | ms/step "
+          f"{[round(x, 2) for x in sds_c['ms_per_step']]} | peak "
+          f"{sds_c['peak_gib']:.2f} GiB | launches {sds_c['launches']}",
+          flush=True)
+    from gsgen_torch.ops import cuda_lib
+    sds_c["profile"] = profile_step(
+        torch, trainer, cuda_lib.BUILD / "sds_compact_step_trace.json",
+        False, phase="10 compact sds")
+    del trainer
+    torch.cuda.empty_cache()
+
+    live, events, prev = [], [], {}
+
+    def on_step(tr, step, metrics):
+        active = tr.state.scene.active.clone()
+        if "active" in prev:
+            turned = prev["active"] ^ active        # new or freed slots
+            if bool(turned.any()):
+                worst = max(float(getattr(tr.state.opt, m)[f][turned].abs()
+                                  .max()) for m in ("mu", "nu")
+                            for f in FIELDS)
+                require(worst == 0.0, f"step {step}: Adam moments of new or "
+                        f"freed slots not zero (max {worst})")
+        prev["active"] = active
+        live.append(int(active.sum()))
+        events.append({k: int(v) for k, v in metrics.items()
+                       if k.startswith("num_")})
+
+    trainer, reg = drive(torch, build_trainer, load_config, wrappers,
+                         DENSITY_CONFIGS, DENSITY, 6, {}, layout="compact",
+                         on_step=on_step)
+    require(events[3].get("num_split", 0) + events[3].get("num_clone", 0) > 0
+            and live[3] > live[2],
+            f"densify at step 3 did not grow the scene: {live} {events}")
+    require(sum(v for k, v in events[5].items() if "pruned" in k) > 0
+            and live[5] < live[4],
+            f"prune at step 5 did not shrink the scene: {live} {events}")
+    require(all(not e for i, e in enumerate(events) if i not in (3, 5)),
+            f"density events outside steps 3 and 5: {events}")
+    reg.update(live=live, events=events, overrides=DENSITY)
+    print(f"phase 10 density: ok {reg['config']}: {reg['steps']} steps | "
+          f"live Gaussians per step {live} | events {events} | losses "
+          f"{reg['losses']} | ms/step "
+          f"{[round(x, 2) for x in reg['ms_per_step']]} | peak "
+          f"{reg['peak_gib']:.2f} GiB | launches {reg['launches']}",
+          flush=True)
+    return dict(sds_compact=sds_c, regular=reg, trainer=trainer)
+
+
+def compactness_event(torch, trainer):
+    """One densify_compactness event on the card at the trainer's capacity
+    (65,536 in base.yaml): peak memory and time of the row-blocked KNN and
+    the gap fill."""
+    from gsgen_torch.models import density
+    from gsgen_torch.models.scene import FIELDS
+    from gsgen_torch.training.optimizer import AdamState
+
+    opt = trainer.state.opt
+    scene_opt = AdamState(mu={k: opt.mu[k] for k in FIELDS},
+                          nu={k: opt.nu[k] for k in FIELDS}, count=opt.count)
+    scene = trainer.state.scene
+    cap = scene.active.shape[0]
+    live0 = int(scene.active.sum())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, _, info = density.densify_compactness(scene, scene_opt,
+                                               trainer.dcfg, trainer.rcfg)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    live1 = int(new.active.sum())
+    require(info["num_compact"] > 0 and live1 == live0 + info["num_compact"],
+            f"compactness event: {info}, live {live0} -> {live1}")
+    res = dict(capacity=cap, live_before=live0, live_after=live1,
+               ms=ms, peak_gib_above_start=peak, **info)
+    print(f"phase 10 compactness: ok capacity {cap}: live {live0} -> "
+          f"{live1} ({info['num_compact']} new) in {ms:.1f} ms, peak "
+          f"{peak:.3f} GiB above what was allocated before", flush=True)
+    return res
+
+
+def profile_step(torch, trainer, trace, vsd, phase=None):
+    """Phase 8 (SDS), the end of phase 9 (VSD) and phase 10 (SDS in the
+    compact layout): one step under
     torch.profiler.  Each device op is attributed to the host range its
     launch fell in: the render forward, the UNet (SDS: ``predict_noise``;
     VSD: every UNet call, "unet_fwd"), the VAE forward and the VAE
@@ -1195,7 +1533,8 @@ def profile_step(torch, trainer, trace, vsd):
                 device_ops_per_step=len(dev_ev), device_streams=len(streams),
                 device_ms_by_part=by_group,
                 top_device_ms=[[g, k, v] for (g, k), v in top])
-    print(f"phase {9 if vsd else 8} {'vsd' if vsd else 'sds'} profile: ok 1 "
+    phase = phase or ("9 vsd" if vsd else "8 sds")
+    print(f"phase {phase} profile: ok 1 "
           f"traced step, {wall_ms:.2f} ms, device "
           f"busy {busy_ms:.2f} ms (idle share "
           f"{info['device_idle_share']:.3f}), {len(dev_ev)} device ops on "

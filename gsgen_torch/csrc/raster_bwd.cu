@@ -1,4 +1,4 @@
-// K2: tile compositing backward.
+// K2 and K9: tile compositing backward.
 //
 // Replaces the JAX package's ops/pallas_raster.py::_bwd_kernel_v2 (resident
 // cotangents) and ::_bwd_kernel (streaming, above the TPU's VMEM budget):
@@ -23,6 +23,17 @@
 // tile's own rows of grad.  The padded layout gives every tile exclusive
 // chunks, so no atomics are needed and the result is deterministic.
 //
+// K9, the kCompact instance, replaces ops/pallas_raster.py::_bwd_kernel_v3
+// (compact layout).  The TPU kernel runs a strictly sequential grid of
+// (tile, window) steps and merges a boundary window that two tiles share by
+// revisiting its output block.  Blocks here run in no order, so K9 keeps one
+// block per tile and relies on the rows instead: tile t's rows [starts[t],
+// ends[t]) are disjoint from every other tile's.  The block walks
+// min(wcount, processed count of the forward) windows from floor(start/K)*K,
+// masks the lanes outside its rows (aG = 0, exactly zero gradient) and
+// stores only its own lanes, so two blocks sharing a window write disjoint
+// rows of the zero-filled buffer: no atomics, deterministic.
+//
 // Bound on this card: operations -- per lane and pixel ~60 flops, an exp and
 // 5*(6+F) shuffle steps; bytes are dup read once and grad written once.  The
 // shuffles are the cost this simple design accepts; a later version can
@@ -39,10 +50,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kCompact>
 __global__ void raster_bwd_kernel(const float* __restrict__ dup, long long cap,
                                   const float* __restrict__ out,
                                   const float* __restrict__ g,
                                   const int* __restrict__ starts,
+                                  const int* __restrict__ ends,
                                   const int* __restrict__ nchunks,
                                   const float* __restrict__ geom,
                                   float* __restrict__ grad, int n_tiles_w,
@@ -65,6 +78,8 @@ __global__ void raster_bwd_kernel(const float* __restrict__ dup, long long cap,
   const int nckeff = static_cast<int>(o[(ch_out - 1) * P]);
   const int nck = min(nchunks[t], nckeff);
   const long long start = starts[t];
+  const long long end = kCompact ? ends[t] : 0;
+  const long long first = kCompact ? start / K * K : start;
 
   float gfe[GSGEN_MAX_F];
   float dotfinal = 0.0f;
@@ -78,15 +93,20 @@ __global__ void raster_bwd_kernel(const float* __restrict__ dup, long long cap,
   float T = 1.0f;
   float S = 0.0f;
   for (int i = 0; i < nck; ++i) {
-    const long long base = start + static_cast<long long>(i) * K;
+    const long long base = first + static_cast<long long>(i) * K;
     __syncthreads();  // previous chunk's readers are done with sm
     stage_chunk(dup, cap, base, nrows, K, sm);
     __syncthreads();
+    // lanes of this tile in the window (all of them in the padded layout)
+    int k_lo = 0, k_hi = K;
+    if (kCompact) window_lanes(start, end, base, K, &k_lo, &k_hi);
 
     float cp = 1.0f;
     float qmin = __int_as_float(0x7f800000);  // +inf
     float incl = 0.0f;
     for (int kb = 0; kb < K; kb += 32) {
+      // groups with no lane of this tile: nothing to compute or store
+      if (kCompact && (kb + 32 <= k_lo || kb >= k_hi)) continue;
       // lanes past every pixel's cutoff have zero gradient (buffer is zero)
       if (!__syncthreads_or(T * cp >= T_thresh)) break;
       const int nl = min(32, K - kb);
@@ -100,9 +120,12 @@ __global__ void raster_bwd_kernel(const float* __restrict__ dup, long long cap,
         bool nz = false;
         float om = 1.0f;
         if (processed) {
-          float dx, dy, radial, G, a_cl;
-          const float aG = lane_weight(sm, K, k, pixx, pixy, &dx, &dy,
-                                       &radial, &G, &a_cl);
+          float dx = 0.0f, dy = 0.0f, radial = 0.0f, G = 0.0f, a_cl = 0.0f;
+          // a masked lane (another tile's row) is aG = 0: no gradient
+          const float aG = (!kCompact || (k >= k_lo && k < k_hi))
+                               ? lane_weight(sm, K, k, pixx, pixy, &dx, &dy,
+                                             &radial, &G, &a_cl)
+                               : 0.0f;
           om = 1.0f - aG;
           const float w = aG * T_run;
           float gof = 0.0f;
@@ -151,6 +174,8 @@ __global__ void raster_bwd_kernel(const float* __restrict__ dup, long long cap,
       for (int idx = p; idx < nrows * nl; idx += P) {
         const int r = idx / nl;
         const int kk = idx - r * nl;
+        // K9 stores only its own lanes: the others belong to a neighbour
+        if (kCompact && (kb + kk < k_lo || kb + kk >= k_hi)) continue;
         float s = 0.0f;
         for (int wi = 0; wi < NW; ++wi) s += red[(wi * nrows + r) * 32 + kk];
         if (r == 5) s = s * (sm[5 * K + kb + kk] < alpha_clamp() ? 1.0f : 0.0f);
@@ -172,8 +197,28 @@ extern "C" int gsgen_raster_bwd(const float* dup, long long cap,
                                 int ch_out, float T_thresh, void* stream) {
   const int P = tile_size * tile_size;
   const size_t smem = sizeof(float) * (6 + F) * (K + (P / 32) * 32);
-  raster_bwd_kernel<<<n_tiles, P, smem, static_cast<cudaStream_t>(stream)>>>(
-      dup, cap, out, g, starts, nchunks, geom, grad, n_tiles_w, tile_size, K,
-      F, ch_out, T_thresh);
+  raster_bwd_kernel<false>
+      <<<n_tiles, P, smem, static_cast<cudaStream_t>(stream)>>>(
+          dup, cap, out, g, starts, nullptr, nchunks, geom, grad, n_tiles_w,
+          tile_size, K, F, ch_out, T_thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9: starts/ends are the compact segments, wcount the window counts; grad
+// must be zero-filled (rows no block owns stay zero).
+extern "C" int gsgen_raster_bwd_compact(const float* dup, long long cap,
+                                        const float* out, const float* g,
+                                        const int* starts, const int* ends,
+                                        const int* wcount, const float* geom,
+                                        float* grad, int n_tiles,
+                                        int n_tiles_w, int tile_size, int K,
+                                        int F, int ch_out, float T_thresh,
+                                        void* stream) {
+  const int P = tile_size * tile_size;
+  const size_t smem = sizeof(float) * (6 + F) * (K + (P / 32) * 32);
+  raster_bwd_kernel<true>
+      <<<n_tiles, P, smem, static_cast<cudaStream_t>(stream)>>>(
+          dup, cap, out, g, starts, ends, wcount, geom, grad, n_tiles_w,
+          tile_size, K, F, ch_out, T_thresh);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@
 //                                processed-chunk count at row ch_out-1
 //   grad [16, cap]               same rows as dup
 // P = tile_size^2 pixels per tile; one thread per pixel, one block per tile.
-// Tile t owns the chunk-aligned rows [starts[t], starts[t] + nchunks[t]*K).
+// Padded layout (K1, K2): tile t owns the chunk-aligned rows [starts[t],
+// starts[t] + nchunks[t]*K).  Compact layout (K8, K9): tile t owns the rows
+// [starts[t], ends[t]) and walks the K-aligned windows that cover them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +45,17 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ dup,
     const int c = idx - r * K;
     sm[idx] = dup[static_cast<long long>(r) * cap + base + c];
   }
+}
+
+// Lanes [k_lo, k_hi) of the window starting at row wbase that hold rows of
+// [start, end); empty when the window holds none of them.
+__device__ __forceinline__ void window_lanes(long long start, long long end,
+                                             long long wbase, int K,
+                                             int* k_lo, int* k_hi) {
+  const long long lo = start - wbase;
+  const long long hi = end - wbase;
+  *k_lo = lo > 0 ? static_cast<int>(lo) : 0;
+  *k_hi = hi < K ? static_cast<int>(hi) : K;
 }
 
 // Per-lane Gaussian weight: returns aG (zeroed below 1/255) and writes the

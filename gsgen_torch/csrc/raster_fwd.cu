@@ -1,6 +1,9 @@
-// K1: tile compositing forward.
+// K1 and K8: tile compositing forward.
 //
-// Replaces the JAX package's ops/pallas_raster.py::_fwd_kernel.  The TPU kernel
+// K1 replaces the JAX package's ops/pallas_raster.py::_fwd_kernel (padded
+// layout, built by _make_core); K8, the kCompact instance of the same
+// template, replaces _fwd_kernel(compact=True) (built by _make_core_compact).
+// The TPU kernel
 // turns each pixel's front-to-back recurrence into an exclusive cumprod over
 // a [P, K] chunk (lane rolls) plus one matmul; here each thread walks its
 // pixel's lanes sequentially, which is the exact scan (the fast_fwd_cumprod
@@ -15,6 +18,15 @@
 // no pixel has T >= T_thresh (__syncthreads_or) and writes the number of
 // chunks it processed to row ch_out-1: the backward walks only those.
 //
+// K8 (compact layout): tile t owns the unaligned rows [starts[t], ends[t]) of
+// the sorted table and walks the K-aligned windows from floor(start/K)*K,
+// wcount = ceil(end/K) - floor(start/K) of them.  A boundary window also
+// holds a neighbour's rows; those lanes are masked (aG = 0: they change
+// neither T nor the features), so the walk covers only lanes [k_lo, k_hi)
+// of each window.  An empty tile whose start is not a multiple of K has
+// wcount 1: it walks one all-masked window and writes 1 to the count row,
+// as the TPU kernel does.
+//
 // Bound on this card: with one block of P threads per tile and the chunk
 // staged once in shared memory (16 x K floats, read by all P threads), dup is
 // read from device memory once; the work is P*K lanes of ~20 flops and an
@@ -24,8 +36,10 @@
 
 namespace {
 
+template <bool kCompact>
 __global__ void raster_fwd_kernel(const float* __restrict__ dup, long long cap,
                                   const int* __restrict__ starts,
+                                  const int* __restrict__ ends,
                                   const int* __restrict__ nchunks,
                                   const float* __restrict__ geom,
                                   float* __restrict__ out, int n_tiles_w,
@@ -38,6 +52,8 @@ __global__ void raster_fwd_kernel(const float* __restrict__ dup, long long cap,
   float pixx, pixy;
   pixel_coords(t, p, n_tiles_w, tile_size, geom, &pixx, &pixy);
   const long long start = starts[t];
+  const long long end = kCompact ? ends[t] : 0;
+  const long long base = kCompact ? start / K * K : start;
   const int nck = nchunks[t];
   const int nrows = 6 + F;
 
@@ -52,15 +68,19 @@ __global__ void raster_fwd_kernel(const float* __restrict__ dup, long long cap,
     // next chunk's stage
     const int alive = __syncthreads_or(T >= T_thresh);
     if (i >= nck || !alive) break;
-    stage_chunk(dup, cap, start + static_cast<long long>(i) * K, nrows, K, sm);
+    const long long wbase = base + static_cast<long long>(i) * K;
+    stage_chunk(dup, cap, wbase, nrows, K, sm);
     __syncthreads();
+    // lanes of this tile in the window (all of them in the padded layout)
+    int k_lo = 0, k_hi = K;
+    if (kCompact) window_lanes(start, end, wbase, K, &k_lo, &k_hi);
 
     float cp = 1.0f;
     float qmin = __int_as_float(0x7f800000);  // +inf
     float part[GSGEN_MAX_F];
 #pragma unroll
     for (int f = 0; f < GSGEN_MAX_F; ++f) part[f] = 0.0f;
-    for (int k = 0; k < K; ++k) {
+    for (int k = k_lo; k < k_hi; ++k) {
       const float T_run = T * cp;
       if (!(T_run >= T_thresh)) break;
       float dx, dy, radial, G, a_cl;
@@ -98,9 +118,27 @@ extern "C" int gsgen_raster_fwd(const float* dup, long long cap,
                                 int ch_out, float T_thresh, void* stream) {
   const int P = tile_size * tile_size;
   const size_t smem = sizeof(float) * (6 + F) * K;
-  raster_fwd_kernel<<<n_tiles, P, smem, static_cast<cudaStream_t>(stream)>>>(
-      dup, cap, starts, nchunks, geom, out, n_tiles_w, tile_size, K, F, ch_out,
-      T_thresh);
+  raster_fwd_kernel<false>
+      <<<n_tiles, P, smem, static_cast<cudaStream_t>(stream)>>>(
+          dup, cap, starts, nullptr, nchunks, geom, out, n_tiles_w, tile_size,
+          K, F, ch_out, T_thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: starts/ends are the compact segments, wcount the window counts.
+extern "C" int gsgen_raster_fwd_compact(const float* dup, long long cap,
+                                        const int* starts, const int* ends,
+                                        const int* wcount, const float* geom,
+                                        float* out, int n_tiles,
+                                        int n_tiles_w, int tile_size, int K,
+                                        int F, int ch_out, float T_thresh,
+                                        void* stream) {
+  const int P = tile_size * tile_size;
+  const size_t smem = sizeof(float) * (6 + F) * K;
+  raster_fwd_kernel<true>
+      <<<n_tiles, P, smem, static_cast<cudaStream_t>(stream)>>>(
+          dup, cap, starts, ends, wcount, geom, out, n_tiles_w, tile_size, K,
+          F, ch_out, T_thresh);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,6 +56,11 @@ def main(argv=None):
         print(f"resumed from {ckpt} at step {trainer.state.step}")
 
     def cb(step, metrics):
+        events = {k: v for k, v in metrics.items() if k.startswith("num_")}
+        if events:
+            live = int(trainer.state.scene.active.sum())
+            print(f"step {step:6d} | density {events} | live {live}",
+                  flush=True)
         if step % trainer.cfg.log_period == 0 or args.steps is not None:
             print(f"step {step:6d} | loss {float(metrics['loss_total']):.6f}"
                   f" | n_dup {int(metrics['n_dup_max'])}", flush=True)

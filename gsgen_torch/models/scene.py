@@ -8,8 +8,9 @@ its inputs; ``render_batch`` loops over views.  All channels (rgb, depth,
 z^2) composite in one pass; ``opacity = 1 - T`` and ``z_var = E[z^2] -
 E[z]^2`` fall out of it.
 
-Not ported in this slice (each raises ``NotImplementedError``): PBR,
-normal channels, spherical harmonics, the compact binning layout and
+Both binning layouts are ported (``binning_layout``: padded | compact,
+chosen as the JAX package chooses them).  Not ported yet (each raises
+``NotImplementedError``): PBR, normal channels, spherical harmonics and
 tile-sharded rendering.
 """
 
@@ -29,6 +30,12 @@ from ..ops.projection import (conic_from_cov2d, project_gaussians,
 from ..utils.activations import act, inv_act
 
 FIELDS = ("mean", "qvec", "svec", "color", "alpha")
+# The JAX package's compact layout needs its resident-cotangent backward,
+# whose cotangents (n_tiles * ch_out * P * 4 bytes) must fit this TPU VMEM
+# budget.  The port keeps the same rule so that a config picks the same
+# layout in both packages; it changes which kernels run (K8/K9 or K1/K2),
+# not any pixel.
+RESIDENT_BUDGET = 9 * 1024 * 1024
 STATS = ("max_radii2d", "grad_accum", "grad_cnt")
 
 
@@ -86,8 +93,8 @@ def check_supported(cfg: RenderConfig) -> None:
             raise NotImplementedError(name)
     if cfg.sh_degree > 0:
         raise NotImplementedError("sh_degree > 0")
-    if cfg.binning_layout != "padded":
-        raise NotImplementedError(f"binning_layout: {cfg.binning_layout}")
+    if cfg.binning_layout not in ("padded", "compact"):
+        raise ValueError(f"binning_layout {cfg.binning_layout}")
     if cfg.backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"backend {cfg.backend}")
 
@@ -150,6 +157,18 @@ def scene_from_numpy(arrays: Dict[str, np.ndarray], device) -> SceneState:
     return SceneState(params=params, active=active, **stats)
 
 
+def binning_layout(cfg: RenderConfig, n_tiles: int, rgb_only: bool) -> str:
+    """The JAX package's layout rule: compact when asked for, on the kernel
+    path (backend ``auto`` or ``pallas``: the kernels on CUDA tensors,
+    their plain versions on CPU tensors), and while the cotangents fit
+    :data:`RESIDENT_BUDGET`; padded otherwise."""
+    ch_guess = 8 if (3 if rgb_only else 6) + 2 <= 8 else 16
+    P = cfg.tile_size * cfg.tile_size
+    ok = (cfg.binning_layout == "compact" and cfg.backend != "xla"
+          and n_tiles * ch_guess * P * 4 <= RESIDENT_BUDGET)
+    return "compact" if ok else "padded"
+
+
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -195,7 +214,8 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
         mean2d.detach(), proj.cov2d.detach(), proj.depth.detach(), vis,
         fx, fy, cx, cy, intr.w, intr.h, cfg.tile_size, cfg.dup_cap,
         chunk=chunk, tile_culling_radius=cfg.tile_culling_radius,
-        alpha=alpha.detach(), pad_budget=pad_budget)
+        alpha=alpha.detach(), pad_budget=pad_budget,
+        layout=binning_layout(cfg, n_tiles_pad, rgb_only))
 
     if rgb_only:
         feats = color

@@ -1,24 +1,29 @@
-"""Tile binning: AABB footprint -> padded duplication -> lexicographic sort.
+"""Tile binning: AABB footprint -> duplication -> lexicographic sort.
 
-Port of the JAX package's ``ops/binning.py`` (padded layout only).  Every field
-of :class:`BinnedTiles` equals the JAX package's bit for bit, so the
-port keeps its int32 arithmetic, its saturating float->int casts, its
-``mode="drop"`` scatters and its stable (tile, depth-bits) sort order:
+Port of the JAX package's ``ops/binning.py``, both layouts.  Every field
+of :class:`BinnedTiles` the port keeps equals the JAX package's bit for
+bit, so the port keeps its int32 arithmetic, its saturating float->int
+casts, its ``mode="drop"`` scatters and its stable (tile, depth-bits)
+sort order:
 
 * duplicate slots come from the vectorized repeat ``gid[d] = #(cum <=
   d)`` (kernel K3, :mod:`.expansion_rank`) with a static capacity
   ``cap``; slots past ``cap`` are dropped and ``total`` records the
   demand;
-* each tile's segment starts at a multiple of ``chunk``, so a tile owns
-  whole chunks of the duplicate table and of its gradient buffer;
-* ``padded_gid`` is built by kernel K4 (:mod:`.gid_repack`).
+* padded layout: each tile's segment starts at a multiple of ``chunk``,
+  so a tile owns whole chunks of the duplicate table and of its gradient
+  buffer; ``padded_gid`` is built by kernel K4 (:mod:`.gid_repack`);
+* compact layout: no padding; tile ``t`` owns rows ``[starts[t],
+  ends[t])`` of the sorted table ``gid_s`` and the kernels (K8, K9) walk
+  the ``chunk``-aligned windows covering them, masking the rows of
+  neighbouring tiles.
 
 Everything here is index math without gradients.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,18 +39,27 @@ _INT_MIN = -2 ** 31
 
 class BinnedTiles(NamedTuple):
     """Static-shape tile binning result (field meanings as in the JAX
-    package's ``BinnedTiles``).  Not ported: the compact-layout fields, and
-    ``vjp_gid`` / ``vjp_pos``, the maps of the TPU's sort-based gradient
-    aggregation, which the port replaces by the gather's own backward."""
+    package's ``BinnedTiles``).  The padded layout fills the first eight
+    fields; the compact layout fills ``starts``, ``ends`` (unaligned),
+    ``total``, ``gid_cum``, ``padded_total`` (= ``total``) and ``gid_s``,
+    and leaves ``padded_gid``, ``row_valid`` and ``chunk_tile`` None.
 
-    padded_gid: torch.Tensor    # [cap_padded] int32, sentinel N in padding
-    row_valid: torch.Tensor     # [cap_padded] bool
-    starts: torch.Tensor        # [n_tiles] int32, chunk-aligned
+    Not ported, because no kernel of the port reads them: ``step_tile`` /
+    ``step_window``, the TPU's sequential (tile, window) grid of the
+    compact backward (K9 runs one block per tile), and ``vjp_gid`` /
+    ``vjp_pos``, the maps of the TPU's sort-based gradient aggregation,
+    which the port replaces by the gather's own backward."""
+
+    padded_gid: Optional[torch.Tensor]  # [cap_padded] int32, sentinel N
+    row_valid: Optional[torch.Tensor]   # [cap_padded] bool
+    starts: torch.Tensor        # [n_tiles] int32 (padded: chunk-aligned)
     ends: torch.Tensor          # [n_tiles] int32
     total: torch.Tensor         # [] int32 duplicate demand before the cap
     gid_cum: torch.Tensor       # [N] int32 surviving-count cumsum
-    chunk_tile: torch.Tensor    # [cap_padded // chunk] int32 owning tile
+    chunk_tile: Optional[torch.Tensor]  # [cap_padded // chunk] owning tile
     padded_total: torch.Tensor  # [] int32 padded demand
+    gid_s: Optional[torch.Tensor] = None  # compact: [cap] sorted ids,
+                                          # sentinel N at rows >= total
 
 
 def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -114,9 +128,13 @@ def tile_aabbs(mean2d, cov2d, fx, fy, cx, cy, w: int, h: int,
 def bin_gaussians(mean2d, cov2d, depth, active, fx, fy, cx, cy,
                   w: int, h: int, tile_size: int, cap: int,
                   chunk: int = 256, tile_culling_radius: float = 6.0,
-                  alpha=None, pad_budget=None) -> BinnedTiles:
-    """Bin Gaussians into chunk-aligned, depth-sorted per-tile segments
-    (the padded layout)."""
+                  alpha=None, pad_budget=None, layout: str = "padded"
+                  ) -> BinnedTiles:
+    """Bin Gaussians into depth-sorted per-tile segments: chunk-aligned
+    copies (``layout="padded"``) or the sorted table as it is
+    (``layout="compact"``)."""
+    if layout not in ("padded", "compact"):
+        raise ValueError(f"binning layout {layout}")
     dev = mean2d.device
     n_tiles_w = -(-w // tile_size)
     n_tiles_h = -(-h // tile_size)
@@ -189,6 +207,14 @@ def bin_gaussians(mean2d, cov2d, depth, active, fx, fy, cx, cy,
 
     gid_cum = torch.minimum(cum, torch.minimum(
         torch.tensor(cap, dtype=_I32, device=dev), total))
+    if layout == "compact":
+        # rows past the demand gather the sentinel (zero) row
+        gid_sent = torch.where(d < total, gid_s,
+                               torch.full_like(gid_s, n)).to(_I32)
+        return BinnedTiles(padded_gid=None, row_valid=None, starts=start_c,
+                           ends=end_c, total=total, gid_cum=gid_cum,
+                           chunk_tile=None, padded_total=total,
+                           gid_s=gid_sent)
 
     # chunk-aligned layout, clamped to cap_padded (padded_total records the
     # demand when the padding budget overflows)

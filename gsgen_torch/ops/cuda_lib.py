@@ -47,6 +47,10 @@ SIGNATURES = {
                          _P],
     "gsgen_raster_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _F, _P],
+    "gsgen_raster_fwd_compact": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _P],
+    "gsgen_raster_bwd_compact": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _F, _P],
     "gsgen_expansion_rank": [_P, _I, _P, _I, _P],
     "gsgen_gid_repack": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "gsgen_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

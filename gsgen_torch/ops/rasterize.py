@@ -14,17 +14,25 @@ once, with an exclusive ``cumprod`` along the chunk:
   ``T_thresh``; the number of chunks it processed goes to the last
   output row, as in the TPU kernel.
 
+With ``ends`` (the compact layout) a tile walks the ``chunk``-aligned
+windows from ``floor(start / chunk) * chunk`` instead, and lanes whose row
+lies outside ``[start, end)`` (a neighbouring tile's rows in a shared
+boundary window) get ``aG = 0``, as the TPU kernel's ``lane_valid`` mask.
+
 :func:`composite_tiles` works on the ``[16, cap]`` duplicate table of the
 kernels and is differentiable under torch autograd: it is the plain
 version of kernel K1, and its autograd is the plain version of K2
-(:mod:`.cuda_raster`).  Padding rows of the table are the zero sentinel
+(:mod:`.cuda_raster`); with ``ends`` it is the plain version of K8 and
+its autograd that of K9.  A row of a window shared by two tiles then
+receives the sum of both tiles' gradients, and each tile contributes
+exactly zero on the lanes it masks.  Padding rows of the table are the zero sentinel
 row (alpha 0), so they contribute nothing and never read an inactive
 slot's possibly non-finite features.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,8 +54,9 @@ def tile_pixels(tiles: torch.Tensor, geom: torch.Tensor, n_tiles_w: int,
     return pixx[..., None], pixy[..., None]
 
 
-def chunk_weights(d, pixx, pixy, T_col, T_thresh):
-    """Shared chunk math.  d: [n, rows, K]; pixx/pixy/T_col: [n, P, 1].
+def chunk_weights(d, pixx, pixy, T_col, T_thresh, lane_valid=None):
+    """Shared chunk math.  d: [n, rows, K]; pixx/pixy/T_col: [n, P, 1];
+    ``lane_valid`` [n, 1, K] zeroes aG outside a tile's rows.
     Returns (om, cp_excl, processed, w), all [n, P, K]."""
     mx, my = d[:, 0:1, :], d[:, 1:2, :]
     ca, cb, cc = d[:, 2:3, :], d[:, 3:4, :], d[:, 4:5, :]
@@ -58,6 +67,8 @@ def chunk_weights(d, pixx, pixy, T_col, T_thresh):
     G = torch.exp(-0.5 * torch.clamp(radial, min=0.0))
     aG = torch.clamp(al, max=ALPHA_CLAMP) * G
     aG = torch.where(aG < MIN_RENDER_ALPHA, torch.zeros_like(aG), aG)
+    if lane_valid is not None:
+        aG = torch.where(lane_valid, aG, torch.zeros_like(aG))
     om = 1.0 - aG
     cp = torch.cumprod(om, dim=2)
     cp_excl = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=2)
@@ -77,10 +88,13 @@ def update_T(T_col, om, cp_excl, processed):
 def composite_tiles(dup: torch.Tensor, starts: torch.Tensor,
                     nchunks: torch.Tensor, geom: torch.Tensor, *,
                     n_tiles_w: int, tile_size: int, chunk: int, F: int,
-                    ch_out: int, T_thresh: float = DEFAULT_T_THRESH
-                    ) -> torch.Tensor:
+                    ch_out: int, T_thresh: float = DEFAULT_T_THRESH,
+                    ends: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[rows >= 6+F, cap] duplicate table -> out [n_tiles, ch_out, P]
-    (F feature rows, T at row F, processed-chunk count at row ch_out-1)."""
+    (F feature rows, T at row F, processed-chunk count at row ch_out-1).
+
+    ``nchunks`` is each tile's chunk (padded) or window (compact, with
+    ``ends``) count."""
     dev = dup.device
     n_tiles = starts.shape[0]
     P = tile_size * tile_size
@@ -92,14 +106,19 @@ def composite_tiles(dup: torch.Tensor, starts: torch.Tensor,
     acc = torch.zeros(n_tiles, F, P, dtype=torch.float32, device=dev)
     i_fin = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     table = dup[:6 + F]
+    base = starts.long() if ends is None else starts.long() // K * K
     alive = nchunks > 0
     i = 0
     while bool(alive.any()):
         idx = alive.nonzero()[:, 0]
-        cols = starts[idx].long()[:, None] + i * K + lanes[None, :]
+        cols = base[idx][:, None] + i * K + lanes[None, :]
         d = table[:, cols].permute(1, 0, 2)              # [n_a, 6+F, K]
+        valid = None
+        if ends is not None:
+            valid = ((cols >= starts[idx].long()[:, None])
+                     & (cols < ends[idx].long()[:, None]))[:, None, :]
         om, cp_excl, processed, w = chunk_weights(
-            d, pixx[idx], pixy[idx], T[idx], T_thresh)
+            d, pixx[idx], pixy[idx], T[idx], T_thresh, valid)
         fe = d[:, 6:6 + F, :]
         acc = acc.index_copy(0, idx, acc[idx] + fe @ w.transpose(1, 2))
         T = T.index_copy(0, idx, update_T(T[idx], om, cp_excl, processed))

@@ -4,7 +4,8 @@ Port of the JAX package's ``training/trainer.py``.  A step runs in the
 same order as the JAX package's jitted ``train_step``: backgrounds,
 render, guidance, the sparsity / opague / z_var terms, penalties,
 backward, per-field Adam, then the densify statistics (``grad_accum``,
-``grad_cnt``, ``max_radii2d``).  The host loop evaluates ``C()``
+``grad_cnt``, ``max_radii2d``); after the step, the densify and prune
+events that are due (:mod:`..models.density`).  The host loop evaluates ``C()``
 schedules, samples numpy camera poses and keeps the duplicate-capacity
 bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
 compile-ahead threads have no counterpart.
@@ -15,9 +16,8 @@ optimizer's leaves are the scene fields, the background (``bg/<name>``)
 and the guidance's trainable leaves (``gp/<name>``: VSD's LoRA and camera
 embedding, at ``lr_guidance``).
 
-Not ported yet (``NotImplementedError``): densify / prune events,
-DeepFloyd guidance, estimators, image-to-3D, auxiliary guidance,
-logging and checkpoints.
+Not ported yet (``NotImplementedError``): DeepFloyd guidance, estimators,
+image-to-3D, auxiliary guidance, logging and checkpoints.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ from ..guidance import convert
 from ..guidance.mock import MockGuidance
 from ..models.background import (BackgroundConfig, apply_background,
                                  init_background)
-from ..models.density import DensifyConfig, PruneConfig, should_run
+from ..models.density import (DensifyConfig, PruneConfig, densify, prune,
+                              should_run)
 from ..models.init import InitConfig, initialize
 from ..models.scene import (FIELDS, RenderConfig, SceneState,
                             render_batch, scene_from_numpy)
@@ -374,13 +375,35 @@ class Trainer:
         return metrics
 
     def density_step(self, step: int) -> Dict[str, Any]:
-        if should_run(step, self.dcfg.enabled, self.dcfg.warm_up,
-                      self.dcfg.end, self.dcfg.period):
-            raise NotImplementedError(f"densify event at step {step}")
-        if should_run(step, self.pcfg.enabled, self.pcfg.warm_up,
-                      self.pcfg.end, self.pcfg.period):
-            raise NotImplementedError(f"prune event at step {step}")
-        return {}
+        """The densify and prune events due at ``step``; their counts as
+        ints.  Only the scene fields' Adam moments change: the bg and
+        ``gp/`` moments are left alone."""
+        info: Dict[str, Any] = {}
+        due_d = should_run(step, self.dcfg.enabled, self.dcfg.warm_up,
+                           self.dcfg.end, self.dcfg.period)
+        due_p = should_run(step, self.pcfg.enabled, self.pcfg.warm_up,
+                           self.pcfg.end, self.pcfg.period)
+        if not (due_d or due_p):
+            return info
+        opt = self.state.opt
+        scene_opt = AdamState(mu={k: opt.mu[k] for k in FIELDS},
+                              nu={k: opt.nu[k] for k in FIELDS},
+                              count=opt.count)
+        scene = self.state.scene
+        if due_d:
+            scene, scene_opt, dinfo = densify(scene, scene_opt, self.dcfg,
+                                              self.rcfg, self.generator)
+            info.update(dinfo)
+        if due_p:
+            scene, scene_opt, pinfo = prune(
+                scene, scene_opt, self.pcfg, self.rcfg,
+                C(self.pcfg.radii2d_thresh, step),
+                C(self.pcfg.alpha_thresh, step))
+            info.update(pinfo)
+        opt = AdamState(mu={**opt.mu, **scene_opt.mu},
+                        nu={**opt.nu, **scene_opt.nu}, count=opt.count)
+        self.state = dataclasses.replace(self.state, scene=scene, opt=opt)
+        return {k: int(v) for k, v in info.items()}
 
     def fit(self, n_steps: Optional[int] = None,
             callback: Optional[Callable[[int, Dict], None]] = None):

@@ -1,0 +1,90 @@
+"""Point-set ops: brute-force KNN and the Gaussian surface distance.
+
+Port of the JAX package's ``utils/ops.py`` (``pairwise_sqdist``, ``knn``,
+``knn_self``, ``distance_to_gaussian_surface``), what the compactness
+densify needs.  Two differences of form, none of result:
+
+* ``knn`` works in row blocks, so ``knn_self`` over a full capacity
+  (65,536 in ``configs/base.yaml``) never holds the [M, M] distance
+  matrix (16 GiB in fp32) at once; rows are independent, so the answer
+  is the same;
+* ties: ``jax.lax.top_k`` returns the lower index first among equal
+  values, which ``torch.topk`` does not promise.  A clone sits exactly on
+  its source, so that order decides which column ``knn_self`` drops as
+  "self".  The port ranks each row by one int64 key, the distance's
+  float bits (order-preserving for non-negative floats) above the column
+  index, so equal distances come out by ascending index.
+
+``a·bᵀ`` is summed per coordinate (no matrix product), so no TF32 setting
+reaches it and the same rows give bitwise the same distances.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops.transforms import quat_to_rotmat
+
+KNN_ROWS = 1024     # query rows per block
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[N, D], [M, D] -> squared euclidean distances [N, M] by the
+    |a|^2 - 2ab + |b|^2 expansion, clamped at 0."""
+    a2 = torch.sum(a * a, dim=-1, keepdim=True)
+    b2 = torch.sum(b * b, dim=-1)
+    ab = a[:, 0:1] * b[None, :, 0]
+    for j in range(1, a.shape[1]):
+        ab = ab + a[:, j:j + 1] * b[None, :, j]
+    # + 0.0 turns a -0.0 into +0.0, whose bits the keys below need
+    return torch.clamp(a2 - 2.0 * ab + b2[None, :], min=0.0) + 0.0
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int,
+        mask: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours of each query point: (sqdists [N, k], idx
+    [N, k] int32), ascending, lower index first among equal distances;
+    ``mask`` excludes points (distance +inf)."""
+    m = points.shape[0]
+    col = torch.arange(m, dtype=torch.int64, device=points.device)
+    dists, idxs = [], []
+    for r0 in range(0, query.shape[0], KNN_ROWS):
+        d = pairwise_sqdist(query[r0:r0 + KNN_ROWS], points)
+        if mask is not None:
+            d = torch.where(mask[None, :], d, torch.full_like(d, float("inf")))
+        key = (d.view(torch.int32).to(torch.int64) << 32) | col[None, :]
+        top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+        i = top & 0xFFFFFFFF
+        idxs.append(i.to(torch.int32))
+        dists.append(torch.gather(d, 1, i))
+    return torch.cat(dists), torch.cat(idxs)
+
+
+def knn_self(points: torch.Tensor, k: int,
+             mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KNN without the first match (the point itself, or its tie)."""
+    d, i = knn(points, points, k + 1, mask)
+    return d[:, 1:], i[:, 1:]
+
+
+def distance_to_gaussian_surface(mean: torch.Tensor, svec: torch.Tensor,
+                                 qvec: torch.Tensor, query: torch.Tensor
+                                 ) -> torch.Tensor:
+    """Ellipsoid "surface radius" of each Gaussian toward ``query`` [N]:
+    ``r^2 = s_z^2 cos^2(theta) + (s_x^2 cos^2(phi) + s_y^2 sin^2(phi))^2
+    sin^2(theta)``, the squared inner term kept from the reference."""
+    R = quat_to_rotmat(qvec)
+    xyz = torch.einsum("nji,nj->ni", R, query - mean)
+    xyz = xyz / torch.clamp(torch.linalg.norm(xyz, dim=-1, keepdim=True),
+                            min=1e-12)
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    r_xy = torch.sqrt(x * x + y * y + 1e-10)
+    cos_theta, sin_theta = z, r_xy
+    cos_phi, sin_phi = x / r_xy, y / r_xy
+    d2 = svec[..., 0] ** 2 * cos_phi ** 2 + svec[..., 1] ** 2 * sin_phi ** 2
+    r2 = svec[..., 2] ** 2 * cos_theta ** 2 + d2 ** 2 * sin_theta ** 2
+    return torch.sqrt(r2 + 1e-10)

@@ -7,7 +7,8 @@ them; there, skip the JAX-importing conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances as in test_pallas.py: T rtol 1e-5 / atol 1e-6, image rtol
-1e-4 / atol 1e-5, gradients rtol 2e-3 / atol 2e-4; index kernels exact.
+1e-4 / atol 1e-5, gradients rtol 2e-3 / atol 2e-4; index kernels and the
+processed chunk / window counts exact.
 """
 
 import numpy as np
@@ -197,3 +198,75 @@ def test_flash_attention_autograd_on_card(cuda):
     with torch.no_grad():
         assert fa.flash_self_attention(*ps, 0.125).grad_fn is None
     assert fa.flash_bwd_dkv.launches == n[1] + 1
+
+
+@pytest.mark.parametrize("F", [3, 5])
+def test_compact_kernels_match_plain(cuda, F):
+    """K8 and K9 against their plain versions on compact bins with empty
+    tiles whose starts are unaligned and windows shared by two tiles: T,
+    image and gradient gates as above, the window-count row exact; then
+    the compact autograd Function on the card (output attached, one K8
+    and one K9 launch) against the CPU."""
+    mean2d, cov2d, alpha, feats, depth = scene2d(60, 5, spread=0.35, F=F)
+    mean2d = mean2d - np.float32(0.45)      # top-left quadrant only
+    args = (mean2d, conic_np(cov2d), alpha, feats)
+    st = dict(n_tiles_w=4, tile_size=TILE, chunk=CHUNK, F=F,
+              ch_out=cuda_raster.ch_out_for(F), T_thresh=1e-4)
+    bins = binning.bin_gaussians(
+        *(t(x).to(cuda) for x in (mean2d, cov2d, depth)),
+        torch.ones(60, dtype=torch.bool, device=cuda), FX, FX, RES / 2.0,
+        RES / 2.0, RES, RES, TILE, 4096, chunk=CHUNK, layout="compact")
+    starts, ends = bins.starts, bins.ends
+    assert bool(((starts == ends) & (starts % CHUNK != 0)).any())
+    assert bool(((starts % CHUNK != 0) & (starts != ends)).any())
+    dup = cuda_raster.pack_dup(*(t(x).to(cuda) for x in args), bins.gid_s,
+                               torch.ones_like(bins.gid_s, dtype=torch.bool))
+    wc = cuda_raster.window_counts(starts, ends, CHUNK)
+    geom = torch.tensor([-1.0, -1.0, 1 / FX, 1 / FX], device=cuda)
+    n8 = cuda_raster.raster_fwd_compact.launches
+    out = cuda_raster.raster_fwd_compact(dup, starts, ends, wc, geom, **st)
+    out_p = cuda_raster.raster_fwd_compact_plain(dup, starts, ends, wc, geom,
+                                                 **st)
+    torch.cuda.synchronize()
+    assert cuda_raster.raster_fwd_compact.launches == n8 + 1
+    assert torch.equal(out[:, -1], out_p[:, -1])
+    np.testing.assert_allclose(out[:, F].cpu().numpy(),
+                               out_p[:, F].cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(out[:, :F].cpu().numpy(),
+                               out_p[:, :F].cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    g = torch.randn(out.shape, generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    grad = cuda_raster.raster_bwd_compact(dup, out, g, starts, ends, wc, geom,
+                                          **st)
+    grad_p = cuda_raster.raster_bwd_compact_plain(dup, out_p, g, starts, ends,
+                                                  wc, geom, **st)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(grad.cpu().numpy(), grad_p.cpu().numpy(),
+                               rtol=2e-3, atol=2e-4)
+
+    results = []
+    for dev in ("cpu", cuda):
+        b = binning.bin_gaussians(
+            *(t(x).to(dev) for x in (mean2d, cov2d, depth)),
+            torch.ones(60, dtype=torch.bool, device=dev), FX, FX, RES / 2.0,
+            RES / 2.0, RES, RES, TILE, 4096, chunk=CHUNK, layout="compact")
+        ps = [t(x).to(dev).requires_grad_(True) for x in args]
+        n = (cuda_raster.raster_fwd_compact.launches,
+             cuda_raster.raster_bwd_compact.launches)
+        img, T = cuda_raster.rasterize_tiles_cuda(
+            *ps, b, (-1.0, -1.0), (1 / FX, 1 / FX), w=RES, h=RES,
+            tile_size=TILE, chunk=CHUNK)
+        assert img.grad_fn is not None
+        (img.square().sum() + T.sum()).backward()
+        launched = (cuda_raster.raster_fwd_compact.launches - n[0],
+                    cuda_raster.raster_bwd_compact.launches - n[1])
+        assert launched == ((1, 1) if dev == cuda else (0, 0))
+        results.append((img.detach().cpu(), [p.grad.cpu() for p in ps]))
+    (img_c, g_c), (img_k, g_k) = results
+    np.testing.assert_allclose(img_k.numpy(), img_c.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(g_k, g_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                   atol=2e-4)

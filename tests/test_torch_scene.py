@@ -158,7 +158,7 @@ def test_make_scene_padding_and_unported_features():
     np.testing.assert_allclose(sc.params["svec"][4].numpy(), np.log(1e-4),
                                rtol=1e-6)
     for bad in (dict(pbr=True), dict(sh_degree=1),
-                dict(binning_layout="compact"), dict(render_normal=True)):
+                dict(render_normal=True)):
         with pytest.raises(NotImplementedError):
             render_view(sc.params, sc.active, np.eye(3, 4, dtype=np.float32),
                         CameraIntrinsics.from_reso(16),

@@ -159,17 +159,28 @@ def test_load_config_base_yaml_with_overrides(tmp_path):
 
 
 def test_fit_runs_to_max_steps_and_densify_raises():
-    tr = build_trainer(load_config(
+    """fit runs to max_steps through a densify event (step 2); an unknown
+    densify type raises, as in the JAX package."""
+    over = ["guidance.type=mock", "init.num_points=16", "init.capacity=32",
+            "data.reso=[16]", "renderer.tile_size=8", "renderer.chunk=128",
+            "renderer.dup_cap=2048", "trainer.batch_size=1",
+            "trainer.max_steps=3", "renderer.densify.warm_up=2",
+            "renderer.densify.period=1",
+            "renderer.densify.mean2d_thresh=0.0"]
+    tr = build_trainer(load_config(ROOT / "configs" / "base.yaml", over),
+                       device="cpu")
+    infos = []
+    tr.fit(callback=lambda s, m: infos.append(m))
+    assert tr.state.step == 3
+    assert int(tr.state.scene.active.sum()) > 16
+    assert infos[2]["num_clone"] + infos[2]["num_split"] > 0
+    bad = build_trainer(load_config(
         ROOT / "configs" / "base.yaml",
-        ["guidance.type=mock", "init.num_points=16", "init.capacity=16",
-         "data.reso=[16]", "renderer.tile_size=8", "renderer.chunk=128",
-         "renderer.dup_cap=2048", "trainer.batch_size=1",
-         "trainer.max_steps=3", "renderer.densify.warm_up=2",
-         "renderer.densify.period=1"]), device="cpu")
-    tr.fit(2)
-    assert tr.state.step == 2
+        over + ["renderer.densify.use_legacy=false",
+                "renderer.densify.type=bogus"]), device="cpu")
+    bad.fit(2)
     with pytest.raises(NotImplementedError, match="densify"):
-        tr.fit()
+        bad.fit()
 
 
 def test_port_imports_no_jax():
