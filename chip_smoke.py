@@ -19,10 +19,13 @@ Phases, each reported on its own line:
    by two tiles counted;
    Phase 3 also holds K5 (flash self-attention forward) against its plain
    version at SD 2.1's level 0 [8, 4096, 5, 64] in bf16 and fp32, SD
-   1.5's level 0 [8, 4096, 8, 40] in bf16 and a small [2, 256, 2, 64] in
-   fp32; and K5's lse, K6 (dK, dV) and K7 (dQ) against the plain backward
-   at the VSD path's [4, 4096, 5, 64] in fp32 and bf16 and a small
-   [2, 256, 2, 64] in fp32, and autograd through K5 + K6 + K7 against
+   1.5's level 0 [8, 4096, 8, 40] in bf16, a small [2, 256, 2, 64] in
+   fp32, and in bf16 [1, 4096, 2, 64] (the whole TMA ring on few CTAs),
+   [2, 128, 3, 40] (one tile, TMA zero fill past D) and [2, 256, 2, 160]
+   (the mma.sync instance); and K5's lse, K6 (dK, dV) and K7 (dQ) against
+   the plain backward at the VSD path's [4, 4096, 5, 64] in fp32 and
+   bf16, a small [2, 256, 2, 64] in fp32, and [1, 4096, 2, 64] and
+   [2, 256, 2, 160] in bf16, and autograd through K5 + K6 + K7 against
    autograd through the plain path;
 4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
    full width through build_trainer / fit, with every kernel's launch
@@ -32,7 +35,10 @@ Phases, each reported on its own line:
    shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7
    at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs; SDPA in
    fp32 beside K5's fp32 instance at B=8 and B=4), K8 and K9 beside K1 and
-   K2, and the full render forward+backward in both layouts;
+   K2, and the full render forward+backward in both layouts; one line
+   gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
+   SDPA's time, with the bound at the rate its design can reach (bf16
+   989 TFLOP/s; K5/K6 fp32 3xTF32 3 x ops / 495 TFLOP/s; K7 fp32 67);
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
@@ -81,6 +87,9 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
+# K5 / K6 in fp32 run 3xTF32: three TF32 tensor-core products per product,
+# so the rate that design can reach is 495 / 3 TFLOP/s of fp32 work
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 # K5 (and its lse) against its plain version: max abs error over max
 # |plain output|; K6 / K7: the same over each gradient's max |plain|
@@ -509,7 +518,10 @@ def run(torch) -> int:
             ("SD 2.1 level 0", SD21_ATTN, "bfloat16"),
             ("SD 2.1 level 0", SD21_ATTN, "float32"),
             ("SD 1.5 level 0", (8, 4096, 8, 40), "bfloat16"),
-            ("small", (2, 256, 2, 64), "float32"))):
+            ("small", (2, 256, 2, 64), "float32"),
+            ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
+            ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
+            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"))):
         dt = getattr(torch, dtn)
         q, k, v = qkv(shape, dt, 20 + i)
         scale = shape[-1] ** -0.5
@@ -540,7 +552,9 @@ def run(torch) -> int:
     for i, (label, shape, dtn) in enumerate((
             ("VSD level 0", VSD_ATTN, "float32"),
             ("VSD level 0", VSD_ATTN, "bfloat16"),
-            ("small", (2, 256, 2, 64), "float32"))):
+            ("small", (2, 256, 2, 64), "float32"),
+            ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
+            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"))):
         dt = getattr(torch, dtn)
         q, k, v, dout = qkvo(shape, dt, 40 + i)
         scale = shape[-1] ** -0.5
@@ -841,8 +855,8 @@ def run(torch) -> int:
     # three gradients; K5 with its lse at the same shape
     Bv, Lv, Hv, Dv = VSD_ATTN
     units = Bv * Hv * Lv * Lv * Dv
-    times_bwd, k5_b4 = {}, {}
-    for dtn, peak in (("float32", PEAK_FLOPS), ("bfloat16", PEAK_BF16_FLOPS)):
+    times_bwd, k5_b4, sdpa_bwd_ms = {}, {}, {}
+    for dtn in ("float32", "bfloat16"):
         dt = getattr(torch, dtn)
         q, k, v, dout = qkvo(VSD_ATTN, dt, 70)
         out, lse = flash_attention.flash_self_attention_lse(q, k, v, scale)
@@ -856,6 +870,7 @@ def run(torch) -> int:
         do_h = dout.transpose(1, 2)
         sdpa_bwd = time_ms(lambda: torch.autograd.grad(
             o_h, (qh, kh, vh), do_h, retain_graph=True), 10)
+        sdpa_bwd_ms[dtn] = sdpa_bwd
         io = Bv * Lv * Hv * Dv * dt.itemsize
         in_b = 4 * io + 2 * Bv * Hv * Lv * 4
         for name, fn, fn_p, ops, out_b in (
@@ -864,7 +879,7 @@ def run(torch) -> int:
                 ("flash_attn_bwd_dq", flash_attention.flash_bwd_dq,
                  flash_attention.flash_bwd_dq_plain, 6.0 * units, io)):
             b_ms = 1e3 * (in_b + out_b) / PEAK_BYTES
-            o_ms = 1e3 * ops / peak
+            o_ms = 1e3 * ops / flash_peak(name, dtn)
             times_bwd[(name, dtn)] = dict(
                 ms=time_ms(lambda fn=fn: fn(*args), 10),
                 plain_ms=time_ms(lambda fn_p=fn_p: fn_p(*args), 3),
@@ -874,6 +889,40 @@ def run(torch) -> int:
         torch.cuda.empty_cache()
     bwd_bound = {d: 1e3 * 10.0 * units / pk for d, pk in
                  (("float32", PEAK_FLOPS), ("bfloat16", PEAK_BF16_FLOPS))}
+    # one row per K5 / K6 / K7 instance: ms, TFLOP/s, share of its bound
+    # and the SDPA call beside it
+    flash_rows = [
+        ("K5 bf16 wgmma+TMA", list(SD21_ATTN), times_flash["ms"], flash_ops,
+         times_flash["bound_ms"], times_flash["library_ms"]),
+        ("K5 fp32 3xTF32", list(SD21_ATTN), flash_fp32_ms, flash_ops,
+         1e3 * flash_ops / PEAK_3XTF32_FLOPS, sdpa_fp32["b8"]),
+        ("K5 fp32 3xTF32 +lse", list(VSD_ATTN), k5_b4["float32"],
+         4.0 * units, 1e3 * 4.0 * units / PEAK_3XTF32_FLOPS,
+         sdpa_fp32["b4"]),
+        ("K5 bf16 wgmma+TMA +lse", list(VSD_ATTN), k5_b4["bfloat16"],
+         4.0 * units, 1e3 * 4.0 * units / PEAK_BF16_FLOPS, None)]
+    for (name, dtn), v in times_bwd.items():
+        design = {("flash_attn_bwd_dkv", "bfloat16"): "K6 bf16 wgmma+TMA",
+                  ("flash_attn_bwd_dkv", "float32"): "K6 fp32 3xTF32",
+                  ("flash_attn_bwd_dq", "bfloat16"): "K7 bf16 mma.sync",
+                  ("flash_attn_bwd_dq", "float32"): "K7 fp32 SIMT"}
+        ops = (8.0 if name == "flash_attn_bwd_dkv" else 6.0) * units
+        flash_rows.append((design[(name, dtn)], list(VSD_ATTN), v["ms"], ops,
+                           v["bound_ms"], sdpa_bwd_ms[dtn]))
+    flash_instances = [
+        dict(instance=n, shape=shp, ms=ms, tflops=ops / ms / 1e9,
+             bound_ms=bd, pct_of_bound=100.0 * bd / ms, sdpa_ms=sd)
+        for n, shp, ms, ops, bd, sd in flash_rows]
+    require(all(r["pct_of_bound"] <= 100.0 for r in flash_instances),
+            "a flash instance reads above 100% of its bound: "
+            f"{flash_instances}")
+    print(f"phase 5 flash: ok | card {card} | " + " | ".join(
+        f"{r['instance']} {r['shape']} {r['ms']:.4f} ms = "
+        f"{r['tflops']:.1f} TFLOP/s, {r['pct_of_bound']:.1f}% of bound "
+        f"{r['bound_ms']:.4f} ms, SDPA "
+        + ("n/a" if r["sdpa_ms"] is None else f"{r['sdpa_ms']:.4f} ms")
+        + ("" if "K5" in r["instance"] else " (whole bwd)")
+        for r in flash_instances), flush=True)
     print(f"phase 5 times: ok | card {card} | K6/K7 {list(VSD_ATTN)}: "
           + " | ".join(
               f"{n} {d} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, SDPA "
@@ -892,7 +941,8 @@ def run(torch) -> int:
           f"{times_flash['bound_by']}), fp32 {flash_fp32_ms:.3f} ms "
           f"(plain {flash_fp32_plain_ms:.3f}, SDPA fp32 "
           f"{sdpa_fp32['b8']:.3f}, bound "
-          f"{1e3 * flash_ops / PEAK_FLOPS:.3f} at 67 TFLOP/s) | SDPA fp32 "
+          f"{1e3 * flash_ops / PEAK_3XTF32_FLOPS:.3f} at 495/3 TFLOP/s) "
+          f"| SDPA fp32 "
           f"at B=4: {sdpa_fp32['b4']:.3f} ms (K5 with lse "
           f"{k5_b4['float32']:.3f})", flush=True)
     print(f"phase 5 times: ok | card {card} | render fwd+bwd 512^2: "
@@ -1031,7 +1081,11 @@ def run(torch) -> int:
         shapes=f"SD 2.1 level-0 self-attention {list(SD21_ATTN)} bf16",
         fp32_ms=flash_fp32_ms, fp32_plain_ms=flash_fp32_plain_ms,
         fp32_library_ms=sdpa_fp32["b8"], fp32_b4_lse_ms=k5_b4["float32"],
-        fp32_b4_library_ms=sdpa_fp32["b4"]))
+        fp32_b4_library_ms=sdpa_fp32["b4"],
+        fp32_bound_ms=1e3 * flash_ops / PEAK_3XTF32_FLOPS,
+        design="bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
+               "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
+               "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double buffer"))
     for name, func, line in (
             ("flash_attn_bwd_dkv", "_flash_attention_dkv_kernel", 796),
             ("flash_attn_bwd_dq", "_flash_attention_dq_kernel", 1146)):
@@ -1045,6 +1099,11 @@ def run(torch) -> int:
             **times_bwd[(name, "float32")],
             shapes=f"VSD level-0 self-attention backward {list(VSD_ATTN)} "
                    "fp32; library_ms: SDPA's backward (dQ, dK and dV)",
+            design=("bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
+                    "keys a CTA, 3-stage Q/dO ring); bf16 D>64: mma.sync; "
+                    "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double "
+                    "buffer" if name == "flash_attn_bwd_dkv" else
+                    "bf16: mma.sync; fp32: scalar FMA"),
             bf16=times_bwd[(name, "bfloat16")]))
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
                       "render_fwd_bwd_ms_compact": render_compact,
@@ -1054,7 +1113,8 @@ def run(torch) -> int:
                       "train_profile": profile_info, "sds": sds,
                       "sds_profile": sds_profile, "vsd": vsd,
                       "vsd_profile": vsd_profile,
-                      "flash_bwd_bound_ms": bwd_bound}), flush=True)
+                      "flash_bwd_bound_ms": bwd_bound,
+                      "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1063,6 +1123,14 @@ def run(torch) -> int:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def flash_peak(name: str, dtn: str) -> float:
+    """The operations rate a flash kernel's design can reach: bf16 tensor
+    cores; 3xTF32 for K5 / K6 in fp32; scalar fp32 for K7 in fp32."""
+    if dtn == "bfloat16":
+        return PEAK_BF16_FLOPS
+    return PEAK_FLOPS if name == "flash_attn_bwd_dq" else PEAK_3XTF32_FLOPS
 
 
 def busy_us(events):

@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention kernels K5 (flash_attn_fwd.cu) and
 // K6/K7 (flash_attn_bwd.cu): bf16 packing, the mma.sync m16n8k16 product,
-// and tile copies from [B, L, H, D] rows into shared memory.
+// and tile copies from [B, L, H, D] rows into shared memory.  The Hopper
+// blocks (TMA, mbarrier, wgmma, 3xTF32) are in flash_attn_sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,8 +11,8 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;   // queries per tile (every kernel)
-constexpr int kBlockK = 64;   // keys per tile (bf16 kernels, K6, K7)
+constexpr int kBlockQ = 64;   // queries per tile (mma.sync kernels, K7)
+constexpr int kBlockK = 64;   // keys per tile (mma.sync kernels, K6 fp32)
 constexpr int kMaxD = 160;
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
@@ -68,6 +69,19 @@ __device__ __forceinline__ void load_rows(T* dst, int stride, const T* src,
         *reinterpret_cast<const uint4*>(src + base + (row0 + r) * row_stride +
                                         c);
   }
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory (above the
+// 48 KB default only after the attribute is raised).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+           cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -1,0 +1,339 @@
+// Hopper building blocks of the flash-attention kernels K5 and K6 (and the
+// later redesign of K7): mbarriers, TMA tensor maps and loads, warpgroup
+// matrix multiply (wgmma) with shared-memory descriptors, setmaxnreg, and
+// the 3xTF32 split with its mma.sync product for the fp32 instances.
+//
+// Layout conventions (shared by every user):
+//  * A [B, L, H, D] bf16 tensor is a 4-D TMA map with dims (D, H, L, B) and
+//    byte strides (2D, 2HD, 2LHD); a box {64, 1, rows, 1} lands as `rows`
+//    rows of 128 bytes (64 head dims, zero-filled past D) in the 128-byte
+//    swizzle, in 1024-byte atoms of 8 rows.  Tile bases are 1024-aligned.
+//  * Such a tile is read by wgmma either K-major (the head dim is the
+//    product's k: rows are M or N) or MN-major (the rows are the product's
+//    k, the head dims its N: a B operand with tnspB = 1).
+//  * wgmma m64nNk16 fp32 accumulators: warp w of the warpgroup holds rows
+//    16w + g and 16w + g + 8 (lane = 4g + t); register 4j + e is column
+//    8j + 2t + (e & 1), row + 8 when e >= 2 -- the mma.sync C layout
+//    repeated per 8 columns.  The register A operand of the RS form has the
+//    mma.sync m16n8k16 A layout, so a score accumulator converts in-thread
+//    into the A fragments of the next product.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---- host: TMA tensor maps -------------------------------------------------
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// The map of a [B, L, H, D] bf16 tensor with box {64, 1, rows, 1}.
+bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int L, int H,
+                   int D, int rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * L * H * D};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- device: shared memory, mbarriers, TMA ---------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+// A wait that outlasts 2 s of the global timer (a tile takes microseconds)
+// is a deadlock: trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0) {
+      t0 = now;
+    } else if (now - t0 > 2000000000ull) {
+      __trap();
+    }
+  }
+}
+
+// One box of a 4-D map at coordinates (c0, c1, c2, c3) into shared memory;
+// completion (the box's bytes) is reported to `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- device: wgmma ---------------------------------------------------------
+// Descriptor of a 128-byte-swizzled tile at shared address `addr`: SBO 1024
+// bytes (8 rows of 128 B) between 8-row groups; LBO is unused by the shapes
+// here (K-major: k = 16 fits in a row; MN-major: N = 64 fits in a row).
+// K-major operands step k by 32 bytes within the row; MN-major ones by 16
+// rows (2048 bytes).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving register reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+#define GS_ACC8(d, o)                                                  \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),      \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8), GS_ACC8(d, 16), GS_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8), GS_ACC8(d, 16), GS_ACC8(d, 24),
+        GS_ACC8(d, 32), GS_ACC8(d, 40), GS_ACC8(d, 48), GS_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (bf16 pairs, the
+// mma.sync A layout per warp), B MN-major in shared memory (tnspB = 1).
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8), GS_ACC8(d, 16), GS_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef GS_ACC8
+
+// ---- device: 3xTF32 --------------------------------------------------------
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), both rounded
+// to nearest; a product a b is hi_a hi_b + hi_a lo_b + lo_a hi_b.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// D(16x8) += A(16x8, row) B(8x8, col) in tf32, fp32 accumulate.  Fragments
+// (lane = 4g + t): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; C as mma_bf16.
+// Not volatile: independent products may be scheduled across each other.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The four A values (a0..a3 order) split into hi and lo fragments.
+__device__ __forceinline__ void split_frag(const float (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c[off + i] += a b_i (i < N) to about fp32 accuracy, b_i given split
+// (bh[i], bl[i]: the b0, b1 pair of each): the two small terms first, each
+// term issued for all N before the next so the N chains interleave.
+template <int N, int M>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[M][4], int off,
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[N][2],
+                                           const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[off + i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[off + i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[off + i], ah, bh[i][0], bh[i][1]);
+}
+
+// ---- device: cp.async ------------------------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `rows` rows x D floats of a [B, L, H, D] fp32 tensor (row `row0` on,
+// `base` the offset of (b, 0, h, 0), `row_stride` = H * D) into shared rows
+// of `stride` floats, 16 bytes a copy, asynchronously (not committed).
+__device__ __forceinline__ void load_rows_async(float* dst, int stride,
+                                                const float* src, long base,
+                                                long row_stride, int row0,
+                                                int rows, int D) {
+  const int vec = D / 4;
+  for (int i = threadIdx.x; i < rows * vec; i += blockDim.x) {
+    const int r = i / vec;
+    const int c = (i - r * vec) * 4;
+    cp_async16(dst + r * stride + c,
+               src + base + (row0 + r) * row_stride + c);
+  }
+}
+
+}  // namespace

@@ -7,7 +7,10 @@ build goes to ``gsgen_torch/_build/`` at first use and is reused while it
 is newer than every source.  Nothing here runs at import time.
 
 Every C entry launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+``cudaGetLastError()``; :func:`launch` raises when that is not 0.  The
+TMA tensor maps of the wgmma kernels are encoded on the host with
+``cuTensorMapEncodeTiled``, reached through the runtime's driver entry
+point (``csrc/flash_attn_sm90.cuh``), so the library links no ``-lcuda``.
 ``--fmad=false`` keeps each multiply and add rounded on its own, as the
 plain PyTorch versions round them, so the render kernels and their plain
 versions differ only by summation order.  The sources in

@@ -111,11 +111,12 @@ def test_render_view_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("D", [40, 64])
+@pytest.mark.parametrize("D", [40, 64, 160])
 def test_flash_attention_matches_plain(cuda, dtype, D):
     """K5 against its plain version (fp32 scores and softmax): fp32 within
     1e-4 of max|out|, bf16 within 2e-2 of max|out| (the plain path rounds
-    the normalised weights to bf16, K5 the unnormalised ones)."""
+    the normalised weights to bf16, K5 the unnormalised ones).  Instances:
+    bf16 D <= 64 wgmma + TMA, bf16 D = 160 mma.sync, fp32 3xTF32."""
     from gsgen_torch.ops import flash_attention as fa
     rng = np.random.default_rng(D)
     dt = getattr(torch, dtype)
@@ -173,6 +174,29 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D):
         assert err <= ftol * float(ref.float().abs().max()), (name, err)
     with pytest.raises(ValueError):
         fa.flash_bwd_dq(q, k, v, dout, lse[:, :, :128], delta, scale)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_long_sequence_matches_plain(cuda, dtype):
+    """K5 and K6 at L = 4096, B = 1 (the wgmma kernels walk their whole
+    TMA ring many times over on few CTAs): the gates above."""
+    from gsgen_torch.ops import flash_attention as fa
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _qkv_dout(cuda, (1, 4096, 2, 64), dt, 9)
+    scale = 0.125
+    out, lse = fa.flash_self_attention_lse(q, k, v, scale)
+    want = fa.flash_self_attention_plain(q, k, v, scale)
+    ftol = 1e-4 if dt == torch.float32 else 2e-2
+    assert float((out.float() - want.float()).abs().max()) <= ftol * float(
+        want.float().abs().max())
+    delta = fa.attention_delta(out, dout)
+    got = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
+    ref = fa.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    btol = 1e-4 if dt == torch.float32 else 3e-2
+    for a, b in zip(got, ref):
+        assert float((a.float() - b.float()).abs().max()) <= btol * float(
+            b.float().abs().max())
 
 
 def test_flash_attention_autograd_on_card(cuda):
