@@ -5,7 +5,8 @@
 
 Phases, each reported on its own line:
 
-1. device: require CUDA, print the card's name and power limit, TF32 off;
+1. device: require CUDA, print the card's name and power limit, TF32 off
+   (the package's precision policy, utils/precision.py::exact_fp32);
 2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a;
 3. kernels: every kernel of the render path against its plain PyTorch
    version on the card, at a small size, at the bench workload (100K
@@ -24,21 +25,26 @@ Phases, each reported on its own line:
    [2, 128, 3, 40] (one tile, TMA zero fill past D) and [2, 256, 2, 160]
    (the mma.sync instance); and K5's lse, K6 (dK, dV) and K7 (dQ) against
    the plain backward at the VSD path's [4, 4096, 5, 64] in fp32 and
-   bf16, a small [2, 256, 2, 64] in fp32, and [1, 4096, 2, 64] and
-   [2, 256, 2, 160] in bf16, and autograd through K5 + K6 + K7 against
-   autograd through the plain path;
+   bf16 (K7 fp32 there also within 1e-5 of max|dq|), a small
+   [2, 256, 2, 64] in fp32, [1, 4096, 2, 64] and [2, 256, 2, 160] in bf16,
+   [2, 128, 3, 40] in bf16 (one tile, TMA zero fill) and [2, 256, 2, 160]
+   in fp32, each error also as a share of the gradient's max, and
+   autograd through K5 + K6 + K7 against autograd through the plain path;
 4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
    full width through build_trainer / fit, with every kernel's launch
    counter read around the run;
 5. times: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, at the bench and base.yaml
    shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7
-   at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs; SDPA in
-   fp32 beside K5's fp32 instance at B=8 and B=4), K8 and K9 beside K1 and
-   K2, and the full render forward+backward in both layouts; one line
+   at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs, each
+   also in device time; SDPA in fp32 beside K5's fp32 instance at B=8 and
+   B=4), K3, K4 and torch.searchsorted by device time (a CUDA graph of 50
+   calls replayed between two events) beside their host-loop times, K8
+   and K9 beside K1 and K2, and the full render forward+backward in both
+   layouts; one line
    gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
    SDPA's time, with the bound at the rate its design can reach (bf16
-   989 TFLOP/s; K5/K6 fp32 3xTF32 3 x ops / 495 TFLOP/s; K7 fp32 67);
+   989 TFLOP/s; fp32 3xTF32 3 x ops / 495 TFLOP/s);
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
@@ -87,7 +93,7 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
-# K5 / K6 in fp32 run 3xTF32: three TF32 tensor-core products per product,
+# K5-K7 in fp32 run 3xTF32: three TF32 tensor-core products per product,
 # so the rate that design can reach is 495 / 3 TFLOP/s of fp32 work
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
@@ -95,6 +101,8 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 # |plain output|; K6 / K7: the same over each gradient's max |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 FLASH_BWD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# K7 fp32 (3xTF32) at the VSD path's shape: within this share of max|dq|
+K7_FP32_VSD_TOL = 1e-5
 SD21_ATTN = (8, 4096, 5, 64)    # SD 2.1 level-0 self-attention [B, L, H, D]
 VSD_ATTN = (4, 4096, 5, 64)     # the same under VSD's LoRA pass (batch 4)
 SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
@@ -181,6 +189,7 @@ def run(torch) -> int:
                                             project_gaussians)
     from gsgen_torch.ops.rasterize import (ch_out_for, chunk_weights,
                                            make_geom, tile_pixels)
+    from gsgen_torch.utils.precision import exact_fp32
 
     dev = torch.device("cuda")
 
@@ -191,8 +200,7 @@ def run(torch) -> int:
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi gave no answer"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_fp32()
     name = torch.cuda.get_device_name(0)
     print(f"phase 1 device: ok {name} x{torch.cuda.device_count()} "
           f"| nvidia-smi: {card}", flush=True)
@@ -204,8 +212,17 @@ def run(torch) -> int:
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for ln in cuda_lib.build_info["log"].splitlines()
             if "registers" in ln]
+    # ptxas names each function before its stack / spill line
+    spills, func = [], ""
+    for ln in cuda_lib.build_info["log"].splitlines():
+        if "Function properties for" in ln:
+            func = ln.split(" for ", 1)[1].strip()
+        elif "spill stores" in ln and \
+                ", 0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spills.append(f"{func}: {ln.strip()}")
     print(f"phase 2 build: ok {build_s:.2f} s, "
-          f"{len(cuda_lib.sources())} sources | " + " ; ".join(regs),
+          f"{len(cuda_lib.sources())} sources | spills: "
+          + ("; ".join(spills) or "none") + " | " + " ; ".join(regs),
           flush=True)
 
     # ---- helpers ----
@@ -554,7 +571,9 @@ def run(torch) -> int:
             ("VSD level 0", VSD_ATTN, "bfloat16"),
             ("small", (2, 256, 2, 64), "float32"),
             ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
-            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"))):
+            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"),
+            ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
+            ("D <= 160 instance", (2, 256, 2, 160), "float32"))):
         dt = getattr(torch, dtn)
         q, k, v, dout = qkvo(shape, dt, 40 + i)
         scale = shape[-1] ** -0.5
@@ -580,12 +599,18 @@ def run(torch) -> int:
             require(bool(torch.isfinite(got).all()),
                     f"{kname} {label} {dtn}: non-finite {nm}")
             err = float((got.float() - ref.float()).abs().max())
-            tol = FLASH_BWD_TOL[dtn] * float(ref.float().abs().max())
+            top = float(ref.float().abs().max())
+            tol = FLASH_BWD_TOL[dtn] * top
             require(err <= tol, f"{kname} {label} {shape} {dtn}: {nm} max "
                     f"abs err {err:.3e} above {tol:.3e}")
+            if nm == "dq" and dtn == "float32" and shape == VSD_ATTN:
+                require(err <= K7_FP32_VSD_TOL * top,
+                        f"K7 {label} fp32: max abs err {err:.3e} above "
+                        f"{K7_FP32_VSD_TOL} of max|dq| {top:.3e}")
             key = "flash_attn_bwd_dq" if nm == "dq" else "flash_attn_bwd_dkv"
             errs[key] = max(errs[key], err)
-            msg.append(f"{nm} {err:.2e} (tol {tol:.2e})")
+            msg.append(f"{nm} {err:.2e} = {err / top:.1e} of max (tol "
+                       f"{tol:.2e})")
         notes.append(f"K6/K7 {label} {list(shape)} {dtn}: "
                      + ", ".join(msg) + f"; K5 lse {e_lse:.2e}")
         del q, k, v, dout, out, lse, lse_p, delta, dk, dv, dq, want
@@ -650,6 +675,31 @@ def run(torch) -> int:
         e.record()
         torch.cuda.synchronize()
         return s.elapsed_time(e) / iters
+
+    def graph_ms(fn, iters=50, reps=5):
+        """Device time of one call of ``fn`` without its host launch path:
+        a CUDA graph of ``iters`` calls replayed ``reps`` times between two
+        events, over iters x reps (the graph's own gaps between kernels
+        included)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / (iters * reps)
 
     def needed_lanes(r):
         """(pixel, real duplicate row) pairs the forward has to composite:
@@ -755,6 +805,16 @@ def run(torch) -> int:
                 ms=time_ms(f, iters), plain_ms=time_ms(fp, plain_iters),
                 library_ms=None if fl is None else time_ms(fl, iters),
                 bound_ms=bd[k][0], bound_by=bd[k][1])
+        # K3 and K4 take microseconds: a host loop of calls times their
+        # launch path; ms and library_ms become device times (a CUDA
+        # graph), the host-loop times stay beside them
+        for k, f, fl in (("expansion_rank", k3, k3_l),
+                         ("gid_repack", k4, None)):
+            res[k]["host_loop_ms"] = res[k]["ms"]
+            res[k]["ms"] = graph_ms(f)
+            if fl is not None:
+                res[k]["library_host_loop_ms"] = res[k]["library_ms"]
+                res[k]["library_ms"] = graph_ms(fl)
         return res
 
     def compact_times(r, iters, plain_iters):
@@ -879,9 +939,11 @@ def run(torch) -> int:
                 ("flash_attn_bwd_dq", flash_attention.flash_bwd_dq,
                  flash_attention.flash_bwd_dq_plain, 6.0 * units, io)):
             b_ms = 1e3 * (in_b + out_b) / PEAK_BYTES
-            o_ms = 1e3 * ops / flash_peak(name, dtn)
+            o_ms = 1e3 * ops / flash_peak(dtn)
+            # device_ms: the kernel alone, without the wrapper's host path
             times_bwd[(name, dtn)] = dict(
                 ms=time_ms(lambda fn=fn: fn(*args), 10),
+                device_ms=graph_ms(lambda fn=fn: fn(*args), 10, 3),
                 plain_ms=time_ms(lambda fn_p=fn_p: fn_p(*args), 3),
                 library_ms=sdpa_bwd, bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations")
@@ -904,8 +966,8 @@ def run(torch) -> int:
     for (name, dtn), v in times_bwd.items():
         design = {("flash_attn_bwd_dkv", "bfloat16"): "K6 bf16 wgmma+TMA",
                   ("flash_attn_bwd_dkv", "float32"): "K6 fp32 3xTF32",
-                  ("flash_attn_bwd_dq", "bfloat16"): "K7 bf16 mma.sync",
-                  ("flash_attn_bwd_dq", "float32"): "K7 fp32 SIMT"}
+                  ("flash_attn_bwd_dq", "bfloat16"): "K7 bf16 wgmma+TMA",
+                  ("flash_attn_bwd_dq", "float32"): "K7 fp32 3xTF32"}
         ops = (8.0 if name == "flash_attn_bwd_dkv" else 6.0) * units
         flash_rows.append((design[(name, dtn)], list(VSD_ATTN), v["ms"], ops,
                            v["bound_ms"], sdpa_bwd_ms[dtn]))
@@ -925,7 +987,8 @@ def run(torch) -> int:
         for r in flash_instances), flush=True)
     print(f"phase 5 times: ok | card {card} | K6/K7 {list(VSD_ATTN)}: "
           + " | ".join(
-              f"{n} {d} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, SDPA "
+              f"{n} {d} {v['ms']:.3f} ms (device {v['device_ms']:.3f}, "
+              f"plain {v['plain_ms']:.3f}, SDPA "
               f"bwd {v['library_ms']:.3f}, bound {v['bound_ms']:.4f} "
               f"{v['bound_by']})" for (n, d), v in times_bwd.items())
           + f" | whole backward bound 10 B H L^2 D: fp32 "
@@ -958,6 +1021,15 @@ def run(torch) -> int:
                        f"{v['bound_by']}), bench "
                        f"{times_bench[k]['ms']:.4f} ms"
                        for k, v in times_base.items()), flush=True)
+    print(f"phase 5 times: ok | card {card} | device time (a CUDA graph of "
+          "50 calls; host loop of calls in brackets), base / bench: "
+          + " | ".join(
+              f"{k} {tb[k]['ms']:.4f} [{tb[k]['host_loop_ms']:.4f}]"
+              + ("" if tb[k]["library_ms"] is None else
+                 f", torch.searchsorted {tb[k]['library_ms']:.4f} "
+                 f"[{tb[k]['library_host_loop_ms']:.4f}]")
+              for tb in (times_base, times_bench)
+              for k in ("expansion_rank", "gid_repack")), flush=True)
 
     # ---- phase 6: where a train step's device time goes ----
     from torch.profiler import ProfilerActivity, profile
@@ -1066,6 +1138,8 @@ def run(torch) -> int:
             max_abs_err=errs[k], ms=tb["ms"],
             plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
+            **{h: tb[h] for h in ("host_loop_ms", "library_host_loop_ms")
+               if h in tb},
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
                    "2^20)",
             bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
@@ -1103,7 +1177,10 @@ def run(torch) -> int:
                     "keys a CTA, 3-stage Q/dO ring); bf16 D>64: mma.sync; "
                     "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double "
                     "buffer" if name == "flash_attn_bwd_dkv" else
-                    "bf16: mma.sync; fp32: scalar FMA"),
+                    "bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
+                    "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
+                    "fp32: 3xTF32 on mma.sync m16n8k8, K/V tiles of 32 "
+                    "keys split at fragment load, cp.async double buffer"),
             bf16=times_bwd[(name, "bfloat16")]))
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
                       "render_fwd_bwd_ms_compact": render_compact,
@@ -1125,12 +1202,10 @@ def run(torch) -> int:
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def flash_peak(name: str, dtn: str) -> float:
+def flash_peak(dtn: str) -> float:
     """The operations rate a flash kernel's design can reach: bf16 tensor
-    cores; 3xTF32 for K5 / K6 in fp32; scalar fp32 for K7 in fp32."""
-    if dtn == "bfloat16":
-        return PEAK_BF16_FLOPS
-    return PEAK_FLOPS if name == "flash_attn_bwd_dq" else PEAK_3XTF32_FLOPS
+    cores; 3xTF32 in fp32."""
+    return PEAK_BF16_FLOPS if dtn == "bfloat16" else PEAK_3XTF32_FLOPS
 
 
 def busy_us(events):

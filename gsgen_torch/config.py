@@ -27,6 +27,7 @@ from .models.scene import RenderConfig
 from .prompt.encoders import build_encode_fn
 from .prompt.processors import PromptProcessor, PromptProcessorConfig
 from .training.trainer import LossConfig, Trainer, TrainerConfig
+from .utils.precision import exact_fp32
 
 # init keys that configure priors of later slices (checkpoint paths,
 # sampler knobs); they ride the same `init:` block
@@ -195,7 +196,10 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
 
 
 def build_trainer(cfg: Dict, device="cuda") -> Trainer:
-    """Trainer for a loaded config, with its tensors on ``device``."""
+    """Trainer for a loaded config, with its tensors on ``device``.  Sets
+    the port's precision policy first (fp32 without TF32,
+    ``utils/precision.py``)."""
+    exact_fp32()
     rcfg_d = dict(cfg.get("renderer", {}))
     dcfg = _from_dict(DensifyConfig, rcfg_d.pop("densify", {}))
     pcfg = _from_dict(PruneConfig, rcfg_d.pop("prune", {}))

@@ -15,7 +15,7 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Di),
 //   dK = dS^T Q * scale (K6),  dQ = dS K * scale (K7).
 // K6 takes one block per key tile and walks every query tile; K7 one block
-// per 64-query tile and walks every key tile.  Each block owns its output
+// per query tile and walks every key tile.  Each block owns its output
 // rows, so there are no atomics and the sums run in a fixed order: the
 // results are deterministic, as the library's are.
 //
@@ -47,15 +47,31 @@
 //    next products, the same permutation applied to dO's and Q's rows.
 //    Bound at the rate this design can reach: 3 x 8 B H L^2 D / 495
 //    TFLOP/s (1.04 ms at [4, 4096, 5, 64]).
-//  * K6 bf16, D > 64, and K7 (bf16: every D): 4 warps of mma.sync m16n8k16
+//  * K7 bf16, D <= 64: K6's design with the roles swapped.  One CTA per
+//    (128-query tile, head, batch): two consumer warpgroups of 64 queries
+//    and a producer warpgroup.  Q and dO stay resident (lse and Di rows in
+//    registers); K and V tiles of 64 keys stream through a 3-stage TMA
+//    ring.  Per key tile: S = Q K^T and dP = dO V^T as SS wgmma; dS =
+//    exp2(S scale log2e - lse log2e) (dP - Di) rounded to bf16 in registers
+//    as the A operand of dQ += dS K, an RS wgmma reading K's tile MN-major
+//    (tnspB) from the same swizzled bytes the score product read K-major.
+//  * K7 fp32: 3xTF32 on mma.sync m16n8k8 as K6 fp32.  4 warps of 32
+//    queries (two m16 tiles sharing every K / V fragment; 16 queries for
+//    D <= 160); the CTA's Q and dO stay resident, K and V stream in tiles
+//    of 32 keys double-buffered by cp.async (two CTAs an SM); dS stays in
+//    registers as the A operand of dQ += dS K (keys (2t, 2t + 1) at
+//    k = (t, t + 4), K's rows permuted the same way); each tile's dS K goes
+//    to partial sums folded into dQ by rounded fp32 adds.  Each warp splits
+//    the fragments it loads, as K5 and K6 do.  Splitting each landed K / V
+//    tile once into TF32 hi and lo planes was 2% faster at 16-key tiles,
+//    but its planes leave no room for 32-key tiles at two CTAs an SM, which
+//    cut the Q / dO splits per key by half: PERF.md.
+//    Bound at the rate this design can reach: 3 x 6 B H L^2 D / 495
+//    TFLOP/s (0.78 ms at [4, 4096, 5, 64]).
+//  * K6 bf16, D > 64, and K7 bf16, D > 64: 4 warps of mma.sync m16n8k16
 //    (bf16 in, fp32 accumulate), each warp 16 keys (K6) or 16 queries (K7);
 //    the score accumulators become the A operands of the second products in
 //    registers, as in K5.  P and dS are rounded to bf16 for those products.
-//  * K7 fp32: scalar FMAs, 256 threads.  The two score products (S, dP)
-//    give each thread a 4 x 4 block of (query, key) pairs with rows 16 apart
-//    (conflict-free float4 reads of rows padded to D + 4 floats); dS goes
-//    through shared memory to the accumulation product, where a thread owns
-//    4 rows x 4 head dims per 64.  Bound 6 B H L^2 D / 67 TFLOP/s.
 #include "flash_attn_common.cuh"
 #include "flash_attn_sm90.cuh"
 
@@ -63,7 +79,6 @@
 
 namespace {
 
-constexpr int kPS = 80;  // row stride (floats) of the fp32 dS tile (K7)
 constexpr int kDkvKeys = 128;      // keys per CTA (K6 wgmma)
 constexpr int kDkvQ = 64;          // queries per ring stage (K6 wgmma)
 constexpr int kDkvStages = 3;
@@ -74,166 +89,28 @@ constexpr int kWgThreads = 384;     // two consumer warpgroups + producer
 constexpr int kDkvSmem = 4 * kDkvTile + kDkvStages * (2 * kDkvTile + 512) +
                          8 * (1 + 2 * kDkvStages) + 1024;
 constexpr int kTfQ = 32;  // queries per streamed tile (K6 fp32)
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float s, float4 x) {
-  acc.x = fmaf(s, x.x, acc.x);
-  acc.y = fmaf(s, x.y, acc.y);
-  acc.z = fmaf(s, x.z, acc.z);
-  acc.w = fmaf(s, x.w, acc.w);
-}
-
-__device__ __forceinline__ float4 scaled4(float4 v, float s) {
-  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-// S = X Y^T and dP = U W^T for rows r0 + 16a (of X, U) and c0 + 16b (of
-// Y, W), a, b < 4: the score products of K7 fp32.  Tiles are
-// row-major with stride D + 4.
-__device__ __forceinline__ void score_blocks_f32(
-    const float* xs, const float* us, const float* ys, const float* ws,
-    int ds, int D, int r0, int c0, float (&s)[4][4], float (&dp)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      s[a][b] = 0.0f;
-      dp[a][b] = 0.0f;
-    }
-  }
-  for (int d = 0; d < D; d += 4) {
-    float4 x[4], u[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      x[a] = *reinterpret_cast<const float4*>(xs + (r0 + 16 * a) * ds + d);
-      u[a] = *reinterpret_cast<const float4*>(us + (r0 + 16 * a) * ds + d);
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const float4 y =
-          *reinterpret_cast<const float4*>(ys + (c0 + 16 * b) * ds + d);
-      const float4 w =
-          *reinterpret_cast<const float4*>(ws + (c0 + 16 * b) * ds + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        s[a][b] = dot4(x[a], y, s[a][b]);
-        dp[a][b] = dot4(u[a], w, dp[a][b]);
-      }
-    }
-  }
-}
-
-// ---- K7, fp32: dQ for 64 queries -------------------------------------------
-template <int NCH>
-__global__ void __launch_bounds__(256) flash_bwd_dq_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int L, int H, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int ds = D + 4;
-  float* qs = smem;                      // [64 queries][ds], this block's
-  float* dos = qs + kBlockQ * ds;
-  float* ks = dos + kBlockQ * ds;        // [64 keys][ds], current tile
-  float* vs = ks + kBlockK * ds;
-  float* dst = vs + kBlockK * ds;        // [64 keys][kPS]: dS transposed
-
-  const int tid = threadIdx.x;
-  const long row_stride = static_cast<long>(H) * D;
-  const long base = static_cast<long>(blockIdx.z) * L * row_stride +
-                    static_cast<long>(blockIdx.y) * D;
-  const long lbase = (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L;
-  const int i0 = blockIdx.x * kBlockQ;
-  // scores: queries ti + 16a, keys tj + 16b; sums: queries 4qb + a, dims
-  // 4td + 64c .. + 3
-  const int ti = tid & 15, tj = tid >> 4;
-  const int td = tid & 15, qb = tid >> 4;
-
-  load_rows(qs, ds, q, base, row_stride, i0, D);
-  load_rows(dos, ds, dout, base, row_stride, i0, D);
-  float lse_r[4], di_r[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    lse_r[a] = lse[lbase + i0 + ti + 16 * a];
-    di_r[a] = delta[lbase + i0 + ti + 16 * a];
-  }
-
-  float4 acc[4][NCH];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[a][c] = make_float4(0.0f, 0.0f, 0.0f,
-                                                          0.0f);
-  }
-
-  for (int j0 = 0; j0 < L; j0 += kBlockK) {
-    __syncthreads();
-    load_rows(ks, ds, k, base, row_stride, j0, D);
-    load_rows(vs, ds, v, base, row_stride, j0, D);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    score_blocks_f32(qs, dos, ks, vs, ds, D, ti, tj, s, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = expf(s[a][b] * scale - lse_r[a]);
-        dst[(tj + 16 * b) * kPS + ti + 16 * a] = p * (dp[a][b] - di_r[a]);
-      }
-    }
-    __syncthreads();
-
-    // dQ[i] += sum_j dS[i][j] K[j]
-    for (int j = 0; j < kBlockK; ++j) {
-      const float4 d4 =
-          *reinterpret_cast<const float4*>(dst + j * kPS + 4 * qb);
-      const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int col = 4 * td + 64 * c;
-        if (col < D) {
-          const float4 x = *reinterpret_cast<const float4*>(ks + j * ds + col);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) axpy4(acc[a][c], dsv[a], x);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const long row = base + (i0 + 4 * qb + a) * row_stride;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int col = 4 * td + 64 * c;
-      if (col < D) {
-        *reinterpret_cast<float4*>(dq + row + col) = scaled4(acc[a][c], scale);
-      }
-    }
-  }
-}
+constexpr int kDqQ = 128;          // queries per CTA (K7 wgmma)
+constexpr int kDqKeys = 64;        // keys per ring stage (K7 wgmma)
+constexpr int kDqStages = 3;
+// dynamic shared memory (K7 wgmma): Q and dO, the K / V ring, the barriers,
+// the alignment slack
+constexpr int kDqSmem = 4 * kDkvTile + kDqStages * 2 * kDkvTile +
+                        8 * (1 + 2 * kDqStages) + 1024;
+constexpr int kDqTfKeys = 32;  // keys per streamed tile (K7 fp32)
 
 // ---- bf16 (mma.sync) -------------------------------------------------------
-// KT_MAX: head dim in units of 16 the registers are sized for (4: D <= 64,
-// 10: D <= 160).  Tiles in shared memory are zero-padded from D to a
-// multiple of 16; row stride KT_MAX * 16 + 8 elements (conflict-free
-// fragment loads).
+// Registers are sized for D <= 160: kKtMax head-dim steps of 16.  Tiles in
+// shared memory are zero-padded from D to a multiple of 16; row stride
+// kStride elements (conflict-free fragment loads).
+constexpr int kKtMax = 10;
+constexpr int kStride = kKtMax * 16 + 8;
 
 // S = X Y^T and dP = U W^T for the warp's 16 rows r0.. (X, U) against the
 // tile's 64 rows (Y, W): 8 n-tiles of 8 columns each.
-template <int KT_MAX>
 __device__ __forceinline__ void score_tiles_bf16(
     const __nv_bfloat16* xs, const __nv_bfloat16* us,
     const __nv_bfloat16* ys, const __nv_bfloat16* ws, int r0, int KT, int g,
     int t, float (&s)[8][4], float (&dp)[8][4]) {
-  constexpr int kStride = KT_MAX * 16 + 8;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -243,7 +120,7 @@ __device__ __forceinline__ void score_tiles_bf16(
     }
   }
 #pragma unroll
-  for (int kt = 0; kt < KT_MAX; ++kt) {
+  for (int kt = 0; kt < kKtMax; ++kt) {
     if (kt < KT) {
       uint32_t xa[4], ua[4];
       load_a_frag(xa, xs, kStride, r0, kt, g, t);
@@ -272,14 +149,12 @@ __device__ __forceinline__ void gather_b_frag(const __nv_bfloat16* tile,
   b1 = pack_bf16(p[8 * stride], p[9 * stride]);
 }
 
-template <int KT_MAX>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int L, int H, int D, float scale) {
-  constexpr int kStride = KT_MAX * 16 + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // this block's
   __nv_bfloat16* vs = ks + kBlockK * kStride;
@@ -307,9 +182,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
   load_rows(ks, kStride, k, base, row_stride, j0, D);
   load_rows(vs, kStride, v, base, row_stride, j0, D);
 
-  float acc_v[2 * KT_MAX][4], acc_k[2 * KT_MAX][4];
+  float acc_v[2 * kKtMax][4], acc_k[2 * kKtMax][4];
 #pragma unroll
-  for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
+  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       acc_v[nd][e] = 0.0f;
@@ -330,7 +205,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
     // S^T = K Q^T and dP^T = V dO^T: rows = the warp's 16 keys, columns =
     // the tile's 64 queries
     float st[8][4], dpt[8][4];
-    score_tiles_bf16<KT_MAX>(ks, vs, qs, dos, kr, KT, g, t, st, dpt);
+    score_tiles_bf16(ks, vs, qs, dos, kr, KT, g, t, st, dpt);
 
     // P^T and dS^T as A fragments (k = queries) of the two sums
     uint32_t pa[4][4], da[4][4];
@@ -355,7 +230,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
+      for (int nd = 0; nd < 2 * kKtMax; ++nd) {
         if (nd * 8 < D) {
           uint32_t b0, b1;
           gather_b_frag(dos, kStride, kk * 16, nd * 8, g, t, b0, b1);
@@ -370,7 +245,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
   const long row0 = base + (j0 + kr + g) * row_stride;
   const long row1 = row0 + 8 * row_stride;
 #pragma unroll
-  for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
+  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
     if (nd * 8 < D) {
       const int col = nd * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dv + row0 + col) =
@@ -385,14 +260,12 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
   }
 }
 
-template <int KT_MAX>
 __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int L,
     int H, int D, float scale) {
-  constexpr int kStride = KT_MAX * 16 + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // this block's
   __nv_bfloat16* dos = qs + kBlockQ * kStride;
@@ -422,9 +295,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(
   const float d0 = delta[lbase + i0 + qr + g];
   const float d1 = delta[lbase + i0 + qr + g + 8];
 
-  float acc[2 * KT_MAX][4];
+  float acc[2 * kKtMax][4];
 #pragma unroll
-  for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
+  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
   }
@@ -438,7 +311,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(
     // S = Q K^T and dP = dO V^T: rows = the warp's 16 queries, columns =
     // the tile's 64 keys
     float s[8][4], dp[8][4];
-    score_tiles_bf16<KT_MAX>(qs, dos, ks, vs, qr, KT, g, t, s, dp);
+    score_tiles_bf16(qs, dos, ks, vs, qr, KT, g, t, s, dp);
 
     uint32_t da[4][4];
 #pragma unroll
@@ -457,7 +330,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
+      for (int nd = 0; nd < 2 * kKtMax; ++nd) {
         if (nd * 8 < D) {
           uint32_t b0, b1;
           gather_b_frag(ks, kStride, kk * 16, nd * 8, g, t, b0, b1);
@@ -470,7 +343,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(
   const long row0 = base + (i0 + qr + g) * row_stride;
   const long row1 = row0 + 8 * row_stride;
 #pragma unroll
-  for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
+  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
     if (nd * 8 < D) {
       const int col = nd * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dq + row0 + col) =
@@ -656,6 +529,159 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             acc_k[4 * j + 0] * scale, acc_k[4 * j + 1] * scale);
         *reinterpret_cast<uint32_t*>(dk + off1 + 8 * j) = pack_f32_bf16(
             acc_k[4 * j + 2] * scale, acc_k[4 * j + 3] * scale);
+      }
+    }
+  }
+}
+
+// ---- K7, bf16, D <= 64: wgmma + TMA ----------------------------------------
+// K6's structure with the roles swapped.  Threads 0-255: two consumer
+// warpgroups, each owning 64 of the CTA's 128 queries; threads 256-383: the
+// producer warpgroup (thread 256 issues the copies).  Shared memory
+// (1024-aligned): Q, dO [128 rows] (resident), the ring of K and V tiles
+// [kDqStages][64 rows], then the barriers q_full, full[s], empty[s].
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int L, int H,
+                              int D, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t dos = qs + 2 * kDkvTile;
+  const uint32_t ks0 = dos + 2 * kDkvTile;
+  const uint32_t vs0 = ks0 + kDqStages * kDkvTile;
+  const uint32_t q_full = vs0 + kDqStages * kDkvTile;
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * kDqStages;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.x * kDqQ;
+  const int n_tiles = L / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();  // 128 x (168 - 40) registers to the consumers
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 4 * kDkvTile);
+      tma_load_4d(qs, &tq, q_full, 0, h, i0, b);
+      tma_load_4d(dos, &tdo, q_full, 0, h, i0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kDqStages;
+        const uint32_t bar = full0 + 8 * s;
+        if (it >= kDqStages) {
+          mbar_wait(empty0 + 8 * s, ((it / kDqStages) - 1) & 1);
+        }
+        mbar_expect_tx(bar, 2 * kDkvTile);
+        tma_load_4d(ks0 + s * kDkvTile, &tk, bar, 0, h, it * kDqKeys, b);
+        tma_load_4d(vs0 + s * kDkvTile, &tv, bar, 0, h, it * kDqKeys, b);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    setmaxnreg_inc<232>();  // 256 x (232 - 168): what the producer gave
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int KT = (D + 15) / 16;
+    const float sl2 = scale * kLog2e;
+    const uint32_t qa = qs + wg * kDkvTile;  // this warpgroup's 64 queries
+    const uint32_t da = dos + wg * kDkvTile;
+    // this lane's two query rows: g and g + 8 of its warp's 16
+    const int row = i0 + wg * 64 + warp * 16 + g;
+    const long lrow = (static_cast<long>(b) * H + h) * L + row;
+    const float l0 = lse[lrow] * kLog2e, l1 = lse[lrow + 8] * kLog2e;
+    const float d0 = delta[lrow], d1 = delta[lrow + 8];
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kDqStages;
+      mbar_wait(full0 + 8 * s, (it / kDqStages) & 1);
+      const uint32_t kb = ks0 + s * kDkvTile;
+      const uint32_t vb = vs0 + s * kDkvTile;
+
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys each
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        if (kt < KT) {
+          wgmma_n64_ss(sc, desc_sw128(qa + 32 * kt), desc_sw128(kb + 32 * kt),
+                       kt);
+        }
+      }
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        if (kt < KT) {
+          wgmma_n64_ss(dp, desc_sw128(da + 32 * kt), desc_sw128(vb + 32 * kt),
+                       kt);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P = exp2(S scale log2e - lse log2e), dS = P (dP - Di), in bf16 as
+      // the A operand (k = keys) of dQ += dS K
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = exp2f(fmaf(sc[4 * j + 0], sl2, -l0));
+        const float p1 = exp2f(fmaf(sc[4 * j + 1], sl2, -l0));
+        const float p2 = exp2f(fmaf(sc[4 * j + 2], sl2, -l1));
+        const float p3 = exp2f(fmaf(sc[4 * j + 3], sl2, -l1));
+        dsa[j >> 1][(j & 1) * 2 + 0] =
+            pack_f32_bf16(p0 * (dp[4 * j + 0] - d0), p1 * (dp[4 * j + 1] - d0));
+        dsa[j >> 1][(j & 1) * 2 + 1] =
+            pack_f32_bf16(p2 * (dp[4 * j + 2] - d1), p3 * (dp[4 * j + 3] - d1));
+      }
+
+      // dQ += dS K: K's rows (keys) are k, its head dims N (MN-major)
+      fence_regs(acc);
+      fence_regs(dsa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_n64_rs(acc, dsa[kk], desc_sw128(kb + 2048 * kk));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    const long row_stride = static_cast<long>(H) * D;
+    const long off0 =
+        (static_cast<long>(b) * L + row) * row_stride + h * D + 2 * t;
+    const long off1 = off0 + 8 * row_stride;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j * 8 < D) {
+        *reinterpret_cast<uint32_t*>(dq + off0 + 8 * j) = pack_f32_bf16(
+            acc[4 * j + 0] * scale, acc[4 * j + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dq + off1 + 8 * j) = pack_f32_bf16(
+            acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
       }
     }
   }
@@ -864,19 +890,236 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
   }
 }
 
+// ---- K7, fp32: 3xTF32 on mma.sync ------------------------------------------
+// 4 warps of 16 MT queries (MT m16 tiles share every K fragment a warp
+// loads); the CTA's Q and dO rows stay resident, their lse and Di in
+// registers; K and V stream in tiles of KEYS keys, double-buffered by
+// cp.async.  NTD: D/8 that the registers are sized for (8: D <= 64, 20:
+// D <= 160).  Each warp splits the K / V fragments it loads into TF32 hi
+// and lo.  Shared memory (rows padded to D + 4 floats: conflict-free
+// fragment loads): Q, dO [64 MT], K, V [2][KEYS].
+template <int NTD, int MT>
+__global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
+    flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, int L, int H, int D,
+                             float scale) {
+  constexpr int kQ = 64 * MT;  // queries per block
+  constexpr int KEYS = kDqTfKeys;
+  constexpr int NT = KEYS / 8;  // key n-tiles of the score products
+  extern __shared__ __align__(16) float smem[];
+  const int ds = D + 4;
+  float* qs = smem;
+  float* dos = qs + kQ * ds;
+  float* ks = dos + kQ * ds;
+  float* vs = ks + 2 * KEYS * ds;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ND = D / 8;
+  const float sl2 = scale * kLog2e;
+  const long row_stride = static_cast<long>(H) * D;
+  const long base = static_cast<long>(blockIdx.z) * L * row_stride +
+                    static_cast<long>(blockIdx.y) * D;
+  const long lbase = (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L;
+  const int i0 = blockIdx.x * kQ;
+  const int n_tiles = L / KEYS;
+
+  load_rows_async(qs, ds, q, base, row_stride, i0, kQ, D);
+  load_rows_async(dos, ds, dout, base, row_stride, i0, kQ, D);
+  load_rows_async(ks, ds, k, base, row_stride, 0, KEYS, D);
+  load_rows_async(vs, ds, v, base, row_stride, 0, KEYS, D);
+  cp_async_commit();
+
+  // this lane's query rows: g and g + 8 of each of the warp's m16 tiles
+  const int r0 = warp * 16 * MT;
+  float l2[MT][2], di[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long row = lbase + i0 + r0 + 16 * mt + 8 * r + g;
+      l2[mt][r] = lse[row] * kLog2e;
+      di[mt][r] = delta[row];
+    }
+  }
+  // dQ, and this key tile's part of it (folded in by a rounded fp32 add)
+  float acc[MT][NTD][4], part[MT][NTD][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nd = 0; nd < NTD; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nd][e] = 0.0f;
+    }
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nb = (buf ^ 1) * KEYS * ds;
+      load_rows_async(ks + nb, ds, k, base, row_stride, (it + 1) * KEYS,
+                      KEYS, D);
+      load_rows_async(vs + nb, ds, v, base, row_stride, (it + 1) * KEYS,
+                      KEYS, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + buf * KEYS * ds;
+    const float* vt = vs + buf * KEYS * ds;
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 MT queries x the tile's
+    // KEYS keys (NT n-tiles of 8)
+    float s[MT][NT][4], dp[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][nt][e] = 0.0f;
+          dp[mt][nt][e] = 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < NTD; ++kk) {
+      if (kk < ND) {
+        uint32_t kh[NT][2], kl[NT][2], vh[NT][2], vl[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int off = (8 * nt + g) * ds + 8 * kk + t;
+          split_tf32(kt[off], kh[nt][0], kl[nt][0]);
+          split_tf32(kt[off + 4], kh[nt][1], kl[nt][1]);
+          split_tf32(vt[off], vh[nt][0], vl[nt][0]);
+          split_tf32(vt[off + 4], vh[nt][1], vl[nt][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int c = (r0 + 16 * mt + g) * ds + 8 * kk + t;
+          const float aq[4] = {qs[c], qs[c + 8 * ds], qs[c + 4],
+                               qs[c + 8 * ds + 4]};
+          const float ao[4] = {dos[c], dos[c + 8 * ds], dos[c + 4],
+                               dos[c + 8 * ds + 4]};
+          uint32_t qh[4], ql[4], oh[4], ol[4];
+          split_frag(aq, qh, ql);
+          split_frag(ao, oh, ol);
+          mma_3xtf32(s[mt], 0, qh, ql, kh, kl);
+          mma_3xtf32(dp[mt], 0, oh, ol, vh, vl);
+        }
+      }
+    }
+
+    // dS = P (dP - Di), P = exp2(S scale log2e - lse log2e): rows g (e = 0,
+    // 1) and g + 8 (e = 2, 3), keys 8nt + 2t, + 1; into s
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[mt][nt][e], sl2, -l2[mt][e >> 1]));
+          s[mt][nt][e] = p * (dp[mt][nt][e] - di[mt][e >> 1]);
+        }
+      }
+    }
+
+    // this tile's dS K into the partial sums: key step kk covers keys
+    // 8kk..8kk+7; this lane's keys 8kk + 2t, + 1 stand at k = t, t + 4, the
+    // same permutation applied to K's rows
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nd = 0; nd < NTD; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nd][e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float a[4] = {s[mt][kk][0], s[mt][kk][2], s[mt][kk][1],
+                            s[mt][kk][3]};
+        split_frag(a, ah[mt], al[mt]);
+      }
+      const int r = (8 * kk + 2 * t) * ds + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NTD; n0 += 4) {
+        if (n0 < ND) {
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = r + 8 * (n0 + i < ND ? n0 + i : n0);
+            split_tf32(kt[c], bh[i][0], bl[i][0]);
+            split_tf32(kt[c + ds], bh[i][1], bl[i][1]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_3xtf32(part[mt], n0, ah[mt], al[mt], bh, bl);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nd = 0; nd < NTD; ++nd) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nd][e] += part[mt][nd][e];
+      }
+    }
+    __syncthreads();  // the tile's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const long row0 = base + (i0 + r0 + 16 * mt + g) * row_stride + 2 * t;
+    const long row1 = row0 + 8 * row_stride;
+#pragma unroll
+    for (int nd = 0; nd < NTD; ++nd) {
+      if (nd < ND) {
+        *reinterpret_cast<float2*>(dq + row0 + 8 * nd) =
+            make_float2(acc[mt][nd][0] * scale, acc[mt][nd][1] * scale);
+        *reinterpret_cast<float2*>(dq + row1 + 8 * nd) =
+            make_float2(acc[mt][nd][2] * scale, acc[mt][nd][3] * scale);
+      }
+    }
+  }
+}
+
 bool bad_shape(int B, int L, int H, int D) {
   return L % kBlockQ != 0 || L <= 0 || D % 8 != 0 || D <= 0 || D > kMaxD ||
          B <= 0 || H <= 0 || B > 65535 || H > 65535;
 }
 
-size_t f32_smem(int D, int extra_floats) {
-  return sizeof(float) * (4 * 64 * static_cast<size_t>(D + 4) + extra_floats);
+size_t bf16_smem(int extra_floats) {
+  return 4 * 64 * kStride * sizeof(__nv_bfloat16) +
+         sizeof(float) * extra_floats;
 }
 
-template <int KT_MAX>
-size_t bf16_smem(int extra_floats) {
-  return 4 * 64 * (KT_MAX * 16 + 8) * sizeof(__nv_bfloat16) +
-         sizeof(float) * extra_floats;
+template <int NTD, int MT>
+int launch_dq_tf32(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dq, int B, int L, int H, int D, float scale,
+                   cudaStream_t s) {
+  if (L % (64 * MT) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * (D + 4) * (2 * 64 * MT + 4 * kDqTfKeys);
+  return launch(flash_bwd_dq_tf32_kernel<NTD, MT>,
+                dim3(L / (64 * MT), H, B), 128, smem, s, q, k, v, dout, lse,
+                delta, dq, L, H, D, scale);
 }
 
 }  // namespace
@@ -917,8 +1160,8 @@ extern "C" int gsgen_flash_attn_bwd_dkv(const void* q, const void* k,
                     kWgThreads, kDkvSmem, s, tq, tdo, tk, tv, lf, df, dkb,
                     dvb, L, H, D, scale);
     }
-    return launch(flash_bwd_dkv_bf16_kernel<10>, grid, 128,
-                  bf16_smem<10>(128), s, qb, kb, vb, ob, lf, df, dkb, dvb, L,
+    return launch(flash_bwd_dkv_bf16_kernel, grid, 128,
+                  bf16_smem(128), s, qb, kb, vb, ob, lf, df, dkb, dvb, L,
                   H, D, scale);
   }
   const auto* qf = static_cast<const float*>(q);
@@ -946,33 +1189,40 @@ extern "C" int gsgen_flash_attn_bwd_dq(const void* q, const void* k,
                                        void* stream) {
   if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(L / kBlockQ, H, B);
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    const auto* qb = static_cast<const T*>(q);
-    const auto* kb = static_cast<const T*>(k);
-    const auto* vb = static_cast<const T*>(v);
-    const auto* ob = static_cast<const T*>(dout);
-    auto* dqb = static_cast<T*>(dq);
+  if (!is_bf16) {
+    // 32 queries a warp for D <= 64, 16 for D <= 160 (whose registers hold
+    // one m16 tile's 20 accumulators and parts)
+    const auto* qf = static_cast<const float*>(q);
+    const auto* kf = static_cast<const float*>(k);
+    const auto* vf = static_cast<const float*>(v);
+    const auto* of = static_cast<const float*>(dout);
+    auto* dqf = static_cast<float*>(dq);
     if (D <= 64) {
-      return launch(flash_bwd_dq_bf16_kernel<4>, grid, 128, bf16_smem<4>(0),
-                    s, qb, kb, vb, ob, lf, df, dqb, L, H, D, scale);
+      return launch_dq_tf32<8, 2>(qf, kf, vf, of, lf, df, dqf, B, L, H, D,
+                                  scale, s);
     }
-    return launch(flash_bwd_dq_bf16_kernel<10>, grid, 128, bf16_smem<10>(0),
-                  s, qb, kb, vb, ob, lf, df, dqb, L, H, D, scale);
+    return launch_dq_tf32<kMaxD / 8, 1>(qf, kf, vf, of, lf, df, dqf, B, L, H,
+                                        D, scale, s);
   }
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* of = static_cast<const float*>(dout);
-  auto* dqf = static_cast<float*>(dq);
-  const size_t smem = f32_smem(D, 64 * kPS);
+  auto* dqb = static_cast<__nv_bfloat16*>(dq);
   if (D <= 64) {
-    return launch(flash_bwd_dq_f32_kernel<1>, grid, 256, smem, s, qf, kf, vf,
-                  of, lf, df, dqf, L, H, D, scale);
+    if (L % kDqQ != 0) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap tq, tdo, tk, tv;
+    if (!bf16_rows_map(&tq, q, B, L, H, D, kDqQ) ||
+        !bf16_rows_map(&tdo, dout, B, L, H, D, kDqQ) ||
+        !bf16_rows_map(&tk, k, B, L, H, D, kDqKeys) ||
+        !bf16_rows_map(&tv, v, B, L, H, D, kDqKeys)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch(flash_bwd_dq_wgmma_kernel, dim3(L / kDqQ, H, B),
+                  kWgThreads, kDqSmem, s, tq, tdo, tk, tv, lf, df, dqb, L, H,
+                  D, scale);
   }
-  return launch(flash_bwd_dq_f32_kernel<3>, grid, 256, smem, s, qf, kf, vf,
-                of, lf, df, dqf, L, H, D, scale);
+  using T = __nv_bfloat16;
+  return launch(flash_bwd_dq_bf16_kernel, dim3(L / kBlockQ, H, B), 128,
+                bf16_smem(0), s, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const T*>(dout), lf, df, dqb, L, H, D, scale);
 }

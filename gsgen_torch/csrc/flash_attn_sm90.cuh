@@ -1,7 +1,7 @@
-// Hopper building blocks of the flash-attention kernels K5 and K6 (and the
-// later redesign of K7): mbarriers, TMA tensor maps and loads, warpgroup
-// matrix multiply (wgmma) with shared-memory descriptors, setmaxnreg, and
-// the 3xTF32 split with its mma.sync product for the fp32 instances.
+// Hopper building blocks of the flash-attention kernels K5, K6 and K7:
+// mbarriers, TMA tensor maps and loads, warpgroup matrix multiply (wgmma)
+// with shared-memory descriptors, setmaxnreg, and the 3xTF32 split with its
+// mma.sync product for the fp32 instances.
 //
 // Layout conventions (shared by every user):
 //  * A [B, L, H, D] bf16 tensor is a 4-D TMA map with dims (D, H, L, B) and

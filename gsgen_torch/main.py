@@ -15,6 +15,13 @@ third VSD (LoRA and camera conditioning on the SD 2.1 UNet): several
 ``--config`` files merge in order, as an ``include:`` list does.
 ``ckpt=`` resumes from a checkpoint directory of the JAX package
 (``arrays.npz``).  Runs on the card unless ``--device cpu`` is given.
+
+The port trains only.  A config that enables the upsample fine-tune
+(``upsample_tune.enabled``, as ``configs/flagship_rehearsal.yaml`` does)
+raises before any step (ROADMAP Queue 1 item 2).  Every run prints one
+line naming the outputs that the JAX package's ``main.py`` writes and the
+port does not yet: run directory and logs, checkpoints, the
+``export.types`` exports, eval images and video (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -24,6 +31,24 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+
+def skipped_outputs(tcfg, export_types) -> str:
+    """The line naming what the JAX package's ``main.py`` would write under
+    the trainer config ``tcfg`` and ``export.types`` and the port does not
+    write yet; an output whose period is 0 is off there and left out."""
+    parts = ["run directory and logs", "the final checkpoint"]
+    if tcfg.save_period:
+        parts.append(f"checkpoints every {tcfg.save_period} steps")
+    if export_types:
+        parts.append("exports " + ", ".join(export_types))
+    for name, period in (("eval images", tcfg.eval_image_period),
+                         ("eval video", tcfg.eval_video_period),
+                         ("guidance samples", tcfg.guidance_eval_period)):
+        if period:
+            parts.append(f"{name} every {period} steps")
+    return ("not written (ROADMAP Queue 1 item 1; the JAX package's main.py "
+            "writes them): " + ", ".join(parts))
 
 
 def main(argv=None):
@@ -48,7 +73,13 @@ def main(argv=None):
             ckpt = Path(o.split("=", 1)[1])
             overrides.remove(o)
     cfg = load_config(args.config or ["configs/base.yaml"], overrides)
+    if (cfg.get("upsample_tune") or {}).get("enabled"):
+        raise NotImplementedError(
+            "upsample_tune.enabled: the upsample fine-tune after training "
+            "is not ported yet (ROADMAP Queue 1 item 2)")
     trainer = build_trainer(cfg, device=args.device)
+    print(skipped_outputs(trainer.cfg, (cfg.get("export") or {}).get(
+        "types", ["ply", "splat"])), flush=True)
     if ckpt is not None:
         with np.load(ckpt / "arrays.npz") as data:
             trainer.state = train_state_from_jax_arrays(dict(data),

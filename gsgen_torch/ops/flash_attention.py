@@ -17,9 +17,9 @@ function's layout, q, k, v, out and their gradients ``[B, L, H, D]``;
   tensors, counting the launch, and raises on shapes or types the kernel
   does not take; on CPU tensors it runs its plain version.  The C entries
   pick the instance from the type and D alone: bf16 with D <= 64 runs the
-  wgmma + TMA kernels (K5, K6), bf16 with D > 64 the mma.sync ones, fp32
-  the 3xTF32 tensor-core ones (K5, K6; K7 fp32 is scalar FMA).  There is
-  no fallback: a CUDA tensor launches its kernel or raises.
+  wgmma + TMA kernels (K5, K6, K7), bf16 with D > 64 the mma.sync ones,
+  fp32 the 3xTF32 tensor-core ones (K5, K6, K7).  There is no fallback: a
+  CUDA tensor launches its kernel or raises.
 * The plain versions: :func:`flash_self_attention_plain` is the einsum
   path of the JAX ``Attention`` (``unet2d.py:199-203``: fp32 scores and
   softmax, the normalised weights cast to v's type, the second einsum);

@@ -18,6 +18,7 @@ import torch
 from gsgen_torch.models.scene import RenderConfig, render_view
 from gsgen_torch.ops import binning, cuda_raster, expansion_rank, gid_repack
 from gsgen_torch.ops.camera import CameraIntrinsics
+from gsgen_torch.utils.precision import exact_fp32
 from torch_fixtures import (CHUNK, FX, RES, TILE, conic_np, scene2d,
                             scene3d, t)
 
@@ -28,8 +29,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_fp32()
     return torch.device("cuda")
 
 
@@ -197,6 +197,36 @@ def test_flash_long_sequence_matches_plain(cuda, dtype):
     for a, b in zip(got, ref):
         assert float((a.float() - b.float()).abs().max()) <= btol * float(
             b.float().abs().max())
+
+
+@pytest.mark.parametrize("L", [128, 4096])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [40, 64, 160])
+def test_flash_dq_kernel_matches_plain(cuda, dtype, D, L):
+    """K7 alone (bf16 D <= 64: wgmma + TMA, one tile at L = 128 and the
+    whole K / V ring at L = 4096; bf16 D = 160: mma.sync; fp32: 3xTF32)
+    against flash_bwd_dq_plain from the plain lse and Di: fp32 within 1e-5
+    of max|dq| (3xTF32 is about fp32 summation order; the chip gate is
+    1e-4), bf16 within 3e-2 (dS rounded to bf16).  One launch per call, and
+    two runs on the same inputs are bitwise equal (no atomics)."""
+    from gsgen_torch.ops import flash_attention as fa
+    dt = getattr(torch, dtype)
+    shape = (2, L, 3, D) if L == 128 else (1, L, 2, D)
+    q, k, v, dout = _qkv_dout(cuda, shape, dt, 3 * D + L)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = fa.flash_self_attention_plain_lse(q, k, v, scale)
+    delta = fa.attention_delta(out, dout)
+    n7 = fa.flash_bwd_dq.launches
+    got = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
+    again = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
+    assert fa.flash_bwd_dq.launches == n7 + 2
+    want = fa.flash_bwd_dq_plain(q, k, v, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert torch.equal(got, again)
+    tol = (1e-5 if dt == torch.float32 else 3e-2) * float(
+        want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
 
 
 def test_flash_attention_autograd_on_card(cuda):
