@@ -7,13 +7,16 @@ Phases, each reported on its own line:
 
 1. device: require CUDA, print the card's name and power limit, TF32 off
    (the package's precision policy, utils/precision.py::exact_fp32);
-2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a;
+2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a; the raster
+   kernels' ptxas lines (registers, shared memory, spills: none allowed);
 3. kernels: every kernel of the render path against its plain PyTorch
    version on the card, at a small size, at the bench workload (100K
    Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
    render (chunk 256, dup_cap 2^20) and on an opaque early-exit scene,
-   with feature widths F=3 and F=5; plus a full small render against the
-   dense oracle; the same scenes but 1024^2 in the compact layout: its
+   with feature widths F=3 and F=5, and F=10 at both render shapes (the
+   bench's tiles walk 3+ windows: the stage ring wraps); plus a full
+   small render against the dense oracle; the same scenes but 1024^2 in
+   the compact layout: its
    BinnedTiles bit-exact against the plain binning, K8 and K9 against
    their plain versions (window counts exact), K8's image and T against
    K1's, with the empty tiles of unaligned start and the windows shared
@@ -38,11 +41,11 @@ Phases, each reported on its own line:
    shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7
    at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs, each
    also in device time; SDPA in fp32 beside K5's fp32 instance at B=8 and
-   B=4), K3, K4 and torch.searchsorted by device time (a CUDA graph of 50
-   calls replayed between two events) beside their host-loop times, K8
-   and K9 beside K1 and K2, and the full render forward+backward in both
-   layouts; one line
-   gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
+   B=4), K1-K4, K8, K9 and torch.searchsorted by device time (a CUDA
+   graph of 50 calls replayed between two events) beside their host-loop
+   times, the lanes each tile's forward walked (max, mean) at both render
+   shapes, and the full render forward+backward in both layouts; one
+   line gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
    SDPA's time, with the bound at the rate its design can reach (bf16
    989 TFLOP/s; fp32 3xTF32 3 x ops / 495 TFLOP/s);
 6. profile: two more training steps under torch.profiler; device busy
@@ -84,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -224,12 +228,21 @@ def run(torch) -> int:
           f"{len(cuda_lib.sources())} sources | spills: "
           + ("; ".join(spills) or "none") + " | " + " ; ".join(regs),
           flush=True)
+    raster_ptxas = ptxas_lines(cuda_lib.build_info["log"], "raster_")
+    require(len(raster_ptxas) == 2, f"ptxas names {len(raster_ptxas)} "
+            "raster kernels, expected 2")
+    require(not [f for f in spills if "raster_" in f],
+            f"a raster kernel spills: {spills}")
+    print("phase 2 raster: ok | " + " | ".join(
+        f"{k}: {v}" for k, v in raster_ptxas.items()), flush=True)
 
     # ---- helpers ----
     gen = torch.Generator(device=dev)
 
-    def prepare(params, active, c2w, intr, rcfg, rgb_only):
-        """render_view's steps up to the rasterizer (no autograd)."""
+    def prepare(params, active, c2w, intr, rcfg, rgb_only, F10=False):
+        """render_view's steps up to the rasterizer (no autograd); F10:
+        ten feature channels (colour, depth, depth^2, colour^2, sqrt depth,
+        alpha) instead of 3 or 5."""
         with torch.no_grad():
             c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
             f32 = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa
@@ -250,8 +263,11 @@ def run(torch) -> int:
                         cy, intr.w, intr.h, rcfg.tile_size, rcfg.dup_cap)
             bin_kw = dict(chunk=rcfg.chunk, alpha=alpha, pad_budget=pad,
                           tile_culling_radius=rcfg.tile_culling_radius)
-            feats = color if rgb_only else torch.cat(
-                [color, proj.depth[:, None], proj.depth[:, None] ** 2], -1)
+            d = proj.depth[:, None]
+            feats = color if rgb_only else torch.cat([color, d, d ** 2], -1)
+            if F10:
+                feats = torch.cat([color, d, d ** 2, color ** 2,
+                                   d.abs().sqrt(), alpha[:, None]], -1)
             geom = make_geom((-cx / fx, -cy / fy), (1.0 / fx, 1.0 / fy), dev)
             return dict(bin_args=bin_args, bin_kw=bin_kw, mean2d=proj.mean2d,
                         conic=conic, alpha=alpha, feats=feats, geom=geom,
@@ -337,10 +353,9 @@ def run(torch) -> int:
                                    prep["alpha"], prep["feats"],
                                    bins.padded_gid, bins.row_valid)
         nck = ((bins.ends - bins.starts + K - 1) // K).to(torch.int32)
-        out = cuda_raster.raster_fwd(dup, bins.starts, nck, prep["geom"],
-                                     **st)
-        out_p = cuda_raster.raster_fwd_plain(dup, bins.starts, nck,
-                                             prep["geom"], **st)
+        a = (bins.starts, bins.ends, nck, prep["geom"])
+        out = cuda_raster.raster_fwd(dup, *a, **st)
+        out_p = cuda_raster.raster_fwd_plain(dup, *a, **st)
         torch.cuda.synchronize()
         e1 = close(out[:, F], out_p[:, F], *tol["T"], f"{label}: K1 T")
         e2 = close(out[:, :F], out_p[:, :F], *tol["img"],
@@ -351,10 +366,8 @@ def run(torch) -> int:
                 f"{int((cnt != cnt_p).sum())} tiles")
         errs["raster_fwd"] = max(errs["raster_fwd"], e1, e2)
         g = torch.randn(out.shape, generator=gen.manual_seed(7), device=dev)
-        grad = cuda_raster.raster_bwd(dup, out, g, bins.starts, nck,
-                                      prep["geom"], **st)
-        grad_p = cuda_raster.raster_bwd_plain(dup, out_p, g, bins.starts,
-                                              nck, prep["geom"], **st)
+        grad = cuda_raster.raster_bwd(dup, out, g, *a, **st)
+        grad_p = cuda_raster.raster_bwd_plain(dup, out_p, g, *a, **st)
         torch.cuda.synchronize()
         rtol, atol = tol["grad"]
         for r in range(6 + F):
@@ -364,8 +377,9 @@ def run(torch) -> int:
                       f"{label}: K2 grad row {r}")
             errs["raster_bwd"] = max(errs["raster_bwd"], e)
         exited = int((cnt < nck.float()).sum())
-        notes.append(f"{label}: F={F} dups={int(bins.total)} "
-                     f"chunks={int(cnt.sum())} early-exit tiles={exited}")
+        notes.append(f"{label}: F={F} K={K} dups={int(bins.total)} "
+                     f"chunks={int(cnt.sum())} (max {int(cnt.max())} a "
+                     f"tile) early-exit tiles={exited}")
         return dict(bins=bins, dup=dup, nck=nck, st=st, out=out, g=g,
                     geom=prep["geom"], seen=seen)
 
@@ -391,8 +405,8 @@ def run(torch) -> int:
         geom = prep["geom"]
         out = cuda_raster.raster_fwd_compact(dup, starts, ends, wc, geom,
                                              **st)
-        out_p = cuda_raster.raster_fwd_compact_plain(dup, starts, ends, wc,
-                                                     geom, **st)
+        out_p = cuda_raster.raster_fwd_plain(dup, starts, ends, wc, geom,
+                                             **st)
         torch.cuda.synchronize()
         e1 = close(out[:, F], out_p[:, F], *tol["T"], f"{label}: K8 T")
         e2 = close(out[:, :F], out_p[:, :F], *tol["img"],
@@ -411,8 +425,8 @@ def run(torch) -> int:
         errs["raster_fwd_compact"] = max(errs["raster_fwd_compact"], e1, e2)
         grad = cuda_raster.raster_bwd_compact(dup, out, g, starts, ends, wc,
                                               geom, **st)
-        grad_p = cuda_raster.raster_bwd_compact_plain(
-            dup, out_p, g, starts, ends, wc, geom, **st)
+        grad_p = cuda_raster.raster_bwd_plain(dup, out_p, g, starts, ends,
+                                              wc, geom, **st)
         torch.cuda.synchronize()
         rtol, atol = tol["grad"]
         for r in range(6 + F):
@@ -497,7 +511,22 @@ def run(torch) -> int:
                    cam["c2w"][0], intr_view, probe.rcfg, False)
     base = kernel_checks("base.yaml F=5", prep, SCALE_TOL)
     base_c = compact_checks("base.yaml F=5", prep, SCALE_TOL, base)
+    # F = 10, the most feature rows the kernels take: at chunk 256 K2's
+    # stages and lane sums pass 48 KB of shared memory
+    prep = prepare(probe.state.scene.params, probe.state.scene.active,
+                   cam["c2w"][0], intr_view, probe.rcfg, False, F10=True)
+    compact_checks("base.yaml F=10", prep, SCALE_TOL,
+                   kernel_checks("base.yaml F=10", prep, SCALE_TOL))
     del probe
+    # and at the bench render, where tiles walk 3+ windows of 128 rows
+    # (the stage ring wraps)
+    prep = prepare(s_bench.params, s_bench.active, c2w_front, intr512,
+                   rc_bench, False, F10=True)
+    deep = kernel_checks("bench F=10", prep, SCALE_TOL)
+    require(int(deep["out"][:, -1, 0].max()) >= 3,
+            "bench F=10: no tile processed 3 windows")
+    compact_checks("bench F=10", prep, SCALE_TOL, deep)
+    del deep
 
     # opaque scene: tiles leave early, later chunks must stay zero
     s_opq = scene_3d(20_000, None, 0.5, 0.03, 0.999, 3)
@@ -759,12 +788,11 @@ def run(torch) -> int:
         ms = lambda b, f: 1e3 * max(b / PEAK_BYTES, f / PEAK_FLOPS)  # noqa
         by = lambda b, f: "bytes" if b / PEAK_BYTES >= f / PEAK_FLOPS \
             else "operations"  # noqa
-        fwd = (dup_b + out_b + 8 * n_tiles, lanes * (23 + 2 * F))
-        bwd = (dup_b + 2 * n_tiles * (F + 2) * P * 4 + 8 * n_tiles
+        # starts, ends and counts read; grad written whole (zero fill)
+        fwd = (dup_b + out_b + 12 * n_tiles, lanes * (23 + 2 * F))
+        bwd = (dup_b + 2 * n_tiles * (F + 2) * P * 4 + 12 * n_tiles
                + 16 * capp * 4, lanes * (64 + 4 * F))
-        if compact:    # K8/K9: ends read as well
-            fwd = (fwd[0] + 4 * n_tiles, fwd[1])
-            bwd = (bwd[0] + 4 * n_tiles, bwd[1])
+        if compact:
             return {k: (ms(*v), by(*v)) for k, v in
                     dict(raster_fwd_compact=fwd,
                          raster_bwd_compact=bwd).items()}
@@ -779,14 +807,14 @@ def run(torch) -> int:
         bins, st, dup, nck = r["bins"], r["st"], r["dup"], r["nck"]
         cap = r["seen"]["expansion_rank"][1]
         geom, g, out = r["geom"], r["g"], r["out"]
-        fwd = lambda: cuda_raster.raster_fwd(dup, bins.starts, nck, geom,
-                                             **st)  # noqa: E731
+        a = (bins.starts, bins.ends, nck, geom)
+        fwd = lambda: cuda_raster.raster_fwd(dup, *a, **st)  # noqa: E731
         fwd_p = lambda: cuda_raster.raster_fwd_plain(  # noqa: E731
-            dup, bins.starts, nck, geom, **st)
+            dup, *a, **st)
         bwd = lambda: cuda_raster.raster_bwd(  # noqa: E731
-            dup, out, g, bins.starts, nck, geom, **st)
+            dup, out, g, *a, **st)
         bwd_p = lambda: cuda_raster.raster_bwd_plain(  # noqa: E731
-            dup, out, g, bins.starts, nck, geom, **st)
+            dup, out, g, *a, **st)
         k3_args, k4_args = r["seen"]["expansion_rank"], r["seen"]["gid_repack"]
         cum = k3_args[0]
         arange = torch.arange(cap, dtype=torch.int32, device=dev)
@@ -805,10 +833,12 @@ def run(torch) -> int:
                 ms=time_ms(f, iters), plain_ms=time_ms(fp, plain_iters),
                 library_ms=None if fl is None else time_ms(fl, iters),
                 bound_ms=bd[k][0], bound_by=bd[k][1])
-        # K3 and K4 take microseconds: a host loop of calls times their
-        # launch path; ms and library_ms become device times (a CUDA
-        # graph), the host-loop times stay beside them
-        for k, f, fl in (("expansion_rank", k3, k3_l),
+        # K1-K4 take microseconds to a few tenths of a millisecond: a host
+        # loop of calls times their launch path too; ms and library_ms
+        # become device times (a CUDA graph), the host-loop times stay
+        # beside them
+        for k, f, fl in (("raster_fwd", fwd, None), ("raster_bwd", bwd, None),
+                         ("expansion_rank", k3, k3_l),
                          ("gid_repack", k4, None)):
             res[k]["host_loop_ms"] = res[k]["ms"]
             res[k]["ms"] = graph_ms(f)
@@ -826,20 +856,43 @@ def run(torch) -> int:
         fns = dict(
             raster_fwd_compact=(
                 lambda: cuda_raster.raster_fwd_compact(dup, *a, **st),
-                lambda: cuda_raster.raster_fwd_compact_plain(dup, *a, **st)),
+                lambda: cuda_raster.raster_fwd_plain(dup, *a, **st)),
             raster_bwd_compact=(
                 lambda: cuda_raster.raster_bwd_compact(dup, out, g, *a, **st),
-                lambda: cuda_raster.raster_bwd_compact_plain(dup, out, g, *a,
-                                                             **st)))
-        return {k: dict(ms=time_ms(f, iters),
+                lambda: cuda_raster.raster_bwd_plain(dup, out, g, *a, **st)))
+        return {k: dict(ms=graph_ms(f), host_loop_ms=time_ms(f, iters),
                         plain_ms=time_ms(fp, plain_iters), library_ms=None,
                         bound_ms=bd[k][0], bound_by=bd[k][1])
                 for k, (f, fp) in fns.items()}
+
+    def walked_lanes(r):
+        """Lanes each tile's forward walked: its rows in the windows it
+        processed.  (max, mean over tiles that walked any, max / mean,
+        median, 90th and 99th percentile)."""
+        bins, K = r["bins"], r["st"]["chunk"]
+        start, end = bins.starts.long(), bins.ends.long()
+        cnt = r["out"][:, -1, 0].long()
+        n = (torch.minimum(end, start // K * K + cnt * K) - start).clamp(
+            min=0)
+        n = n[n > 0].double()
+        q = torch.quantile(n, torch.tensor([0.5, 0.9, 0.99], device=n.device,
+                                           dtype=n.dtype))
+        return (float(n.max()), float(n.mean()), float(n.max() / n.mean()),
+                *(float(x) for x in q))
 
     times_base = kernel_times(base, 20, 3)
     times_bench = kernel_times(bench[False], 20, 3)
     times_base.update(compact_times(base_c, 20, 3))
     times_bench.update(compact_times(bench_c[False], 20, 3))
+    walked = {f"{shape} {layout}": walked_lanes(r) for shape, layout, r in (
+        ("base", "padded", base), ("base", "compact", base_c),
+        ("bench", "padded", bench[False]),
+        ("bench", "compact", bench_c[False]))}
+    print(f"phase 5 lanes: ok lanes a tile's forward walked (max, mean, "
+          f"max/mean; median, p90, p99): " + " | ".join(
+              f"{k} {v[0]:.0f}, {v[1]:.1f}, {v[2]:.2f}; {v[3]:.0f}, "
+              f"{v[4]:.0f}, {v[5]:.0f}" for k, v in walked.items()),
+          flush=True)
 
     # full render forward + backward of one 512^2 view, all parameter
     # gradients, at the bench workload and at base.yaml's render
@@ -1029,7 +1082,8 @@ def run(torch) -> int:
                  f", torch.searchsorted {tb[k]['library_ms']:.4f} "
                  f"[{tb[k]['library_host_loop_ms']:.4f}]")
               for tb in (times_base, times_bench)
-              for k in ("expansion_rank", "gid_repack")), flush=True)
+              for k in (*RASTER, "expansion_rank", "gid_repack")),
+          flush=True)
 
     # ---- phase 6: where a train step's device time goes ----
     from torch.profiler import ProfilerActivity, profile
@@ -1140,6 +1194,7 @@ def run(torch) -> int:
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
             **{h: tb[h] for h in ("host_loop_ms", "library_host_loop_ms")
                if h in tb},
+            **({"design": RASTER_DESIGN[k[7:10]]} if k in RASTER else {}),
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
                    "2^20)",
             bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
@@ -1186,6 +1241,7 @@ def run(torch) -> int:
                       "render_fwd_bwd_ms_compact": render_compact,
                       "render_fwd_bwd_ms_again": render_again,
                       "density": dens, "compact_layout": layout_stats,
+                      "walked_lanes": walked,
                       "train_ms_per_step": step_ms, "build_s": build_s,
                       "train_profile": profile_info, "sds": sds,
                       "sds_profile": sds_profile, "vsd": vsd,
@@ -1200,6 +1256,17 @@ def run(torch) -> int:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+RASTER = ("raster_fwd", "raster_bwd", "raster_fwd_compact",
+          "raster_bwd_compact")
+RASTER_DESIGN = dict(
+    fwd="one block a tile, one thread a pixel, exact sequential scan over "
+        "the tile's own rows only (walk ends at ends[t]); windows by "
+        "cp.async.bulk into a 2-stage mbarrier ring; geometry rows read 4 "
+        "lanes per 16-byte load, features only where aG > 0",
+    bwd="one block a tile, one thread a pixel, forward recomputed over the "
+        "tile's own rows only; per-lane gradient rows summed over a warp "
+        "by a 16-shuffle transpose-reduce, warps added in fixed order (no "
+        "atomics); windows by cp.async.bulk into a 2-stage mbarrier ring")
 
 
 def flash_peak(dtn: str) -> float:
@@ -1216,6 +1283,23 @@ def busy_us(events):
         busy += max(0.0, s + d - max(s, end))
         end = max(end, s + d)
     return busy
+
+
+def ptxas_lines(log, needle):
+    """{kernel: "registers and shared memory; stack and spills"} from
+    ptxas's -v report for each function whose name holds ``needle``."""
+    res, func = {}, ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            func = ln.split(" for ", 1)[1].strip()
+            continue
+        if needle not in func or not ("spill" in ln or "registers" in ln):
+            continue
+        short = re.search(r"(raster_\w+?kernel)", func)
+        key = short.group(1) if short else func
+        res[key] = "; ".join(filter(None, (res.get(key), ln.split(
+            ":", 1)[-1].strip() if "registers" in ln else ln.strip())))
+    return res
 
 
 def kernel_key(name):

@@ -1,7 +1,8 @@
 // Hopper building blocks of the flash-attention kernels K5, K6 and K7:
-// mbarriers, TMA tensor maps and loads, warpgroup matrix multiply (wgmma)
-// with shared-memory descriptors, setmaxnreg, and the 3xTF32 split with its
-// mma.sync product for the fp32 instances.
+// TMA tensor maps and loads (mbarriers and bulk copies: sm90_async.cuh),
+// warpgroup matrix multiply (wgmma) with shared-memory descriptors,
+// setmaxnreg, and the 3xTF32 split with its mma.sync product for the fp32
+// instances.
 //
 // Layout conventions (shared by every user):
 //  * A [B, L, H, D] bf16 tensor is a 4-D TMA map with dims (D, H, L, B) and
@@ -24,6 +25,8 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include "sm90_async.cuh"
 
 namespace {
 
@@ -78,58 +81,7 @@ bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int L, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// ---- device: shared memory, mbarriers, TMA ---------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-// A wait that outlasts 2 s of the global timer (a tile takes microseconds)
-// is a deadlock: trap, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > 2000000000ull) {
-      __trap();
-    }
-  }
-}
-
+// ---- device: TMA (mbarriers and bulk copies: sm90_async.cuh) ---------------
 // One box of a 4-D map at coordinates (c0, c1, c2, c3) into shared memory;
 // completion (the box's bytes) is reported to `bar`.
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
@@ -140,16 +92,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

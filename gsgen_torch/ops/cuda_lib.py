@@ -46,10 +46,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the kernel entries (all return cudaError_t as int)
 SIGNATURES = {
-    "gsgen_raster_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                         _P],
-    "gsgen_raster_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _F, _P],
+    "gsgen_raster_fwd": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _P],
+    "gsgen_raster_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _F, _P],
     "gsgen_raster_fwd_compact": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _F, _P],
     "gsgen_raster_bwd_compact": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,

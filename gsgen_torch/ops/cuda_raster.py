@@ -1,16 +1,19 @@
 """Tile compositing through the hand-written CUDA kernels K1, K2, K8, K9.
 
-Counterpart of the JAX package's ``ops/pallas_raster.py``.  Two
-``torch.autograd.Function``s carry the contract of
-``rasterize_tiles_pallas``, one per binning layout:
+Counterpart of the JAX package's ``ops/pallas_raster.py``.  One
+``torch.autograd.Function``, :class:`RasterCore`, carries the contract of
+``rasterize_tiles_pallas`` in either binning layout:
 
 * padded: forward K1 (``raster_fwd``, ``csrc/raster_fwd.cu``, replacing
   ``_fwd_kernel``), backward K2 (``raster_bwd``, ``csrc/raster_bwd.cu``,
   replacing both ``_bwd_kernel_v2`` and ``_bwd_kernel``);
-* compact: forward K8 (``raster_fwd_compact``, the compact instance in
-  ``csrc/raster_fwd.cu``, replacing ``_fwd_kernel(compact=True)``),
-  backward K9 (``raster_bwd_compact``, in ``csrc/raster_bwd.cu``,
-  replacing ``_bwd_kernel_v3``).
+* compact: forward K8 (``raster_fwd_compact``, the same kernel as K1,
+  replacing ``_fwd_kernel(compact=True)``), backward K9
+  (``raster_bwd_compact``, the same kernel as K2, replacing
+  ``_bwd_kernel_v3``).
+
+Each of the four has its own C entry and launch counter, so a run shows
+which layout it went through.
 
 Kernel layouts are kept:
 
@@ -25,6 +28,11 @@ Design decisions against the TPU kernels:
   the cumprod/cumsum) are accepted and ignored;
 * one backward kernel serves both TPU call conditions: the resident
   budget that picks between them is a VMEM limit with no Hopper meaning;
+* the two layouts share one walk: tile t walks ``counts[t]``
+  chunk-aligned windows from ``floor(starts[t] / chunk) * chunk`` and
+  only the lanes of its own rows ``[starts[t], ends[t])``.  In the padded
+  layout the walk ends at ``ends[t]``: the sentinel rows past it (alpha 0,
+  no contribution, zero gradient) are never read;
 * K9 runs one block per tile, not the TPU's sequential (tile, window)
   grid: tiles own disjoint rows, so blocks sharing a boundary window
   store disjoint lanes of a zero-filled buffer;
@@ -32,6 +40,14 @@ Design decisions against the TPU kernels:
   backward, an accumulating index add (``index_select``'s gradient),
   instead of the sort + cumsum aggregation (``_pack_seg_bwd``) that
   works around the TPU's serial scatter.
+
+Hopper design of the kernels (``csrc/raster_common.cuh``): windows arrive
+by bulk copy (``cp.async.bulk``, one per row, completing on an
+``mbarrier``) into a ring of two shared-memory stages, the next window in
+flight while the block composites this one; the forward reads four lanes
+of a geometry row with one 16-byte load; the backward sums each lane's
+6+F gradient values over a warp's 32 pixels with one transpose-reduce
+(16 shuffles).  :func:`smem_bytes` is their shared-memory footprint.
 
 Each wrapper takes its plain version (:mod:`.rasterize`) only for CPU
 tensors; for CUDA tensors it launches its kernel or raises.
@@ -50,7 +66,17 @@ from .rasterize import ch_out_for, composite_tiles, make_geom, unpack_tiles
 
 D_ROWS = 16
 MAX_F = D_ROWS - 6
-_SMEM_LIMIT = 48 * 1024     # default dynamic shared memory per block
+# shared memory a block may opt into on Hopper (227 KB), less the ring's
+# two mbarriers in static shared memory
+SMEM_OPTIN = 232448 - 16
+
+
+def smem_bytes(chunk: int, F: int, P: int, backward: bool) -> int:
+    """Dynamic shared memory of K1/K8 (forward) or K2/K9 (backward): the
+    ring of two [6+F, chunk] stages, and for the backward the warps' lane
+    sums [P/32, 32, 17]."""
+    ring = 2 * (6 + F) * chunk
+    return 4 * (ring + (P // 32) * 32 * 17 if backward else ring)
 
 
 def pack_dup(mean2d, conic, alpha, feats, gid, valid) -> torch.Tensor:
@@ -74,167 +100,120 @@ def pack_dup(mean2d, conic, alpha, feats, gid, valid) -> torch.Tensor:
     return table.index_select(0, gid.long()).T.contiguous()
 
 
-def raster_fwd_plain(dup, starts, nchunks, geom, *, n_tiles_w, tile_size,
-                     chunk, F, ch_out, T_thresh):
-    """Plain version of K1 (no autograd)."""
+def raster_fwd_plain(dup, starts, ends, counts, geom, *, n_tiles_w,
+                     tile_size, chunk, F, ch_out, T_thresh):
+    """Plain version of K1 and K8 (no autograd): tile t walks ``counts[t]``
+    windows and composites only its rows ``[starts[t], ends[t])``."""
     with torch.no_grad():
-        return composite_tiles(dup, starts, nchunks, geom,
+        return composite_tiles(dup, starts, ends, counts, geom,
                                n_tiles_w=n_tiles_w, tile_size=tile_size,
                                chunk=chunk, F=F, ch_out=ch_out,
                                T_thresh=T_thresh)
 
 
-def raster_bwd_plain(dup, out, g, starts, nchunks, geom, *, n_tiles_w,
+def raster_bwd_plain(dup, out, g, starts, ends, counts, geom, *, n_tiles_w,
                      tile_size, chunk, F, ch_out, T_thresh):
-    """Plain version of K2: autograd of the plain forward, recomputed.
-    (``out`` is unused: the recomputation reproduces it.)"""
+    """Plain version of K2 and K9: autograd of the plain forward,
+    recomputed.  A row of a compact window two tiles share gets both
+    tiles' terms, one of them exactly zero.  (``out`` is unused.)"""
     with torch.enable_grad():
         d = dup.detach().requires_grad_(True)
-        o = composite_tiles(d, starts, nchunks, geom, n_tiles_w=n_tiles_w,
-                            tile_size=tile_size, chunk=chunk, F=F,
-                            ch_out=ch_out, T_thresh=T_thresh)
+        o = composite_tiles(d, starts, ends, counts, geom,
+                            n_tiles_w=n_tiles_w, tile_size=tile_size,
+                            chunk=chunk, F=F, ch_out=ch_out,
+                            T_thresh=T_thresh)
         (grad,) = torch.autograd.grad(o, d, g, allow_unused=True)
     return torch.zeros_like(dup) if grad is None else grad
 
 
-def raster_fwd_compact_plain(dup, starts, ends, wcount, geom, *, n_tiles_w,
-                             tile_size, chunk, F, ch_out, T_thresh):
-    """Plain version of K8 (no autograd)."""
-    with torch.no_grad():
-        return composite_tiles(dup, starts, wcount, geom,
-                               n_tiles_w=n_tiles_w, tile_size=tile_size,
-                               chunk=chunk, F=F, ch_out=ch_out,
-                               T_thresh=T_thresh, ends=ends)
-
-
-def raster_bwd_compact_plain(dup, out, g, starts, ends, wcount, geom, *,
-                             n_tiles_w, tile_size, chunk, F, ch_out,
-                             T_thresh):
-    """Plain version of K9: autograd of the plain K8, recomputed.  A row
-    of a window two tiles share gets both tiles' terms, one of them
-    exactly zero.  (``out`` is unused.)"""
-    with torch.enable_grad():
-        d = dup.detach().requires_grad_(True)
-        o = composite_tiles(d, starts, wcount, geom, n_tiles_w=n_tiles_w,
-                            tile_size=tile_size, chunk=chunk, F=F,
-                            ch_out=ch_out, T_thresh=T_thresh, ends=ends)
-        (grad,) = torch.autograd.grad(o, d, g, allow_unused=True)
-    return torch.zeros_like(dup) if grad is None else grad
-
-
-def _check_launch(dup, starts, nchunks, geom, tile_size, chunk, F, ch_out,
-                  ends=None):
+def _check_launch(dup, starts, ends, counts, geom, st, backward):
     cuda_lib.check(dup, "dup", torch.float32, 2)
-    cuda_lib.check(starts, "starts", torch.int32, 1)
-    cuda_lib.check(nchunks, "nchunks", torch.int32, 1)
+    for name, x in (("starts", starts), ("ends", ends), ("counts", counts)):
+        cuda_lib.check(x, name, torch.int32, 1)
+        if x.shape != starts.shape:
+            raise ValueError("starts, ends and counts must have one shape")
     cuda_lib.check(geom, "geom", torch.float32, 1)
-    if ends is not None:
-        cuda_lib.check(ends, "ends", torch.int32, 1)
-        if ends.shape != starts.shape or nchunks.shape != starts.shape:
-            raise ValueError("starts, ends and wcount must have one shape")
-    P = tile_size * tile_size
+    chunk, F, P = st["chunk"], st["F"], st["tile_size"] ** 2
     if dup.shape[0] != D_ROWS or dup.shape[1] % chunk != 0:
         raise ValueError(f"dup must be [16, k*{chunk}], got "
                          f"{tuple(dup.shape)}")
+    # the stage ring's bulk copies move 16-byte aligned rows
+    if chunk % 4 != 0 or dup.data_ptr() % 16 != 0:
+        raise ValueError(f"chunk {chunk} must be a multiple of 4 and dup "
+                         "16-byte aligned")
     if P % 32 != 0 or P > 1024:
-        raise ValueError(f"tile_size {tile_size}: P must be a multiple of "
-                         "32 and at most 1024")
-    if F > MAX_F or ch_out != ch_out_for(F):
-        raise ValueError(f"F={F}, ch_out={ch_out} unsupported")
-    if 4 * (6 + F) * (chunk + P) > _SMEM_LIMIT:
-        raise ValueError(f"chunk {chunk} needs more shared memory than a "
-                         "block has by default")
+        raise ValueError(f"tile_size {st['tile_size']}: P must be a multiple "
+                         "of 32 and at most 1024")
+    if F > MAX_F or st["ch_out"] != ch_out_for(F):
+        raise ValueError(f"F={F}, ch_out={st['ch_out']} unsupported")
+    if smem_bytes(chunk, F, P, backward) > SMEM_OPTIN:
+        raise ValueError(f"chunk {chunk}: the stage ring needs more shared "
+                         "memory than a block has")
 
 
-def raster_fwd(dup, starts, nchunks, geom, *, n_tiles_w, tile_size, chunk,
-               F, ch_out, T_thresh):
-    """K1: dup [16, cap] -> out [n_tiles, ch_out, P]."""
-    kw = dict(n_tiles_w=n_tiles_w, tile_size=tile_size, chunk=chunk, F=F,
-              ch_out=ch_out, T_thresh=T_thresh)
+def _launch_fwd(wrapper, entry, dup, starts, ends, counts, geom, st):
     if dup.device.type == "cpu":
-        return raster_fwd_plain(dup, starts, nchunks, geom, **kw)
-    _check_launch(dup, starts, nchunks, geom, tile_size, chunk, F, ch_out)
+        return raster_fwd_plain(dup, starts, ends, counts, geom, **st)
+    _check_launch(dup, starts, ends, counts, geom, st, False)
     n_tiles = starts.shape[0]
-    P = tile_size * tile_size
-    out = torch.empty(n_tiles, ch_out, P, dtype=torch.float32,
+    P = st["tile_size"] ** 2
+    out = torch.empty(n_tiles, st["ch_out"], P, dtype=torch.float32,
                       device=dup.device)
-    cuda_lib.launch("gsgen_raster_fwd", dup.data_ptr(), dup.shape[1],
-                    starts.data_ptr(), nchunks.data_ptr(),
-                    geom.data_ptr(), out.data_ptr(), n_tiles,
-                    n_tiles_w, tile_size, chunk, F, ch_out, float(T_thresh))
-    raster_fwd.launches += 1
+    cuda_lib.launch(entry, dup.data_ptr(), dup.shape[1], starts.data_ptr(),
+                    ends.data_ptr(), counts.data_ptr(), geom.data_ptr(),
+                    out.data_ptr(), n_tiles, st["n_tiles_w"],
+                    st["tile_size"], st["chunk"], st["F"], st["ch_out"],
+                    float(st["T_thresh"]))
+    wrapper.launches += 1
     return out
 
 
-def raster_bwd(dup, out, g, starts, nchunks, geom, *, n_tiles_w, tile_size,
-               chunk, F, ch_out, T_thresh):
-    """K2: (dup, forward out, its cotangent g) -> grad [16, cap]."""
-    kw = dict(n_tiles_w=n_tiles_w, tile_size=tile_size, chunk=chunk, F=F,
-              ch_out=ch_out, T_thresh=T_thresh)
+def _launch_bwd(wrapper, entry, dup, out, g, starts, ends, counts, geom, st):
     if dup.device.type == "cpu":
-        return raster_bwd_plain(dup, out, g, starts, nchunks, geom, **kw)
-    _check_launch(dup, starts, nchunks, geom, tile_size, chunk, F, ch_out)
+        return raster_bwd_plain(dup, out, g, starts, ends, counts, geom, **st)
+    _check_launch(dup, starts, ends, counts, geom, st, True)
     cuda_lib.check(out, "out", torch.float32, 3)
     cuda_lib.check(g, "g", torch.float32, 3)
     if g.shape != out.shape:
         raise ValueError("g must have the shape of out")
-    # chunks the forward skipped and slots no tile owns stay exactly zero
+    # padding lanes, a neighbour's lanes and windows the forward skipped
+    # stay exactly zero
     grad = torch.zeros_like(dup)
-    cuda_lib.launch("gsgen_raster_bwd", dup.data_ptr(), dup.shape[1],
-                    out.data_ptr(), g.data_ptr(), starts.data_ptr(),
-                    nchunks.data_ptr(), geom.data_ptr(),
-                    grad.data_ptr(), starts.shape[0], n_tiles_w,
-                    tile_size, chunk, F, ch_out, float(T_thresh))
-    raster_bwd.launches += 1
+    cuda_lib.launch(entry, dup.data_ptr(), dup.shape[1], out.data_ptr(),
+                    g.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                    counts.data_ptr(), geom.data_ptr(), grad.data_ptr(),
+                    starts.shape[0], st["n_tiles_w"], st["tile_size"],
+                    st["chunk"], st["F"], st["ch_out"],
+                    float(st["T_thresh"]))
+    wrapper.launches += 1
     return grad
 
 
-def raster_fwd_compact(dup, starts, ends, wcount, geom, *, n_tiles_w,
-                       tile_size, chunk, F, ch_out, T_thresh):
+def raster_fwd(dup, starts, ends, nchunks, geom, **st):
+    """K1: padded dup [16, cap] -> out [n_tiles, ch_out, P]; tile t walks
+    its ``nchunks[t]`` chunks up to ``ends[t]``.  ``st``: n_tiles_w,
+    tile_size, chunk, F, ch_out, T_thresh."""
+    return _launch_fwd(raster_fwd, "gsgen_raster_fwd", dup, starts, ends,
+                       nchunks, geom, st)
+
+
+def raster_bwd(dup, out, g, starts, ends, nchunks, geom, **st):
+    """K2: (padded dup, forward out, its cotangent g) -> grad [16, cap]."""
+    return _launch_bwd(raster_bwd, "gsgen_raster_bwd", dup, out, g, starts,
+                       ends, nchunks, geom, st)
+
+
+def raster_fwd_compact(dup, starts, ends, wcount, geom, **st):
     """K8: compact dup [16, cap] -> out [n_tiles, ch_out, P]; the last row
     holds the number of windows each tile processed."""
-    kw = dict(n_tiles_w=n_tiles_w, tile_size=tile_size, chunk=chunk, F=F,
-              ch_out=ch_out, T_thresh=T_thresh)
-    if dup.device.type == "cpu":
-        return raster_fwd_compact_plain(dup, starts, ends, wcount, geom, **kw)
-    _check_launch(dup, starts, wcount, geom, tile_size, chunk, F, ch_out,
-                  ends)
-    n_tiles = starts.shape[0]
-    P = tile_size * tile_size
-    out = torch.empty(n_tiles, ch_out, P, dtype=torch.float32,
-                      device=dup.device)
-    cuda_lib.launch("gsgen_raster_fwd_compact", dup.data_ptr(), dup.shape[1],
-                    starts.data_ptr(), ends.data_ptr(), wcount.data_ptr(),
-                    geom.data_ptr(), out.data_ptr(), n_tiles, n_tiles_w,
-                    tile_size, chunk, F, ch_out, float(T_thresh))
-    raster_fwd_compact.launches += 1
-    return out
+    return _launch_fwd(raster_fwd_compact, "gsgen_raster_fwd_compact", dup,
+                       starts, ends, wcount, geom, st)
 
 
-def raster_bwd_compact(dup, out, g, starts, ends, wcount, geom, *,
-                       n_tiles_w, tile_size, chunk, F, ch_out, T_thresh):
+def raster_bwd_compact(dup, out, g, starts, ends, wcount, geom, **st):
     """K9: (compact dup, forward out, its cotangent g) -> grad [16, cap]."""
-    kw = dict(n_tiles_w=n_tiles_w, tile_size=tile_size, chunk=chunk, F=F,
-              ch_out=ch_out, T_thresh=T_thresh)
-    if dup.device.type == "cpu":
-        return raster_bwd_compact_plain(dup, out, g, starts, ends, wcount,
-                                        geom, **kw)
-    _check_launch(dup, starts, wcount, geom, tile_size, chunk, F, ch_out,
-                  ends)
-    cuda_lib.check(out, "out", torch.float32, 3)
-    cuda_lib.check(g, "g", torch.float32, 3)
-    if g.shape != out.shape:
-        raise ValueError("g must have the shape of out")
-    # each block stores only its own rows; the rest (rows past the demand,
-    # windows the forward skipped) stays exactly zero
-    grad = torch.zeros_like(dup)
-    cuda_lib.launch("gsgen_raster_bwd_compact", dup.data_ptr(), dup.shape[1],
-                    out.data_ptr(), g.data_ptr(), starts.data_ptr(),
-                    ends.data_ptr(), wcount.data_ptr(), geom.data_ptr(),
-                    grad.data_ptr(), starts.shape[0], n_tiles_w, tile_size,
-                    chunk, F, ch_out, float(T_thresh))
-    raster_bwd_compact.launches += 1
-    return grad
+    return _launch_bwd(raster_bwd_compact, "gsgen_raster_bwd_compact", dup,
+                       out, g, starts, ends, wcount, geom, st)
 
 
 raster_fwd.launches = 0
@@ -244,39 +223,24 @@ raster_bwd_compact.launches = 0
 
 
 class RasterCore(torch.autograd.Function):
-    """dup -> out through K1; the gradient through K2."""
+    """dup -> out through K1 (padded) or K8 (compact); the gradient
+    through K2 or K9."""
 
     @staticmethod
-    def forward(ctx, dup, starts, nchunks, geom, statics):
-        out = raster_fwd(dup, starts, nchunks, geom, **statics)
-        ctx.save_for_backward(dup, starts, nchunks, geom, out)
-        ctx.statics = statics
+    def forward(ctx, dup, starts, ends, counts, geom, statics, compact):
+        fwd = raster_fwd_compact if compact else raster_fwd
+        out = fwd(dup, starts, ends, counts, geom, **statics)
+        ctx.save_for_backward(dup, starts, ends, counts, geom, out)
+        ctx.statics, ctx.compact = statics, compact
         return out
 
     @staticmethod
     def backward(ctx, g):
-        dup, starts, nchunks, geom, out = ctx.saved_tensors
-        dgrad = raster_bwd(dup, out, g.contiguous(), starts, nchunks, geom,
-                           **ctx.statics)
-        return dgrad, None, None, None, None
-
-
-class RasterCoreCompact(torch.autograd.Function):
-    """Compact dup -> out through K8; the gradient through K9."""
-
-    @staticmethod
-    def forward(ctx, dup, starts, ends, wcount, geom, statics):
-        out = raster_fwd_compact(dup, starts, ends, wcount, geom, **statics)
-        ctx.save_for_backward(dup, starts, ends, wcount, geom, out)
-        ctx.statics = statics
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        dup, starts, ends, wcount, geom, out = ctx.saved_tensors
-        dgrad = raster_bwd_compact(dup, out, g.contiguous(), starts, ends,
-                                   wcount, geom, **ctx.statics)
-        return dgrad, None, None, None, None, None
+        dup, starts, ends, counts, geom, out = ctx.saved_tensors
+        bwd = raster_bwd_compact if ctx.compact else raster_bwd
+        dgrad = bwd(dup, out, g.contiguous(), starts, ends, counts, geom,
+                    **ctx.statics)
+        return dgrad, None, None, None, None, None, None
 
 
 def window_counts(starts: torch.Tensor, ends: torch.Tensor, chunk: int
@@ -308,18 +272,14 @@ def rasterize_tiles_cuda(mean2d, conic, alpha, feats, bins: BinnedTiles,
     gid = bins.gid_s if compact else bins.padded_gid
     if gid.shape[0] % chunk != 0:
         raise ValueError("binner capacity must be chunk-aligned")
+    starts, ends = bins.starts.contiguous(), bins.ends.contiguous()
     if compact:
         # the sentinel id N already marks the rows past the demand
         dup = pack_dup(mean2d, conic, alpha, feats, gid,
                        torch.ones_like(gid, dtype=torch.bool))
-        starts, ends = bins.starts.contiguous(), bins.ends.contiguous()
-        out = RasterCoreCompact.apply(dup, starts, ends,
-                                      window_counts(starts, ends, chunk),
-                                      geom, statics)
+        counts = window_counts(starts, ends, chunk)
     else:
         dup = pack_dup(mean2d, conic, alpha, feats, gid, bins.row_valid)
-        nchunks = ((bins.ends - bins.starts + chunk - 1) // chunk).to(
-            torch.int32)
-        out = RasterCore.apply(dup, bins.starts.contiguous(), nchunks, geom,
-                               statics)
+        counts = ((ends - starts + chunk - 1) // chunk).to(torch.int32)
+    out = RasterCore.apply(dup, starts, ends, counts, geom, statics, compact)
     return unpack_tiles(out, F, w, h, tile_size)

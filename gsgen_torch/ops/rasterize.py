@@ -14,25 +14,27 @@ once, with an exclusive ``cumprod`` along the chunk:
   ``T_thresh``; the number of chunks it processed goes to the last
   output row, as in the TPU kernel.
 
-With ``ends`` (the compact layout) a tile walks the ``chunk``-aligned
-windows from ``floor(start / chunk) * chunk`` instead, and lanes whose row
-lies outside ``[start, end)`` (a neighbouring tile's rows in a shared
-boundary window) get ``aG = 0``, as the TPU kernel's ``lane_valid`` mask.
+Tile t walks ``counts[t]`` ``chunk``-aligned windows from
+``floor(starts[t] / chunk) * chunk``, and lanes whose row lies outside
+``[starts[t], ends[t])`` get ``aG = 0``, as the TPU kernel's
+``lane_valid`` mask: in the compact layout a neighbouring tile's rows in
+a shared boundary window, in the padded layout (chunk-aligned starts,
+``counts`` the chunk counts) the sentinel rows past ``ends[t]``.
 
 :func:`composite_tiles` works on the ``[16, cap]`` duplicate table of the
 kernels and is differentiable under torch autograd: it is the plain
-version of kernel K1, and its autograd is the plain version of K2
-(:mod:`.cuda_raster`); with ``ends`` it is the plain version of K8 and
-its autograd that of K9.  A row of a window shared by two tiles then
-receives the sum of both tiles' gradients, and each tile contributes
-exactly zero on the lanes it masks.  Padding rows of the table are the zero sentinel
-row (alpha 0), so they contribute nothing and never read an inactive
-slot's possibly non-finite features.
+version of kernels K1 (padded) and K8 (compact), and its autograd is the
+plain version of K2 and K9 (:mod:`.cuda_raster`).  A row of a window
+shared by two tiles then receives the sum of both tiles' gradients, and
+each tile contributes exactly zero on the lanes it masks.  Padding rows of
+the table are the zero sentinel row (alpha 0) as well, so masking them
+changes no value, and no lane reads an inactive slot's possibly
+non-finite features.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -86,15 +88,14 @@ def update_T(T_col, om, cp_excl, processed):
 
 
 def composite_tiles(dup: torch.Tensor, starts: torch.Tensor,
-                    nchunks: torch.Tensor, geom: torch.Tensor, *,
-                    n_tiles_w: int, tile_size: int, chunk: int, F: int,
-                    ch_out: int, T_thresh: float = DEFAULT_T_THRESH,
-                    ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    ends: torch.Tensor, counts: torch.Tensor,
+                    geom: torch.Tensor, *, n_tiles_w: int, tile_size: int,
+                    chunk: int, F: int, ch_out: int,
+                    T_thresh: float = DEFAULT_T_THRESH) -> torch.Tensor:
     """[rows >= 6+F, cap] duplicate table -> out [n_tiles, ch_out, P]
     (F feature rows, T at row F, processed-chunk count at row ch_out-1).
 
-    ``nchunks`` is each tile's chunk (padded) or window (compact, with
-    ``ends``) count."""
+    ``counts`` is each tile's chunk (padded) or window (compact) count."""
     dev = dup.device
     n_tiles = starts.shape[0]
     P = tile_size * tile_size
@@ -106,17 +107,15 @@ def composite_tiles(dup: torch.Tensor, starts: torch.Tensor,
     acc = torch.zeros(n_tiles, F, P, dtype=torch.float32, device=dev)
     i_fin = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     table = dup[:6 + F]
-    base = starts.long() if ends is None else starts.long() // K * K
-    alive = nchunks > 0
+    base = starts.long() // K * K
+    alive = counts > 0
     i = 0
     while bool(alive.any()):
         idx = alive.nonzero()[:, 0]
         cols = base[idx][:, None] + i * K + lanes[None, :]
         d = table[:, cols].permute(1, 0, 2)              # [n_a, 6+F, K]
-        valid = None
-        if ends is not None:
-            valid = ((cols >= starts[idx].long()[:, None])
-                     & (cols < ends[idx].long()[:, None]))[:, None, :]
+        valid = ((cols >= starts[idx].long()[:, None])
+                 & (cols < ends[idx].long()[:, None]))[:, None, :]
         om, cp_excl, processed, w = chunk_weights(
             d, pixx[idx], pixy[idx], T[idx], T_thresh, valid)
         fe = d[:, 6:6 + F, :]
@@ -124,7 +123,7 @@ def composite_tiles(dup: torch.Tensor, starts: torch.Tensor,
         T = T.index_copy(0, idx, update_T(T[idx], om, cp_excl, processed))
         i_fin = i_fin + alive.to(torch.int32)
         i += 1
-        alive = (alive & (i < nchunks)
+        alive = (alive & (i < counts)
                  & (torch.amax(T, dim=(1, 2)) >= T_thresh))
     pad = torch.zeros(n_tiles, ch_out - F - 2, P, dtype=torch.float32,
                       device=dev)

@@ -23,7 +23,8 @@ from gsgen_tpu.ops.pallas_raster import rasterize_tiles_pallas
 from gsgen_torch.ops import cuda_raster
 from gsgen_torch.ops.binning import bin_gaussians as bin_torch
 from gsgen_torch.ops.oracle import composite_dense, pixel_grid
-from torch_fixtures import CHUNK, FX, RES, TILE, conic_np, scene2d, t
+from torch_fixtures import (CHUNK, FX, RES, TILE, conic_np, poison_padding,
+                            scene2d, t)
 
 TOPLEFT = (-1.0, -1.0)
 PSZ = (1.0 / FX, 1.0 / FX)
@@ -152,9 +153,9 @@ def test_processed_chunk_count_matches_pallas():
                                bt.padded_gid, bt.row_valid)
     nck = ((bt.ends - bt.starts + CHUNK - 1) // CHUNK).to(torch.int32)
     geom = torch.tensor([*TOPLEFT, *PSZ], dtype=torch.float32)
-    out = cuda_raster.raster_fwd(dup, bt.starts, nck, geom, n_tiles_w=4,
-                                 tile_size=TILE, chunk=CHUNK, F=5, ch_out=8,
-                                 T_thresh=1e-4)
+    out = cuda_raster.raster_fwd(dup, bt.starts, bt.ends, nck, geom,
+                                 n_tiles_w=4, tile_size=TILE, chunk=CHUNK,
+                                 F=5, ch_out=8, T_thresh=1e-4)
     from gsgen_tpu.ops.pallas_raster import _make_core, pack_dup
     dup_j = pack_dup(*map(jnp.asarray, (mean2d, conic, a, feats)),
                      bj.padded_gid, bj.row_valid, bj.padded_gid.shape[0])
@@ -168,3 +169,95 @@ def test_processed_chunk_count_matches_pallas():
                                   np.asarray(out_j[:, 7, :]))
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_padded_walk_ends_at_ends():
+    """The padded path walks each tile's rows only up to ends[t].  With
+    the padding lanes of every tile's last chunk poisoned (alpha 0.9,
+    finite garbage), the plain padded path gives bitwise the out and
+    gradient it gives on the clean table, and both match the JAX padded
+    kernel on the clean table, which does not mask by ends but relies on
+    the sentinel's alpha 0.  Walking whole chunks (ends at the chunk end)
+    on the poisoned table changes the image: the poison is on the walk."""
+    (mean2d, conic, a, feats, _, _), bj, bt = _inputs(300, 6)
+    dup = cuda_raster.pack_dup(*map(t, (mean2d, conic, a, feats)),
+                               bt.padded_gid, bt.row_valid)
+    nck = ((bt.ends - bt.starts + CHUNK - 1) // CHUNK).to(torch.int32)
+    lens = bt.ends - bt.starts
+    assert bool(((lens % CHUNK != 0) & (lens > 0)).any())  # partial chunks
+    geom = torch.tensor([*TOPLEFT, *PSZ], dtype=torch.float32)
+    st = dict(n_tiles_w=4, tile_size=TILE, chunk=CHUNK, F=5, ch_out=8,
+              T_thresh=1e-4)
+    poisoned = poison_padding(dup, bt.row_valid, 8)
+    rng = np.random.default_rng(9)
+    g = rng.standard_normal((16, 8, TILE * TILE)).astype(np.float32)
+    g[:, 6:] = 0.0                                 # pad and count rows
+    res = []
+    for d in (dup, poisoned):
+        out = cuda_raster.raster_fwd(d, bt.starts, bt.ends, nck, geom, **st)
+        grad = cuda_raster.raster_bwd(d, out, t(g), bt.starts, bt.ends, nck,
+                                      geom, **st)
+        res.append((out, grad))
+    (out_c, grad_c), (out_x, grad_x) = res
+    assert torch.equal(out_x, out_c)
+    assert torch.equal(grad_x, grad_c)
+    whole = torch.clamp(bt.starts + nck * CHUNK, max=dup.shape[1])
+    out_w = cuda_raster.raster_fwd(poisoned, bt.starts, whole, nck, geom,
+                                   **st)
+    assert float((out_w[:, :5] - out_c[:, :5]).abs().max()) > 1e-2
+
+    from gsgen_tpu.ops.pallas_raster import _make_core, pack_dup
+    dup_j = pack_dup(*map(jnp.asarray, (mean2d, conic, a, feats)),
+                     bj.padded_gid, bj.row_valid, bj.padded_gid.shape[0])
+    core = _make_core(16, 4, TILE, CHUNK, 5, int(bj.padded_gid.shape[0]),
+                      1e-4, True, mxu_scans=False)
+    nck_j = (bj.ends - bj.starts + CHUNK - 1) // CHUNK
+    out_j, vjp = jax.vjp(lambda d: core(
+        d, bj.chunk_tile, bj.starts, bj.ends, nck_j,
+        jnp.asarray([*TOPLEFT, *PSZ], jnp.float32)), dup_j)
+    (grad_j,) = vjp(jnp.asarray(g))
+    np.testing.assert_array_equal(out_c[:, 7].numpy(),
+                                  np.asarray(out_j[:, 7]))
+    np.testing.assert_allclose(out_c[:, 5].numpy(), np.asarray(out_j[:, 5]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out_c[:, :5].numpy(),
+                               np.asarray(out_j[:, :5]), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(grad_c[:11].numpy(), np.asarray(grad_j[:11]),
+                               rtol=2e-3, atol=2e-4)
+
+
+def _transpose_reduce_np(vals):
+    """raster_bwd.cu::transpose_reduce16 on a warp's [32 lanes, 16 rows]
+    values, step by step in float32: exchanges with the xor partners 16,
+    8, 4, 2, a lane whose partner bit is set keeping the upper half of its
+    rows and adding the partner's copy of it, then one add across xor 1.
+    Returns what each lane holds."""
+    v = vals.astype(np.float32)
+    lane = np.arange(32)
+    for h in (8, 4, 2, 1):
+        upper = ((lane & (2 * h)) != 0)[:, None]
+        give = np.where(upper, v[:, :h], v[:, h:2 * h])
+        keep = np.where(upper, v[:, h:2 * h], v[:, :h])
+        v = keep + give[lane ^ (2 * h)]
+    return v[:, 0] + v[lane ^ 1, 0]
+
+
+@pytest.mark.parametrize("kind", ["integers", "normal"])
+def test_transpose_reduce_schedule_sums_rows(kind):
+    """Lane l of the schedule holds the warp's sum of row l >> 1: exactly
+    for integer values (every partial sum is exact in fp32), within fp32
+    summation error for normal ones; lanes l and l ^ 1 agree bitwise."""
+    rng = np.random.default_rng(17)
+    for _ in range(20):
+        if kind == "integers":
+            vals = rng.integers(-1000, 1000, (32, 16)).astype(np.float32)
+        else:
+            vals = rng.standard_normal((32, 16)).astype(np.float32)
+        got = _transpose_reduce_np(vals)
+        want = vals.astype(np.float64).sum(axis=0)[np.arange(32) >> 1]
+        assert np.array_equal(got, got[np.arange(32) ^ 1])
+        if kind == "integers":
+            np.testing.assert_array_equal(got, want.astype(np.float32))
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

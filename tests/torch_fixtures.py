@@ -58,3 +58,20 @@ def scene3d(n, seed=0, capacity=None, mean_std=0.5, svec=0.05):
 def t(x):
     """numpy -> CPU torch tensor (a copy)."""
     return torch.from_numpy(np.array(x))
+
+
+def poison_padding(dup, row_valid, seed):
+    """dup with every sentinel slot (row_valid False) overwritten by rows
+    that would contribute if walked: alpha 0.9, means inside the test
+    image, a conic about a pixel wide, features in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    bad = ~row_valid
+    m = int(bad.sum())
+    rows = np.concatenate([
+        rng.uniform(-1.0, 1.0, (2, m)),
+        np.stack([np.full(m, 200.0), rng.uniform(-20.0, 20.0, m),
+                  np.full(m, 200.0)]),
+        np.full((1, m), 0.9), rng.uniform(0.0, 1.0, (10, m))])
+    out = dup.clone()
+    out[:, bad] = t(rows.astype(np.float32)).to(dup.device)
+    return out
