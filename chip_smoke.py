@@ -78,6 +78,19 @@ Phases, each reported on its own line:
    view of that scene through kernel_checks in both layouts; one
    densify_compactness event at capacity 65,536 with its peak memory;
 
+11. outputs: ``gsgen_torch.main`` on configs/flagship_rehearsal.yaml for
+   3 steps (eval image every step, orbit video and checkpoint at step 2)
+   into a temporary log root: the upsample fine-tune as the config sets
+   it (32 poses, 4 epochs at 256^2) with K1-K4's counters read around it
+   (once per view: 64^2 renders forward, 256^2 steps forward and
+   backward), ply / splat / mesh, each output's seconds and bytes, and
+   the final checkpoint loaded into a fresh trainer, every array equal.
+   Phase 3 also holds K3 bitwise on count patterns the renders do not
+   reach (total 0, total past cap, N 1, zero-count runs, ragged cap) and
+   phase 5 prints K3 (render shapes and edge cases), torch.searchsorted
+   and a one-element add (the floor that launch spacing sets) in device
+   time;
+
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
 """
@@ -544,6 +557,11 @@ def run(torch) -> int:
             f"window: {layout_stats}")
     notes.append(f"compact layout over the scenes above: {layout_stats}")
 
+    # K3 where the merge's shares hold only cum entries, only slots, one
+    # entry, runs of zero counts, or a ragged end (bitwise)
+    k3_cases = k3_edge_cases(torch, dev, expansion_rank)
+    notes.append("K3 edge cases bitwise equal: " + ", ".join(k3_cases))
+
     # 1024^2: where the TPU package switches to its streaming backward
     # (cotangents n_tiles * ch_out * P * 4 bytes > 9 MiB); one K2 serves both
     s_large = scene_3d(30_000, None, 0.6, 0.01, 0.8, 4)
@@ -882,6 +900,29 @@ def run(torch) -> int:
 
     times_base = kernel_times(base, 20, 3)
     times_bench = kernel_times(bench[False], 20, 3)
+    # the floor that the spacing of launches sets: a one-element add (one
+    # block that does almost nothing) in the same 50-call graph
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = [graph_ms(lambda: one.add_(1)) for _ in range(2)]
+    for tb in (times_base, times_bench):
+        tb["expansion_rank"]["floor_ms"] = min(floor_ms)
+    k3_edge_ms = {name: graph_ms(
+        lambda c=cum, n=cap: expansion_rank.expansion_gid(c, n))
+        for name, (cum, cap) in k3_cases.items()}
+    times_base["expansion_rank"]["edge_case_ms"] = k3_edge_ms
+    print(f"phase 5 K3: ok | card {card} | device time, a CUDA graph of 50 "
+          "calls: " + " | ".join(
+              f"{name} N {r['seen']['expansion_rank'][0].numel()} cap "
+              f"{r['seen']['expansion_rank'][1]}: K3 {tb['ms']:.4f} ms "
+              f"({100 * tb['bound_ms'] / tb['ms']:.1f}% of bound "
+              f"{tb['bound_ms']:.4f} bytes), torch.searchsorted "
+              f"{tb['library_ms']:.4f}, one-element add {tb['floor_ms']:.4f}"
+              for name, r, tb in (
+                  ("base.yaml", base, times_base["expansion_rank"]),
+                  ("bench", bench[False], times_bench["expansion_rank"])))
+          + f" | one-element add runs {floor_ms} | K3 on the edge cases: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k3_edge_ms.items()),
+          flush=True)
     times_base.update(compact_times(base_c, 20, 3))
     times_bench.update(compact_times(bench_c[False], 20, 3))
     walked = {f"{shape} {layout}": walked_lanes(r) for shape, layout, r in (
@@ -1161,6 +1202,18 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     compact_launches = dens["sds_compact"]["launches"]
 
+    # ---- phase 11: the run's outputs and the upsample fine-tune ----
+    def check_view(label, scene, c2w, intr, rcfg):
+        """K1-K4 on one view of the fine-tune, as kernel_checks holds them."""
+        notes.clear()
+        kernel_checks(label, prepare(scene.params, scene.active, c2w, intr,
+                                     rcfg, True), SCALE_TOL)
+        return notes[-1]
+
+    outputs = outputs_phase(torch, build_trainer, load_config, wrappers,
+                            card, check_view)
+    torch.cuda.empty_cache()
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1192,8 +1245,8 @@ def run(torch) -> int:
             max_abs_err=errs[k], ms=tb["ms"],
             plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
-            **{h: tb[h] for h in ("host_loop_ms", "library_host_loop_ms")
-               if h in tb},
+            **{h: tb[h] for h in ("host_loop_ms", "library_host_loop_ms",
+                                  "floor_ms", "edge_case_ms") if h in tb},
             **({"design": RASTER_DESIGN[k[7:10]]} if k in RASTER else {}),
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
                    "2^20)",
@@ -1245,7 +1298,7 @@ def run(torch) -> int:
                       "train_ms_per_step": step_ms, "build_s": build_s,
                       "train_profile": profile_info, "sds": sds,
                       "sds_profile": sds_profile, "vsd": vsd,
-                      "vsd_profile": vsd_profile,
+                      "vsd_profile": vsd_profile, "outputs": outputs,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -1253,6 +1306,231 @@ def run(torch) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def k3_edge_cases(torch, dev, expansion_rank):
+    """K3 against its plain version, bitwise, on count patterns the render
+    shapes do not reach; returns {name: (cum, cap)}."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+
+    def counts(n, hi):
+        return torch.randint(0, hi, (n,), generator=g)
+
+    zero_runs = counts(60000, 8)
+    for a, b in ((0, 20000), (30000, 45000), (52000, 60000)):
+        zero_runs[a:b] = 0
+    # base.yaml's pattern: 65,536 rows, most of them zero-count
+    sparse = counts(65536, 40) * (torch.rand(65536, generator=g) < 0.02)
+    cases = {
+        "total 0": (torch.zeros(5000, dtype=torch.int64), 4096),
+        "total over cap": (counts(3000, 50), 3 * 4096 + 1234),
+        "N 1": (torch.tensor([7]), 4096),
+        "N 1 count 0": (torch.tensor([0]), 100),
+        "N 1 over cap": (torch.tensor([5000]), 4096),
+        "zero runs at start, middle and end": (zero_runs, 1 << 18),
+        "sparse rows, cap 2^20": (sparse, 1 << 20),
+        "ragged cap": (counts(10000, 3), 5 * 4096 + 3),
+        "cap 3": (torch.tensor([1, 1]), 3),
+    }
+    out = {}
+    for name, (c, cap) in cases.items():
+        cum = torch.cumsum(c, 0).to(torch.int32).to(dev)
+        require(torch.equal(expansion_rank.expansion_gid(cum, cap),
+                            expansion_rank.expansion_gid_plain(cum, cap)),
+                f"K3 differs from its plain version: {name}")
+        out[name] = (cum, cap)
+    return out
+
+
+def outputs_phase(torch, build_trainer, load_config, wrappers, card,
+                  check_view):
+    """Phase 11: ``gsgen_torch.main`` on configs/flagship_rehearsal.yaml for
+    3 steps with an eval image every step and the orbit video and a
+    checkpoint at step 2, into a temporary log root; the fine-tune as the
+    config sets it (32 poses, 4 epochs, 256^2) with K1-K4's counters read
+    around it, then K1-K4 held against their plain versions
+    (``check_view``) on the tuned scene at the first 64^2 and the first
+    256^2 view the fine-tune rendered, at the render config it used; ply,
+    splat and mesh; each output's seconds and bytes; the final checkpoint
+    loaded into a fresh trainer, every array equal."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gsgen_torch import main as main_mod
+    from gsgen_torch.io import checkpoint as ckpt_mod
+    from gsgen_torch.io import export as export_mod
+    from gsgen_torch.training import evaluation, upsample
+
+    cfg_path = ROOT / "configs" / "flagship_rehearsal.yaml"
+    overrides = ["trainer.eval_image_period=1", "trainer.eval_video_period=2",
+                 "trainer.save_period=2"]
+    seconds, tune, stamps, saved = {}, {}, [], []
+    patched, views = [], {}
+
+    def patch(mod, name, wrapper):
+        patched.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, wrapper(getattr(mod, name)))
+
+    def timed(key):
+        def wrap(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                seconds.setdefault(key, []).append(time.perf_counter() - t0)
+                if key == "save_checkpoint":
+                    saved.append(out)
+                return out
+            return call
+        return wrap
+
+    def counted(fn):
+        def call(trainer, ucfg, **kw):
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            losses = fn(trainer, ucfg, **kw)
+            torch.cuda.synchronize()
+            tune.update(seconds=time.perf_counter() - t0, losses=losses,
+                        launches={k: w.launches for k, w in wrappers.items()},
+                        num_poses=ucfg.num_poses, epoch=ucfg.epoch,
+                        reso=ucfg.reso, batch=ucfg.batch_size)
+            require(sorted(views) == sorted({64, ucfg.reso}),
+                    f"phase 11: fine-tune rendered at {sorted(views)}")
+            tune["kernel_checks"] = [
+                check_view(f"fine-tune {w}^2", trainer.state.scene, *views[w])
+                for w in sorted(views)]
+            return losses
+        return call
+
+    def recorded(fn):
+        """The first view the fine-tune renders at each resolution: its
+        camera, intrinsics and render config."""
+        def call(params, active, c2w, intr, rcfg, *a, **kw):
+            views.setdefault(intr.w, (c2w[0].detach().clone(), intr, rcfg))
+            return fn(params, active, c2w, intr, rcfg, *a, **kw)
+        return call
+
+    def stamped(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return out
+        return call
+
+    root = Path(tempfile.mkdtemp(prefix="gsgen_outputs_"))
+    patch(upsample, "tune_with_upsample", counted)
+    patch(upsample, "adam_update", stamped)
+    patch(upsample, "render_batch", recorded)
+    for mod, name in ((export_mod, "to_ply"), (export_mod, "to_splat"),
+                      (export_mod, "to_mesh"),
+                      (ckpt_mod, "save_checkpoint"),
+                      (evaluation, "eval_image"),
+                      (evaluation, "eval_video")):
+        patch(mod, name, timed(name))
+    try:
+        t0 = time.perf_counter()
+        rc = main_mod.main(["--config", str(cfg_path), "--steps", "3",
+                            "--log-root", str(root), *overrides])
+        wall_s = time.perf_counter() - t0
+        require(rc == 0, f"phase 11: gsgen_torch.main returned {rc}")
+        runs = [p for p in root.glob("*/*/*") if p.is_dir()]
+        require(len(runs) == 1, f"phase 11: run directories {runs}")
+        run = runs[0]
+
+        # the fine-tune: the 64^2 renders (K1, K3, K4), then every step's
+        # 256^2 render forward and backward (K1-K4), once per view
+        views_lo = tune["num_poses"] // tune["batch"] * tune["batch"]
+        views_hi = tune["epoch"] * views_lo
+        want = dict(raster_fwd=views_lo + views_hi, raster_bwd=views_hi,
+                    expansion_rank=views_lo + views_hi,
+                    gid_repack=views_lo + views_hi)
+        got = tune["launches"]
+        require(all(got[k] == want.get(k, 0) for k in got),
+                f"phase 11: fine-tune launches {got}, expected {want}")
+        losses = tune["losses"]
+        per_epoch = views_lo // tune["batch"]
+        require(len(losses) == tune["epoch"] * per_epoch
+                and all(math.isfinite(x) for x in losses)
+                and sum(losses[-per_epoch:]) < sum(losses[:per_epoch]),
+                f"phase 11: fine-tune losses {losses} (the last epoch's "
+                "must sum below the first's)")
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+
+        files = {p.relative_to(run).as_posix(): p for p in run.rglob("*")
+                 if p.is_file()}
+        for need in ("config.json", "scalars.jsonl",
+                     "ckpts/step_2/arrays.npz", "ckpts/step_3/arrays.npz",
+                     "eval/eval_image_000000.png",
+                     "eval/eval_image_000001.png",
+                     "eval/eval_image_000002.png", "exports/scene.ply",
+                     "exports/scene.splat", "exports/scene.obj"):
+            require(need in files and files[need].stat().st_size > 0,
+                    f"phase 11: {need} missing or empty in {sorted(files)}")
+        video = [k for k in files if "orbit" in k]
+        require(video, f"phase 11: no orbit video in {sorted(files)}")
+
+        # a fresh trainer of the same config resumes from the final
+        # checkpoint: every array equal
+        fresh = build_trainer(load_config(cfg_path, overrides),
+                              device="cuda")
+        require(fresh.load(run / "ckpts") == 3 and fresh.state.step == 3,
+                "phase 11: the final checkpoint is not step 3")
+        with np.load(run / "ckpts" / "step_3" / "arrays.npz") as data:
+            disk = dict(data)
+        mine = ckpt_mod.state_arrays(fresh.state, fresh.cfg.seed)
+        require(list(mine) == list(disk), "phase 11: checkpoint keys differ")
+        bad = [k for k in disk if not np.array_equal(mine[k], disk[k])]
+        require(not bad, f"phase 11: arrays differ after load: {bad}")
+        live = int(fresh.state.scene.active.sum())
+        del fresh
+        obj = files["exports/scene.obj"].read_text().splitlines()
+        faces = sum(1 for ln in obj if ln.startswith("f "))
+        require(faces > 0, "phase 11: the mesh has no face")
+        require(files["exports/scene.splat"].stat().st_size == 32 * live,
+                "phase 11: splat records != live Gaussians")
+        # an orbit of PNG frames (no imageio) counts as one output
+        sizes = {}
+        for k, p in files.items():
+            k = k.rsplit("/", 1)[0] if "/orbit_" in k else k
+            sizes[k] = sizes.get(k, 0) + p.stat().st_size
+        res = dict(
+            run_wall_s=wall_s, seconds=seconds, bytes=sizes,
+            video=sorted({k.rsplit("/", 1)[0] if "/orbit_" in k else k
+                          for k in video}), video_files=len(video),
+            live=live, mesh_faces=faces,
+            fine_tune=dict(launches=got, losses=losses,
+                           kernel_checks=tune["kernel_checks"],
+                           seconds=tune["seconds"],
+                           ms_per_step=step_ms,
+                           steps=len(losses), reso=tune["reso"],
+                           batch=tune["batch"]))
+    finally:
+        for mod, name, fn in reversed(patched):
+            setattr(mod, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"phase 11 outputs: ok | card {card} | gsgen_torch.main "
+          f"flagship_rehearsal.yaml --steps 3 {' '.join(overrides)}: "
+          f"{wall_s:.2f} s | fine-tune {len(losses)} steps at "
+          f"{tune['reso']}^2, batch {tune['batch']}: {tune['seconds']:.3f} s"
+          f" in all, median {med:.2f} ms/step (after the first), loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, launches {got} | K1-K4 "
+          "against their plain versions on the tuned scene: "
+          + " | ".join(tune["kernel_checks"]) + " | "
+          + " | ".join(f"{k} {', '.join(f'{x:.3f}' for x in v)} s"
+                       for k, v in seconds.items())
+          + " | bytes: " + ", ".join(
+              f"{k} {v}" for k, v in sorted(res["bytes"].items()))
+          + f" | orbit video: {res['video']} ({len(video)} files)"
+          f" | mesh faces {faces} | checkpoint loaded into a fresh "
+          "trainer: every array equal", flush=True)
+    return res
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

@@ -195,9 +195,10 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
     return bb
 
 
-def build_trainer(cfg: Dict, device="cuda") -> Trainer:
-    """Trainer for a loaded config, with its tensors on ``device``.  Sets
-    the port's precision policy first (fp32 without TF32,
+def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
+    """Trainer for a loaded config, with its tensors on ``device`` and its
+    periodic outputs going to ``logger`` (a ``RunLogger``; None writes
+    nothing).  Sets the port's precision policy first (fp32 without TF32,
     ``utils/precision.py``)."""
     exact_fp32()
     rcfg_d = dict(cfg.get("renderer", {}))
@@ -257,4 +258,4 @@ def build_trainer(cfg: Dict, device="cuda") -> Trainer:
     return Trainer(cfg=tcfg, rcfg=rcfg, init_cfg=init_cfg, bg_cfg=bg_cfg,
                    data_cfg=data_cfg, guidance=guidance, dcfg=dcfg,
                    pcfg=pcfg, prompt_processor=prompt_processor,
-                   device=device)
+                   device=device, logger=logger)

@@ -8,7 +8,10 @@ parameters (as numpy arrays) without importing it:
   except ATOMIC names that contain ``_<digit>`` (``linear_1``, ...);
 * leaf transforms: conv ``kernel`` [kh, kw, I, O] -> ``weight``
   [O, I, kh, kw]; dense ``kernel`` [I, O] -> ``weight`` [O, I]; norm
-  ``scale`` -> ``weight``; biases as they are.
+  ``scale`` -> ``weight``; biases as they are;
+* and back (:func:`torch_key_to_flax_path`, :func:`to_flax_leaf`), for the
+  checkpoints that the JAX package reads: a 2-D or 4-D ``weight`` is a
+  kernel, a 1-D one a norm scale (no embedding table is a trainable leaf).
 
 Reading safetensors is not ported: that package is not a dependency of
 the port.
@@ -67,6 +70,34 @@ def to_torch_leaf(kind: str, arr: np.ndarray) -> np.ndarray:
         if arr.ndim == 2:               # flax dense [I, O]
             return np.transpose(arr, (1, 0))
         raise ValueError(f"kernel with ndim {arr.ndim}")
+    return arr
+
+
+def torch_key_to_flax_path(key: str, ndim: int) -> Tuple[Tuple[str, ...],
+                                                        str]:
+    """torch key -> (flax param path, leaf kind); the inverse of
+    :func:`flax_path_to_torch_key` for kernels, scales and biases."""
+    *mods, leaf = key.split(".")
+    names = []
+    for p in mods:
+        if p.isdigit() and names:
+            names[-1] = f"{names[-1]}_{p}"
+        else:
+            names.append(p)
+    if leaf == "weight":
+        kind = "kernel" if ndim in (2, 4) else "scale"
+        return tuple(names) + (kind,), kind
+    if leaf == "bias":
+        return tuple(names) + ("bias",), "bias"
+    return tuple(names) + (leaf,), "raw"
+
+
+def to_flax_leaf(kind: str, arr: np.ndarray) -> np.ndarray:
+    """A torch leaf in flax's layout (the inverse of :func:`to_torch_leaf`)."""
+    if kind == "kernel":
+        if arr.ndim == 4:               # torch conv [O, I, kh, kw]
+            return np.transpose(arr, (2, 3, 1, 0))
+        return np.transpose(arr, (1, 0))
     return arr
 
 

@@ -7,48 +7,72 @@ r"""CLI entry point: train a text-to-3D Gaussian scene with the port.
     python -m gsgen_torch.main --config configs/base.yaml \
         --config configs/guidance/vsd.yaml --config configs/prompt/vsd.yaml \
         --steps 3
+    python -m gsgen_torch.main --config configs/flagship_rehearsal.yaml \
+        --steps 3
     python -m gsgen_torch.main --config configs/base.yaml ckpt=path/to/step_N
+    python -m gsgen_torch.main --config configs/flagship_rehearsal.yaml \
+        --tune-only ckpt=path/to/ckpts
 
 The first runs SDS on MockUNet, the second SDS on the SD 2.1 UNet and
 VAE with random weights (no weights are in the repository yet), the
 third VSD (LoRA and camera conditioning on the SD 2.1 UNet): several
-``--config`` files merge in order, as an ``include:`` list does.
-``ckpt=`` resumes from a checkpoint directory of the JAX package
-(``arrays.npz``).  Runs on the card unless ``--device cpu`` is given.
+``--config`` files merge in order, as an ``include:`` list does.  The
+flagship rehearsal also runs the upsample fine-tune after training and
+exports ply, splat and mesh.  ``ckpt=`` resumes from a checkpoint of
+either package (a ``step_N`` directory, or a ``ckpts`` directory whose
+latest step is taken); ``--tune-only`` then runs only the fine-tune.
+Runs on the card unless ``--device cpu`` is given.
 
-The port trains only.  A config that enables the upsample fine-tune
-(``upsample_tune.enabled``, as ``configs/flagship_rehearsal.yaml`` does)
-raises before any step (ROADMAP Queue 1 item 2).  Every run prints one
-line naming the outputs that the JAX package's ``main.py`` writes and the
-port does not yet: run directory and logs, checkpoints, the
-``export.types`` exports, eval images and video (ROADMAP Queue 1 item 1).
+As the JAX package's ``main.py`` does, a run writes, unless ``--no-log``,
+a run directory ``<log root>/<prompt>/<date>/<time>/`` with
+``config.json``, the code snapshot, ``scalars.jsonl``, eval images and
+orbit videos and periodic checkpoints (the trainer's periods), then the
+final checkpoint and the ``export.types`` exports (default ply and splat)
+under ``exports/``.  One printed line names what the JAX trainer would
+also write and the port does not yet: guidance samples and the profiler
+trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
-from pathlib import Path
-
-import numpy as np
+from typing import Optional
 
 
-def skipped_outputs(tcfg, export_types) -> str:
-    """The line naming what the JAX package's ``main.py`` would write under
-    the trainer config ``tcfg`` and ``export.types`` and the port does not
-    write yet; an output whose period is 0 is off there and left out."""
-    parts = ["run directory and logs", "the final checkpoint"]
-    if tcfg.save_period:
-        parts.append(f"checkpoints every {tcfg.save_period} steps")
-    if export_types:
-        parts.append("exports " + ", ".join(export_types))
-    for name, period in (("eval images", tcfg.eval_image_period),
-                         ("eval video", tcfg.eval_video_period),
-                         ("guidance samples", tcfg.guidance_eval_period)):
-        if period:
-            parts.append(f"{name} every {period} steps")
-    return ("not written (ROADMAP Queue 1 item 1; the JAX package's main.py "
-            "writes them): " + ", ".join(parts))
+def skipped_outputs(tcfg, has_sampler: bool) -> Optional[str]:
+    """The line naming what the JAX trainer writes under the trainer
+    config ``tcfg`` and the port does not yet (guidance samples, where the
+    guidance has a sampler there; the trace of ``profile_steps``), or None;
+    an output whose period is 0 is off there and left out."""
+    parts = []
+    if tcfg.guidance_eval_period and has_sampler:
+        parts.append(f"guidance samples every {tcfg.guidance_eval_period} "
+                     "steps (ROADMAP Queue 1 item 5)")
+    if tcfg.profile_steps is not None:
+        parts.append(f"the profiler trace of steps {list(tcfg.profile_steps)}")
+    if not parts:
+        return None
+    return ("not written (the JAX package's trainer writes them): "
+            + ", ".join(parts))
+
+
+def export_assets(trainer, types, base) -> None:
+    """Write ``scene.<type>`` (``obj`` for mesh) for each export type."""
+    from .io import export as ex
+    scene = trainer.state.scene
+    base.mkdir(parents=True, exist_ok=True)
+    for t in types:
+        path = base / f"scene.{t if t != 'mesh' else 'obj'}"
+        if t == "ply":
+            ex.to_ply(scene.params, scene.active, path)
+        elif t == "splat":
+            ex.to_splat(scene.params, scene.active, path, trainer.rcfg)
+        elif t == "mesh":
+            ex.to_mesh(scene.params, scene.active, trainer.rcfg, path)
+        else:
+            raise ValueError(f"export type {t!r}: ply, splat or mesh")
 
 
 def main(argv=None):
@@ -56,35 +80,47 @@ def main(argv=None):
     ap.add_argument("--config", action="append",
                     help="config file; repeat to merge overlays in order "
                          "(default: configs/base.yaml)")
+    ap.add_argument("--no-log", action="store_true",
+                    help="write no run directory, checkpoint or export")
+    ap.add_argument("--log-root", default="checkpoints",
+                    help="where run directories go (default: checkpoints)")
     ap.add_argument("--steps", type=int, default=None,
                     help="number of steps to run (default: to max_steps)")
+    ap.add_argument("--tune-only", action="store_true",
+                    help="skip training; run only the upsample fine-tune "
+                         "(with ckpt=)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*",
                     help="dotted config overrides, e.g. trainer.max_steps=100")
     args = ap.parse_intermixed_args(argv)
 
     from .config import build_trainer, load_config
-    from .training.trainer import train_state_from_jax_arrays
+    from .io.checkpoint import save_checkpoint
+    from .io.logging import RunLogger
 
     overrides = [o for o in args.overrides if "=" in o]
     ckpt = None
     for o in list(overrides):
         if o.startswith("ckpt="):
-            ckpt = Path(o.split("=", 1)[1])
+            ckpt = o.split("=", 1)[1]
             overrides.remove(o)
     cfg = load_config(args.config or ["configs/base.yaml"], overrides)
-    if (cfg.get("upsample_tune") or {}).get("enabled"):
-        raise NotImplementedError(
-            "upsample_tune.enabled: the upsample fine-tune after training "
-            "is not ported yet (ROADMAP Queue 1 item 2)")
-    trainer = build_trainer(cfg, device=args.device)
-    print(skipped_outputs(trainer.cfg, (cfg.get("export") or {}).get(
-        "types", ["ply", "splat"])), flush=True)
-    if ckpt is not None:
-        with np.load(ckpt / "arrays.npz") as data:
-            trainer.state = train_state_from_jax_arrays(dict(data),
-                                                        trainer.device)
-        print(f"resumed from {ckpt} at step {trainer.state.step}")
+    name = cfg.get("prompt", {}).get("prompt", "run")
+
+    logger = None
+    if not args.no_log:
+        logger = RunLogger(root=args.log_root, name=name)
+        logger.save_config(cfg)
+        logger.snapshot_code()
+        print(f"run dir: {logger.dir}", flush=True)
+
+    trainer = build_trainer(cfg, device=args.device, logger=logger)
+    line = skipped_outputs(trainer.cfg, trainer.prompt_processor is not None)
+    if line:
+        print(line, flush=True)
+    if ckpt:
+        step = trainer.load(ckpt)
+        print(f"resumed from {ckpt} at step {step}", flush=True)
 
     def cb(step, metrics):
         events = {k: v for k, v in metrics.items() if k.startswith("num_")}
@@ -96,7 +132,35 @@ def main(argv=None):
             print(f"step {step:6d} | loss {float(metrics['loss_total']):.6f}"
                   f" | n_dup {int(metrics['n_dup_max'])}", flush=True)
 
-    trainer.fit(args.steps, callback=cb)
+    up_d = dict(cfg.get("upsample_tune") or {})
+    tune_enabled = up_d.pop("enabled", False)
+    if not (tune_enabled and args.tune_only):
+        trainer.fit(args.steps, callback=cb)
+
+    if tune_enabled:
+        from .training.upsample import UpsampleTuneConfig, tune_with_upsample
+        known = {f.name for f in dataclasses.fields(UpsampleTuneConfig)}
+        ucfg = UpsampleTuneConfig(
+            **{k: v for k, v in up_d.items() if k in known})
+        print(f"upsample fine-tune: {ucfg.num_poses} poses, {ucfg.epoch} "
+              f"epochs at {ucfg.reso}^2", flush=True)
+        losses = tune_with_upsample(trainer, ucfg,
+                                    cache_uid=name.replace(" ", "_"))
+        if losses:
+            print(f"upsample fine-tune: loss {losses[0]:.6f} -> "
+                  f"{losses[-1]:.6f} in {len(losses)} steps", flush=True)
+
+    if logger is not None:
+        step_final = int(trainer.state.step)
+        save_checkpoint(logger.ckpt_dir, step_final, trainer.state,
+                        seed=trainer.cfg.seed)
+        exp = cfg.get("export") or {}
+        types = exp.get("types", ["ply", "splat"])
+        if types:
+            base = logger.dir / "exports"
+            export_assets(trainer, types, base)
+            print(f"exports: {base}", flush=True)
+        logger.close()
     return 0
 
 

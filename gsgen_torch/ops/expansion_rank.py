@@ -7,11 +7,16 @@ where ``cum`` is the inclusive cumsum of per-Gaussian duplicate counts
 of Gaussian ids that the binner sorts.
 
 Kernel K3 (``csrc/expansion_rank.cu``) replaces the JAX package's TPU kernel
-``ops/expansion_rank.py::_kernel``: one thread per slot, an
-upper-bound binary search over ``cum``.  What bounds it on the H100 is
-bytes (``cap`` int32 written; ``cum`` probes hit L2), and the design
-needs no window and no fallback branch, unlike the TPU's block merge.
-The plain version is the scatter + cumsum form the TPU kernel must equal.
+``ops/expansion_rank.py::_kernel``.  It merges the ``cum`` values with the
+slots (merge path): each block takes an equal share of the ``N + cap``
+merged items, finds its start by one search over ``cum`` that the whole
+block runs together, and merges its share out of shared memory; blocks
+past ``cum[N-1]`` only store ``N``.  Its yardstick is the byte bound
+(``N`` int32 read, ``cap`` int32 written), but what holds it on the H100
+is latency: the head blocks' two dependent trips to L2 and their barriers
+(``csrc/expansion_rank.cu``).  No window can overflow, so it needs no
+fallback branch, unlike the TPU's block merge.  The plain version is the
+scatter + cumsum form the TPU kernel must equal.
 """
 
 from __future__ import annotations

@@ -16,8 +16,15 @@ optimizer's leaves are the scene fields, the background (``bg/<name>``)
 and the guidance's trainable leaves (``gp/<name>``: VSD's LoRA and camera
 embedding, at ``lr_guidance``).
 
+With a ``logger`` (:class:`..io.logging.RunLogger`), ``fit`` logs scalars,
+field statistics, eval images and orbit videos and saves checkpoints on
+the JAX package's periods; :meth:`Trainer.load` resumes from a checkpoint
+of either package (:mod:`..io.checkpoint`).
+
 Not ported yet (``NotImplementedError``): DeepFloyd guidance, estimators,
-image-to-3D, auxiliary guidance, logging and checkpoints.
+image-to-3D, auxiliary guidance.  Guidance samples
+(``guidance_eval_period``) and trace capture (``profile_steps``) are
+accepted and not written.
 """
 
 from __future__ import annotations
@@ -58,8 +65,8 @@ class LossConfig:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """Same keys as the JAX package's TrainerConfig; the logging, eval,
-    profiling and estimator keys are accepted and have no effect here."""
+    """Same keys as the JAX package's TrainerConfig; ``guidance_eval_*``
+    and ``profile_steps`` are accepted and have no effect here."""
 
     max_steps: int = 15000
     batch_size: int = 4
@@ -176,7 +183,7 @@ class Trainer:
                  init_colors: Optional[np.ndarray] = None,
                  init_raw: Optional[Dict[str, np.ndarray]] = None,
                  prompt_processor: Optional[Any] = None,
-                 device="cuda"):
+                 device="cuda", logger: Optional[Any] = None):
         if cfg.estimators:
             raise NotImplementedError("estimators")
         for name in cfg.penalty:
@@ -190,6 +197,7 @@ class Trainer:
         self.pcfg = pcfg
         self.guidance = guidance or MockGuidance()
         self.prompt_processor = prompt_processor
+        self.logger = logger
         self.data = CameraPoseProvider(data_cfg, seed=cfg.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
@@ -207,6 +215,14 @@ class Trainer:
                        for k, v in cfg.lr.items()}
         self.dup_bucket = rcfg.dup_cap
         self._shrink_streak = 0
+
+    def load(self, ckpt_path) -> int:
+        """Resume from a checkpoint of either package (a ``step_N`` dir, or
+        a ``ckpts`` dir whose latest step is taken).  Build this Trainer
+        with the same configs first: its state is the shape template."""
+        from ..io.checkpoint import load_checkpoint
+        self.state, step = load_checkpoint(ckpt_path, self.state)
+        return step
 
     # ---- schedules (host side) ----
     def sched_scalars(self, step: int) -> Dict[str, float]:
@@ -412,9 +428,43 @@ class Trainer:
         start = self.state.step
         n = (n_steps if n_steps is not None
              else max(self.cfg.max_steps - start, 0))
+        eval_rng = np.random.default_rng(self.cfg.seed + 1)
         for step in range(start, start + n):
             metrics = self.train_step(step)
             dinfo = self.density_step(step)
             if callback is not None:
                 callback(step, {**metrics, **dinfo})
+            if self.logger is not None:
+                self._periodic_logging(step, metrics, eval_rng)
         return self.state
+
+    def _periodic_logging(self, step: int, metrics: Dict,
+                          eval_rng: np.random.Generator):
+        """Scalars, field statistics, the eval image, the orbit video and
+        a checkpoint, each on its period (0 turns it off); the video and
+        the checkpoint not at step 0."""
+        from ..io.checkpoint import save_checkpoint
+        from ..utils.profiling import field_stats
+        from .evaluation import eval_image, eval_video
+        cfg = self.cfg
+        log = self.logger
+        if step % cfg.log_period == 0:
+            m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+            m["num_gaussians"] = int(self.state.scene.active.sum())
+            m.update(self.sched_scalars(step))
+            log.log_scalars(step, m)
+        if cfg.field_stats_period and step % cfg.field_stats_period == 0:
+            log.log_scalars(step, field_stats(self.state.scene.params))
+        intr = self.data.intrinsics()
+        if cfg.eval_image_period and step % cfg.eval_image_period == 0:
+            log.log_image(step, "eval/image", eval_image(
+                self.state.scene, intr, self.rcfg, eval_rng,
+                cfg.eval_elevation, cfg.eval_camera_distance))
+        if cfg.eval_video_period and step % cfg.eval_video_period == 0 \
+                and step > 0:
+            log.log_video(step, "eval/orbit", eval_video(
+                self.state.scene, intr, self.rcfg, cfg.eval_n_frames,
+                elevation=cfg.eval_elevation,
+                camera_distance=cfg.eval_camera_distance))
+        if cfg.save_period and step % cfg.save_period == 0 and step > 0:
+            save_checkpoint(log.ckpt_dir, step, self.state, seed=cfg.seed)

@@ -65,6 +65,35 @@ def test_index_kernels_match_plain(cuda):
                        gid_repack.repack_gid_plain(*seen["args"]))
 
 
+def _k3_counts(case, rng):
+    """Per-Gaussian duplicate counts and cap of one K3 edge case."""
+    if case == "total 0":
+        return np.zeros(5000, np.int64), 4096
+    if case == "total over cap":
+        return rng.integers(0, 50, 3000), 3 * 4096 + 1234
+    if case == "N 1":
+        return np.array([7]), 4096
+    if case == "N 1 over cap":
+        return np.array([5000]), 4096
+    counts = rng.integers(0, 8, 60000)
+    if case == "zero runs":
+        for a, b in ((0, 20000), (30000, 45000), (52000, 60000)):
+            counts[a:b] = 0
+        return counts, 1 << 18
+    return rng.integers(0, 3, 10000), 5 * 4096 + 3    # ragged cap
+
+
+@pytest.mark.parametrize("case", ["total 0", "total over cap", "N 1",
+                                  "N 1 over cap", "zero runs", "ragged cap"])
+def test_expansion_rank_edge_cases(cuda, case):
+    """K3 bitwise equal to its plain version where the merge's shares
+    hold only cum entries, only slots, one entry, or a ragged end."""
+    counts, cap = _k3_counts(case, np.random.default_rng(1))
+    cum = t(np.cumsum(counts).astype(np.int32)).to(cuda)
+    assert torch.equal(expansion_rank.expansion_gid(cum, cap),
+                       expansion_rank.expansion_gid_plain(cum, cap))
+
+
 @pytest.mark.parametrize("F", [3, 5])
 def test_raster_kernels_match_plain(cuda, F):
     mean2d, cov2d, alpha, feats, depth = scene2d(80, 2, F=F)
