@@ -90,6 +90,20 @@ Phases, each reported on its own line:
    phase 5 prints K3 (render shapes and edge cases), torch.searchsorted
    and a one-element add (the floor that launch spacing sets) in device
    time;
+12. point_e: FPS at capacity 65,536 (4,096 active, 1,024 samples), one
+   base40M-textvec forward at full width and the aux loss and its mean
+   gradient (TINY) on the card against the CPU; the forward's device time
+   at the aux batch [8, 6, 1024]; ``point_e_generate`` on seeded
+   random-weight base40M-textvec and upsample ``.pt`` checkpoints (64 + 64
+   Karras steps) into a temporary GSGEN_ASSET_DIR, its seconds, then a
+   cache hit; 3 steps of configs/corgi.yaml with the SD 2.1 overrides,
+   ``init.type=point_e`` on those checkpoints and the aux guidance on
+   base40M-textvec (1,024 points, batch 4) at 512^2, batch 4, with the
+   launch counters read around them, ``loss_aux`` finite and non-zero and
+   the aux term's mean gradient non-zero; one such step under
+   torch.profiler with a "point_e" part (FPS and the transformer) and
+   FPS's device ops (trace: gsgen_torch/_build/point_e_step_trace.json);
+   2 steps of configs/corgi.yaml as it ships (mock aux, MockUNet);
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -1214,6 +1228,10 @@ def run(torch) -> int:
                             card, check_view)
     torch.cuda.empty_cache()
 
+    # ---- phase 12: Point-E (the init and the aux guidance) ----
+    point_e = point_e_phases(torch, dev, build_trainer, load_config,
+                             wrappers, card)
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1299,6 +1317,7 @@ def run(torch) -> int:
                       "train_profile": profile_info, "sds": sds,
                       "sds_profile": sds_profile, "vsd": vsd,
                       "vsd_profile": vsd_profile, "outputs": outputs,
+                      "point_e": point_e,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -1912,6 +1931,270 @@ def compactness_event(torch, trainer):
     return res
 
 
+POINT_E_PROMPT = "A high quality photo of a furry corgi"   # corgi.yaml's
+
+
+def point_e_checkpoints(torch, folder):
+    """Seeded random-weight ``.pt`` state dicts of base40M-textvec and the
+    upsampler at full width, ``output_proj`` filled (a fresh Point-E model
+    predicts exactly 0)."""
+    from gsgen_torch.guidance.point_e import (BASE40M_TEXTVEC, UPSAMPLE_CFG,
+                                              PointEModel,
+                                              PointEUpsamplerModel)
+    paths = {}
+    for i, (name, cls, cfg) in enumerate((
+            ("base40M-textvec", PointEModel, BASE40M_TEXTVEC),
+            ("upsample", PointEUpsamplerModel, UPSAMPLE_CFG))):
+        model = cls(cfg, device="cpu", seed=40 + i)
+        g = torch.Generator().manual_seed(50 + i)
+        state = model.module.state_dict()
+        for k in ("output_proj.weight", "output_proj.bias"):
+            state[k] = torch.randn(state[k].shape, generator=g) * 0.02
+        paths[name] = folder / f"{name}.pt"
+        torch.save(state, paths[name])
+    return paths
+
+
+def point_e_phases(torch, dev, build_trainer, load_config, wrappers, card):
+    """Phase 12: Point-E.  (a) card against CPU: FPS at capacity 65,536
+    (4,096 active, 1,024 samples), one base40M-textvec forward at full
+    width [2, 6, 1024], the aux loss and its mean gradient on TINY; the
+    forward's device time at the aux batch [8, 6, 1024].  (b) the init:
+    ``point_e_generate`` on seeded random-weight checkpoints (64 + 64
+    Karras steps) into a temporary GSGEN_ASSET_DIR, then again from the
+    cache.  (c) 3 steps of configs/corgi.yaml with the SD 2.1 overrides,
+    ``init.type=point_e`` on those checkpoints and the aux guidance on
+    base40M-textvec, with the launch counters read around them; the aux
+    term's loss and mean gradient.  (d) one such step profiled, device
+    time split with a point_e part (FPS + transformer).  (e) corgi.yaml
+    as it ships (mock aux, MockUNet) for 2 steps."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gsgen_torch.guidance.point_e import (BASE40M_TEXTVEC, TINY_POINT_E,
+                                              PointEModel)
+    from gsgen_torch.guidance.point_e_aux import (PointEAuxConfig,
+                                                  PointEAuxGuidance)
+    from gsgen_torch.models.scene import activate
+    from gsgen_torch.ops import cuda_lib
+    from gsgen_torch.priors import point_e_generate
+    from gsgen_torch.utils.ops import farthest_point_sampling
+
+    res = {}
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(60)
+
+    # (a) FPS at the aux guidance's shape, card against CPU
+    pts = torch.zeros(65536, 3)
+    pts[:4096] = torch.randn(4096, 3, generator=g) * 0.8
+    mask = torch.arange(65536) < 4096
+    pts_d, mask_d = pts.to(dev), mask.to(dev)
+    fps_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_d = farthest_point_sampling(pts_d, 1024, mask=mask_d)
+        torch.cuda.synchronize()
+        fps_ms.append(1e3 * (time.perf_counter() - t0))
+    idx_d = idx_d.cpu()
+    idx_c = farthest_point_sampling(pts, 1024, mask=mask)
+    n_diff = int((idx_d != idx_c).sum())
+    prof_err = 0.0
+    if n_diff:
+        pd, pc = fps_profile(torch, pts, idx_d), fps_profile(torch, pts, idx_c)
+        prof_err = float(((pd - pc).abs() / pc.abs().clamp(min=1e-30))
+                         .max())
+        require(prof_err <= 1e-5, f"FPS card vs CPU: {n_diff} indices differ "
+                f"and the min-distance profiles by {prof_err:.2e} relative")
+    require(bool(mask[idx_d.long()].all()), "FPS picked a masked row")
+
+    # (a) base40M-textvec at full width, card against CPU
+    m_cpu = PointEModel(BASE40M_TEXTVEC, device="cpu", seed=61)
+    with torch.no_grad():
+        for p in (m_cpu.module.output_proj.weight,
+                  m_cpu.module.output_proj.bias):
+            p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+    m_dev = PointEModel(BASE40M_TEXTVEC, device=dev).load_weights(
+        m_cpu.module.state_dict())
+    x = torch.randn(2, 6, 1024, generator=g)
+    tt = torch.tensor([10.0, 900.0])
+    cond = torch.randn(2, 768, generator=g)
+    with torch.no_grad():
+        want = m_cpu.apply(x, tt, cond)
+        got = m_dev.apply(x.to(dev), tt.to(dev), cond.to(dev)).cpu()
+    fwd_err = float((got - want).abs().max() / want.abs().max())
+    require(bool(torch.isfinite(got).all()) and fwd_err <= 1e-4,
+            f"base40M forward card vs CPU: {fwd_err:.2e} of max")
+    x8 = torch.randn(8, 6, 1024, device=dev)
+    t8 = torch.randint(20, 1003, (8,), device=dev)
+    with torch.no_grad():
+        for _ in range(2):
+            m_dev.predict_noise(x8, t8, None)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(10):
+            m_dev.predict_noise(x8, t8, None)
+        ev[1].record()
+        torch.cuda.synchronize()
+    fwd8_ms = ev[0].elapsed_time(ev[1]) / 10
+    del m_cpu, m_dev
+
+    # (a) the aux loss and its mean gradient on TINY, card against CPU
+    acfg = PointEAuxConfig(num_points=256, batch_size=4, base_name="tiny")
+    tiny = PointEModel(TINY_POINT_E, device="cpu", seed=62)
+    with torch.no_grad():
+        tiny.module.output_proj.weight.normal_(0.0, 0.3, generator=g)
+    mean = torch.randn(4096, 3, generator=g)
+    color = torch.rand(4096, 3, generator=g)
+    act = torch.arange(4096) < 3000
+    t_aux = torch.randint(20, 1003, (4,), generator=g)
+    noise = torch.randn(4, 6, 256, generator=g)
+    text = torch.randn(77, 1024, generator=g)
+    aux_out = []
+    for d in (cpu, dev):
+        guid = PointEAuxGuidance(acfg, device=d, model=PointEModel(
+            TINY_POINT_E, device=d).load_weights(tiny.module.state_dict()))
+        m = mean.to(d).detach().requires_grad_(True)
+        out = guid.loss(m, color.to(d), act.to(d), text.to(d),
+                        t=t_aux.to(d), noise=noise.to(d))
+        out["loss_aux"].backward()
+        aux_out.append((float(out["loss_aux"].detach()), m.grad.cpu()))
+    (l_c, g_c), (l_d, g_d) = aux_out
+    aux_gerr = float((g_d - g_c).abs().max() / g_c.abs().max())
+    require(abs(l_d - l_c) <= 1e-4 * abs(l_c) and aux_gerr <= 1e-4,
+            f"TINY aux loss card {l_d} vs CPU {l_c}, mean grad {aux_gerr:.2e}")
+    res["card_vs_cpu"] = dict(
+        fps_indices_differing=n_diff, fps_profile_rel_err=prof_err,
+        fps_host_ms=fps_ms, base40m_fwd_rel_err=fwd_err,
+        base40m_fwd_b8_ms=fwd8_ms, aux_loss=[l_c, l_d],
+        aux_grad_rel_err=aux_gerr)
+    print(f"phase 12 point_e: ok | card {card} | FPS 65,536 rows (4,096 "
+          f"active) x 1,024 samples: {n_diff} indices differ from the CPU's"
+          f" (profile err {prof_err:.1e}), host ms "
+          f"{[round(v, 2) for v in fps_ms]} | base40M-textvec [2, 6, 1024] "
+          f"card vs CPU {fwd_err:.2e} of max; [8, 6, 1024] forward "
+          f"{fwd8_ms:.3f} ms (CUDA events, fp32, TF32 off) | TINY aux loss "
+          f"card {l_d:.6g} vs CPU {l_c:.6g}, mean grad err {aux_gerr:.1e}",
+          flush=True)
+
+    # (b) the text -> cloud init on random-weight checkpoints
+    tmp = Path(tempfile.mkdtemp(prefix="gsgen_point_e_"))
+    old_env = os.environ.get("GSGEN_ASSET_DIR")
+    os.environ["GSGEN_ASSET_DIR"] = str(tmp / "assets")
+    try:
+        ckpts = point_e_checkpoints(torch, tmp)
+        kw = dict(base_weights=str(ckpts["base40M-textvec"]),
+                  upsample_weights=str(ckpts["upsample"]),
+                  karras_steps=(64, 64), device="cuda")
+        init_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xyz, rgb = point_e_generate(POINT_E_PROMPT, **kw)
+            torch.cuda.synchronize()
+            init_s.append(time.perf_counter() - t0)
+            if len(init_s) == 1:
+                first = (xyz, rgb)
+        cache = list((tmp / "assets").glob("point_e_*.npz"))
+        require(xyz.shape == (4096, 3) and np.isfinite(xyz).all()
+                and np.isfinite(rgb).all(), f"init cloud {xyz.shape}")
+        require(len(cache) == 1 and np.array_equal(xyz, first[0])
+                and np.array_equal(rgb, first[1]),
+                "the second point_e_generate did not read the cache")
+        res["init"] = dict(seconds=init_s[0], cached_seconds=init_s[1],
+                           points=int(xyz.shape[0]),
+                           xyz_absmax=float(np.abs(xyz).max()),
+                           rgb_mean=float(rgb.mean()))
+        print(f"phase 12 point_e: ok | card {card} | init: point_e_generate "
+              f"(base40M-textvec + upsample, 64 + 64 Karras steps, random "
+              f"weights) {init_s[0]:.3f} s -> {xyz.shape[0]} finite points "
+              f"(|xyz| max {res['init']['xyz_absmax']:.3f}); again from the "
+              f"cache {init_s[1]:.4f} s", flush=True)
+
+        # (c) corgi.yaml + SD 2.1 + Point-E init and aux at full width
+        over = SLICE + [
+            "init.type=point_e",
+            f"init.point_e_base={ckpts['base40M-textvec']}",
+            f"init.point_e_upsample={ckpts['upsample']}",
+            "auxiliary.base_name=base40M-textvec",
+            f"auxiliary.weights_path={ckpts['base40M-textvec']}"]
+        aux_losses = []
+        trainer, run = drive(
+            torch, build_trainer, load_config, wrappers, "corgi.yaml", over,
+            3, dict(flash_attn_fwd=5),
+            on_step=lambda tr, s, m: aux_losses.append(float(m["loss_aux"])))
+        require(all(math.isfinite(v) and v != 0.0 for v in aux_losses),
+                f"corgi + SD 2.1 + Point-E: loss_aux {aux_losses}")
+        sc = trainer.state.scene
+        m = sc.params["mean"].detach().requires_grad_(True)
+        col = activate({**sc.params, "mean": m}, trainer.rcfg)[3]
+        ag = trainer.aux_guidance.loss(m, col, sc.active,
+                                       trainer.prompt_processor().text,
+                                       generator=trainer.generator)
+        ag["loss_aux"].backward()
+        aux_gmax = float(m.grad.abs().max())
+        aux_rows = int((m.grad.abs().sum(-1) > 0).sum())
+        require(aux_gmax > 0, "the aux term gave the mean no gradient")
+        res["corgi_sd21"] = dict(run, loss_aux=aux_losses,
+                                 aux_mean_grad_max=aux_gmax,
+                                 aux_mean_grad_rows=aux_rows)
+        print(f"phase 12 point_e: ok | card {card} | {run['config']}: "
+              f"{run['steps']} steps, batch {run['batch']}, {run['reso']}^2 |"
+              f" loss_aux {aux_losses} | aux mean grad max {aux_gmax:.3e} on "
+              f"{aux_rows} rows | losses {run['losses']} | ms/step "
+              f"{[round(v, 2) for v in run['ms_per_step']]} | peak "
+              f"{run['peak_gib']:.2f} GiB | launches {run['launches']}",
+              flush=True)
+
+        # (d) one profiled step
+        res["profile"] = profile_step(
+            torch, trainer, cuda_lib.BUILD / "point_e_step_trace.json",
+            False, phase="12 point_e")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        if old_env is None:
+            os.environ.pop("GSGEN_ASSET_DIR", None)
+        else:
+            os.environ["GSGEN_ASSET_DIR"] = old_env
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) corgi.yaml as it ships: mock aux on MockUNet
+    mock_aux = []
+    other, r = drive(torch, build_trainer, load_config, wrappers,
+                     "corgi.yaml", [], 2, {},
+                     on_step=lambda tr, s, m: mock_aux.append(
+                         float(m["loss_aux"])))
+    require(all(math.isfinite(v) and v != 0.0 for v in mock_aux),
+            f"corgi.yaml: loss_aux {mock_aux}")
+    r["loss_aux"] = mock_aux
+    del other
+    torch.cuda.empty_cache()
+    res["corgi"] = r
+    print(f"phase 12 point_e: ok | corgi.yaml as it ships (mock aux, "
+          f"MockUNet): 2 steps, batch {r['batch']}, {r['reso']}^2 | losses "
+          f"{r['losses']} | loss_aux {mock_aux} | ms/step "
+          f"{[round(v, 2) for v in r['ms_per_step']]} | launches "
+          f"{r['launches']}", flush=True)
+    return res
+
+
+def fps_profile(torch, points, idx):
+    """The squared distance of each farthest-point pick to the picks before
+    it: what FPS maximises at each step, the same for two index orders
+    that differ only where a last-ulp tie reordered them."""
+    p = points[idx.long()]
+    mind = torch.full((len(idx),), float("inf"))
+    out = [torch.zeros(())]
+    for k in range(1, len(idx)):
+        mind = torch.minimum(mind, torch.sum((p - p[k - 1]) ** 2, dim=-1))
+        out.append(mind[k])
+    return torch.stack(out)
+
+
 def profile_step(torch, trainer, trace, vsd, phase=None):
     """Phase 8 (SDS), the end of phase 9 (VSD) and phase 10 (SDS in the
     compact layout): one step under
@@ -1923,9 +2206,12 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
     reaching the LoRA pass's output until the VAE backward starts: the
     autograd engine takes the later-recorded UNet branch first.  Other
     launches from the backward thread are the render backward, the rest is
-    "other" (optimizer, losses, guidance glue)."""
+    "other" (optimizer, losses, guidance glue).  With an auxiliary
+    guidance (phase 12), its loss is the "point_e" part (FPS and the
+    Point-E transformer); FPS's own launches are counted too."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    import gsgen_torch.guidance.point_e_aux as aux_mod
     import gsgen_torch.training.trainer as trainer_mod
 
     bb = trainer.guidance.backbone
@@ -1980,6 +2266,21 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
                 return orig_pred(*a, **kw)
 
         bb.predict_noise = predict_noise
+    aux = trainer.aux_guidance
+    orig_fps = aux_mod.farthest_point_sampling
+    if aux is not None:
+        orig_aux = aux.loss
+
+        def aux_loss(*a, **kw):
+            with record_function("step:point_e"):
+                return orig_aux(*a, **kw)
+
+        def fps(*a, **kw):
+            with record_function("step:fps"):
+                return orig_fps(*a, **kw)
+
+        aux.loss = aux_loss
+        aux_mod.farthest_point_sampling = fps
     trainer_mod.render_batch = render_batch
     bb.encode_images = encode_images
     try:
@@ -1992,6 +2293,9 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
         trainer_mod.render_batch = orig_render
+        aux_mod.farthest_point_sampling = orig_fps
+        if aux is not None:
+            del aux.loss
         del bb.encode_images
         if vsd:
             del bb.unet.forward
@@ -2012,20 +2316,28 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
     bwd_tids = {tid for name, _, _, tid in spans if name == "vae_bwd"}
 
     def group(e):
+        """The innermost span around the op's launch."""
         hit = launch.get(e.get("args", {}).get("correlation"))
         if hit is None:
             return "unattributed"
         ts, tid = hit
+        inner = None
         for name, a, b, stid in spans:
-            if stid == tid and a <= ts <= b:
-                return "vae" if name.startswith("vae") else name
+            if stid == tid and a <= ts <= b and (inner is None
+                                                 or a > inner[1]):
+                inner = (name, a)
+        if inner is not None:
+            return "vae" if inner[0].startswith("vae") else inner[0]
         return "render" if tid in bwd_tids else "other"
 
     # a part's device ms is the union of its ops' spans: cuDNN runs some
     # fp32 convolutions on side streams, so kernel times overlap
-    by_group, by_name = {}, {}
+    by_group, by_name, fps_ev = {}, {}, []
     for e in dev_ev:
         grp = group(e)
+        if grp == "fps":
+            fps_ev.append(e)
+            grp = "point_e"
         by_group.setdefault(grp, []).append(e)
         key = (grp, kernel_key(e["name"]))
         by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
@@ -2038,6 +2350,17 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
                 device_ops_per_step=len(dev_ev), device_streams=len(streams),
                 device_ms_by_part=by_group,
                 top_device_ms=[[g, k, v] for (g, k), v in top])
+    fps_note = ""
+    if aux is not None:
+        fps_host = [e["dur"] / 1e3 for e in ev
+                    if e.get("cat") == "user_annotation"
+                    and e["name"] == "step:fps"]
+        info.update(fps_device_ops_per_step=len(fps_ev),
+                    fps_device_ms=busy_us(fps_ev) / 1e3,
+                    fps_host_ms=sum(fps_host))
+        fps_note = (f" | FPS: {len(fps_ev)} device ops, "
+                    f"{info['fps_device_ms']:.2f} device ms, "
+                    f"{info['fps_host_ms']:.2f} host ms in the step")
     phase = phase or ("9 vsd" if vsd else "8 sds")
     print(f"phase {phase} profile: ok 1 "
           f"traced step, {wall_ms:.2f} ms, device "
@@ -2047,7 +2370,7 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
           "ops' spans): " + ", ".join(
               f"{k} {v:.2f}" for k, v in sorted(by_group.items(),
                                                  key=lambda kv: -kv[1]))
-          + " | top (summed kernel ms): " + "; ".join(
+          + fps_note + " | top (summed kernel ms): " + "; ".join(
               f"[{g}] {k} {v:.3f} ms" for (g, k), v in top), flush=True)
     return info
 

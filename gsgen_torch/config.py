@@ -5,7 +5,8 @@ file, deep-merges its ``include:`` list and applies dotted CLI overrides
 with YAML-typed values (``guidance.type=mock``); ``build_trainer`` wires
 the subsystems the port has from the same ``configs/`` tree: guidance
 ``mock``, ``sds`` and ``vsd`` (on ``MockUNet`` or the SD UNet + VAE
-backbone).
+backbone), the Point-E ``auxiliary`` guidance, and the ``base`` and
+``point_e`` inits.
 """
 
 from __future__ import annotations
@@ -222,8 +223,9 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
     data_d.setdefault("max_steps", tcfg.max_steps)
     data_cfg = _from_dict(CameraSamplerConfig, data_d)
 
-    init_d = {k: v for k, v in cfg.get("init", {}).items()
-              if k not in _INIT_PASSTHROUGH}
+    init_d = dict(cfg.get("init", {}))
+    init_extra = {k: init_d.pop(k) for k in list(init_d)
+                  if k in _INIT_PASSTHROUGH}
     init_cfg = _from_dict(InitConfig, init_d)
 
     g_d = dict(cfg.get("guidance", {}))
@@ -251,11 +253,56 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
                                device=device)
     else:
         raise NotImplementedError(f"guidance type {g_type}")
-    for block in ("auxiliary", "image"):
-        sub = cfg.get(block) or {}
-        if sub.get("enabled") or sub.get("path"):
-            raise NotImplementedError(block)
+    img_d = cfg.get("image") or {}
+    if img_d.get("enabled") or img_d.get("path"):
+        raise NotImplementedError("image")
+    aux_guidance = _build_aux_guidance(dict(cfg.get("auxiliary") or {}),
+                                       device)
+
+    init_points = init_colors = None
+    if init_cfg.type == "point_e":
+        # the generative prior at trainer init (reference
+        # utils/initialize.py:110-167): the asset cache or the in-process
+        # two-stage sampler, then a point_cloud init on those arrays
+        from .priors import point_e_init_arrays
+        init_points, init_colors = point_e_init_arrays(
+            cfg.get("prompt", {}).get("prompt", ""),
+            num_points=init_cfg.num_points, mean_std=init_cfg.mean_std,
+            z_scale=init_extra.get("z_scale", 1.0),
+            random_exceed=init_extra.get("random_exceed", False),
+            seed=init_extra.get("seed", 0),
+            base_weights=init_extra.get("point_e_base"),
+            upsample_weights=init_extra.get("point_e_upsample"),
+            clip_model_dir=init_extra.get("clip_model_dir"),
+            karras_steps=tuple(init_extra.get("karras_steps", (64, 64))),
+            device=device)
+        if cfg.get("init", {}).get("random_color", False):
+            init_colors = None       # random colours, only if set
+        init_cfg = dataclasses.replace(init_cfg, type="point_cloud")
+    elif init_cfg.type == "point_cloud":
+        raise NotImplementedError("init.type point_cloud: the init_asset "
+                                  "loader is not ported yet")
     return Trainer(cfg=tcfg, rcfg=rcfg, init_cfg=init_cfg, bg_cfg=bg_cfg,
                    data_cfg=data_cfg, guidance=guidance, dcfg=dcfg,
-                   pcfg=pcfg, prompt_processor=prompt_processor,
-                   device=device, logger=logger)
+                   pcfg=pcfg, init_points=init_points,
+                   init_colors=init_colors,
+                   prompt_processor=prompt_processor,
+                   aux_guidance=aux_guidance, device=device, logger=logger)
+
+
+def _build_aux_guidance(aux_d: Dict, device):
+    """The ``auxiliary`` block (reference conf/base.yaml:176-190): Point-E
+    SDS on the Gaussian means, or None when it is not enabled."""
+    if not aux_d.pop("enabled", False):
+        return None
+    aux_type = aux_d.pop("type", "point_e")
+    if aux_type != "point_e":
+        raise NotImplementedError(f"auxiliary type {aux_type}")
+    clip_dir = aux_d.pop("clip_model_id", None)
+    if clip_dir:
+        raise NotImplementedError(
+            f"auxiliary.clip_model_id {clip_dir!r}: the CLIP text tower is "
+            "not ported yet (ROADMAP Queue 1 item 7)")
+    from .guidance.point_e_aux import PointEAuxConfig, PointEAuxGuidance
+    return PointEAuxGuidance(_from_dict(PointEAuxConfig, aux_d),
+                             device=device)

@@ -13,16 +13,19 @@ parameters (as numpy arrays) without importing it:
   checkpoints that the JAX package reads: a 2-D or 4-D ``weight`` is a
   kernel, a 1-D one a norm scale (no embedding table is a trainable leaf).
 
-Reading safetensors is not ported: that package is not a dependency of
-the port.
+:func:`read_state_dict` reads a state dict from a ``.pt`` file (torch's own
+reader, tensors only).  Reading safetensors is not ported: that package
+is not a dependency of the port.
 """
 
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
+import torch
 
 # flax attribute names that contain "_<digit>" but are single torch
 # names, not list entries
@@ -123,3 +126,18 @@ def flax_to_torch_state(params: Mapping) -> Dict[str, np.ndarray]:
         key, kind = flax_path_to_torch_key(path)
         out[key] = np.ascontiguousarray(to_torch_leaf(kind, leaf))
     return out
+
+
+def read_state_dict(path_or_state) -> Mapping:
+    """A state dict as it is, or read from a file that ``torch.save`` wrote
+    (``torch.load(weights_only=True)``, onto the CPU).  A ``.safetensors``
+    file raises: its reader is not a dependency of the port."""
+    if isinstance(path_or_state, Mapping):
+        return path_or_state
+    path = Path(path_or_state)
+    if path.suffix == ".safetensors":
+        raise NotImplementedError(
+            f"{path}: reading safetensors needs the safetensors package, "
+            "which the port does not depend on; save the state dict with "
+            "torch.save as a .pt file")
+    return torch.load(path, map_location="cpu", weights_only=True)

@@ -9,6 +9,11 @@ r"""CLI entry point: train a text-to-3D Gaussian scene with the port.
         --steps 3
     python -m gsgen_torch.main --config configs/flagship_rehearsal.yaml \
         --steps 3
+    python -m gsgen_torch.main --config configs/corgi.yaml \
+        guidance.backbone=sd_unet guidance.backbone_preset=sd21 \
+        guidance.backbone_dtype=bfloat16 init.type=point_e \
+        init.point_e_base=base.pt init.point_e_upsample=upsample.pt \
+        auxiliary.base_name=base40M-textvec auxiliary.weights_path=base.pt
     python -m gsgen_torch.main --config configs/base.yaml ckpt=path/to/step_N
     python -m gsgen_torch.main --config configs/flagship_rehearsal.yaml \
         --tune-only ckpt=path/to/ckpts
@@ -18,7 +23,9 @@ VAE with random weights (no weights are in the repository yet), the
 third VSD (LoRA and camera conditioning on the SD 2.1 UNet): several
 ``--config`` files merge in order, as an ``include:`` list does.  The
 flagship rehearsal also runs the upsample fine-tune after training and
-exports ply, splat and mesh.  ``ckpt=`` resumes from a checkpoint of
+exports ply, splat and mesh.  The corgi run starts from a Point-E cloud
+(sampled from the ``.pt`` checkpoints, or read from the asset cache) and
+adds the Point-E SDS on the Gaussian means to every step.  ``ckpt=`` resumes from a checkpoint of
 either package (a ``step_N`` directory, or a ``ckpts`` directory whose
 latest step is taken); ``--tune-only`` then runs only the fine-tune.
 Runs on the card unless ``--device cpu`` is given.

@@ -1,11 +1,12 @@
 """Scene initializers.
 
-Port of the JAX package's ``models/init.py`` for the ``base`` init type (a
-Gaussian blob), drawn from a ``torch.Generator``.  Callers may inject the
-draws as arrays instead (``points``, ``colors``) or a whole raw scene
-(``raw_values``, e.g. from a JAX checkpoint), which is how the tests
-start both packages from the same scene.  The other init types wait for
-later slices.
+Port of the JAX package's ``models/init.py`` for two init types: ``base``
+(a Gaussian blob drawn from a ``torch.Generator``) and ``point_cloud``
+(given ``points``, e.g. a Point-E cloud; ``facex`` turns it from
+Point-E's +x-facing convention).  ``colors`` replace the random colours of
+either; a whole raw scene (``raw_values``, e.g. from a JAX checkpoint)
+replaces everything, which is how the tests start both packages from the
+same scene.  The other init types wait for later slices.
 """
 
 from __future__ import annotations
@@ -45,16 +46,22 @@ def initialize(cfg: InitConfig, render_cfg: RenderConfig,
             mean, *(torch.as_tensor(np.array(raw_values[k]), **f32)
                     for k in ("qvec", "svec", "color", "alpha")),
             render_cfg, capacity=cfg.capacity or mean.shape[0], raw=True)
-    if cfg.type != "base":
-        raise NotImplementedError(f"init type {cfg.type}")
     if cfg.knn_scale or cfg.svec_val <= 0.0:
         raise NotImplementedError("knn_scale init")
     n = cfg.num_points
-    if points is not None:
+    if cfg.type == "base":
+        mean = torch.randn(n, 3, generator=generator, **f32) * cfg.mean_std
+    elif cfg.type == "point_cloud":
+        if points is None:
+            raise ValueError("point_cloud init needs points")
         mean = torch.as_tensor(np.array(points)[:, :3], **f32)
         n = mean.shape[0]
+        if cfg.facex:
+            # Point-E's convention (utils/initialize.py:152-156):
+            # (x, y, z) -> (-y, x, z)
+            mean = torch.stack([-mean[:, 1], mean[:, 0], mean[:, 2]], dim=1)
     else:
-        mean = torch.randn(n, 3, generator=generator, **f32) * cfg.mean_std
+        raise NotImplementedError(f"init type {cfg.type}")
     if colors is not None:
         color = torch.as_tensor(np.array(colors)[:, :3], **f32)
     elif cfg.random_color:

@@ -11,8 +11,11 @@ bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
 compile-ahead threads have no counterpart.
 
 Guidance is ``MockGuidance``, SDS (:mod:`..guidance.sds`) or VSD
-(:mod:`..guidance.vsd`); the SD backbone freezes its own weights.  The
-optimizer's leaves are the scene fields, the background (``bg/<name>``)
+(:mod:`..guidance.vsd`); the SD backbone freezes its own weights.  An
+auxiliary guidance (:mod:`..guidance.point_e_aux`: SDS of a point-cloud
+diffusion model on the Gaussian means) adds ``w_aux · loss_aux`` to the
+same loss, so its gradient reaches the means through the same backward.
+The optimizer's leaves are the scene fields, the background (``bg/<name>``)
 and the guidance's trainable leaves (``gp/<name>``: VSD's LoRA and camera
 embedding, at ``lr_guidance``).
 
@@ -22,7 +25,7 @@ the JAX package's periods; :meth:`Trainer.load` resumes from a checkpoint
 of either package (:mod:`..io.checkpoint`).
 
 Not ported yet (``NotImplementedError``): DeepFloyd guidance, estimators,
-image-to-3D, auxiliary guidance.  Guidance samples
+image-to-3D.  Guidance samples
 (``guidance_eval_period``) and trace capture (``profile_steps``) are
 accepted and not written.
 """
@@ -43,7 +46,7 @@ from ..models.background import (BackgroundConfig, apply_background,
 from ..models.density import (DensifyConfig, PruneConfig, densify, prune,
                               should_run)
 from ..models.init import InitConfig, initialize
-from ..models.scene import (FIELDS, RenderConfig, SceneState,
+from ..models.scene import (FIELDS, RenderConfig, SceneState, activate,
                             render_batch, scene_from_numpy)
 from ..utils.schedule import C, make_lr_schedule
 from .losses import PENALTIES
@@ -183,6 +186,7 @@ class Trainer:
                  init_colors: Optional[np.ndarray] = None,
                  init_raw: Optional[Dict[str, np.ndarray]] = None,
                  prompt_processor: Optional[Any] = None,
+                 aux_guidance: Optional[Any] = None,
                  device="cuda", logger: Optional[Any] = None):
         if cfg.estimators:
             raise NotImplementedError("estimators")
@@ -197,6 +201,7 @@ class Trainer:
         self.pcfg = pcfg
         self.guidance = guidance or MockGuidance()
         self.prompt_processor = prompt_processor
+        self.aux_guidance = aux_guidance
         self.logger = logger
         self.data = CameraPoseProvider(data_cfg, seed=cfg.seed)
         self.generator = torch.Generator(device=self.device)
@@ -241,6 +246,8 @@ class Trainer:
             s[f"w_pen_{name}"] = c(p["value"])
         if hasattr(self.guidance, "sched_scalars"):
             s.update(self.guidance.sched_scalars(step, self.cfg.max_steps))
+        if self.aux_guidance is not None:
+            s["w_aux"] = c(self.cfg.loss.aux_guidance)
         return s
 
     def _effective_rcfg(self) -> RenderConfig:
@@ -272,6 +279,14 @@ class Trainer:
         if "loss_lora" in g:
             loss = loss + sched["w_lora"] * g["loss_lora"]
         metrics = dict(g)
+        if self.aux_guidance is not None:
+            col = activate(params, rcfg)[3]
+            ag = self.aux_guidance.loss(
+                params["mean"], col, self.state.scene.active,
+                embedding.text if embedding is not None else None,
+                generator=self.generator)
+            loss = loss + sched["w_aux"] * ag["loss_aux"]
+            metrics.update(ag)
         if not cfg.rgb_only:
             opacity = outs["opacity"]
             sparsity = torch.mean(torch.sqrt(opacity ** 2 + 0.01))

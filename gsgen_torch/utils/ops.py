@@ -1,8 +1,11 @@
-"""Point-set ops: brute-force KNN and the Gaussian surface distance.
+"""Point-set ops: brute-force KNN, farthest point sampling and the
+Gaussian surface distance.
 
 Port of the JAX package's ``utils/ops.py`` (``pairwise_sqdist``, ``knn``,
-``knn_self``, ``distance_to_gaussian_surface``), what the compactness
-densify needs.  Two differences of form, none of result:
+``knn_self``, ``farthest_point_sampling``,
+``distance_to_gaussian_surface``), what the compactness densify and the
+Point-E auxiliary guidance need.  Two differences of form, none of
+result:
 
 * ``knn`` works in row blocks, so ``knn_self`` over a full capacity
   (65,536 in ``configs/base.yaml``) never holds the [M, M] distance
@@ -69,6 +72,32 @@ def knn_self(points: torch.Tensor, k: int,
     """KNN without the first match (the point itself, or its tie)."""
     d, i = knn(points, points, k + 1, mask)
     return d[:, 1:], i[:, 1:]
+
+
+def farthest_point_sampling(points: torch.Tensor, n_samples: int,
+                            mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Indices [n_samples] (int32) of a farthest-point subset of ``points``
+    [N, 3]: the start is index 0, or the first row of ``mask`` that is
+    set; masked-out rows get -inf and are never picked.  Each step takes
+    the row farthest from the picked set (the first among equal
+    distances, as ``jnp.argmax``).  A loop of ``n_samples`` steps of a few
+    launches each on the tensor's device; nothing waits for the device."""
+    n = points.shape[0]
+    mind = torch.full((n,), float("inf"), dtype=points.dtype,
+                      device=points.device)
+    if mask is None:
+        last = torch.zeros((1,), dtype=torch.int64, device=points.device)
+    else:
+        last = torch.argmax(mask.to(torch.int32)).view(1)
+        mind = torch.where(mask, mind, -mind)
+    picked = [last]
+    for _ in range(n_samples - 1):
+        d = torch.sum((points - points.index_select(0, last)) ** 2, dim=-1)
+        mind = torch.minimum(mind, d)
+        last = torch.argmax(mind).view(1)
+        picked.append(last)
+    return torch.cat(picked).to(torch.int32)
 
 
 def distance_to_gaussian_surface(mean: torch.Tensor, svec: torch.Tensor,

@@ -472,3 +472,80 @@ def test_padded_forward_matches_compact_forward(cuda, K):
     np.testing.assert_allclose(out_c[:, :5].cpu().numpy(),
                                out_p[:, :5].cpu().numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_fps_on_card_matches_cpu(cuda):
+    """The aux guidance's FPS at its main-path shape: capacity 65,536,
+    4,096 active rows, 1,024 samples; equal indices, or (a last-ulp tie
+    reordered) the same min-distance profile within 1e-5 relative."""
+    from chip_smoke import fps_profile
+    from gsgen_torch.utils.ops import farthest_point_sampling
+    rng = np.random.default_rng(30)
+    pts = np.zeros((65536, 3), np.float32)
+    pts[:4096] = rng.standard_normal((4096, 3)) * 0.8
+    mask = np.arange(65536) < 4096
+    got = farthest_point_sampling(t(pts).to(cuda), 1024,
+                                  mask=t(mask).to(cuda)).cpu()
+    want = farthest_point_sampling(t(pts), 1024, mask=t(mask))
+    if not torch.equal(got, want):
+        np.testing.assert_allclose(fps_profile(torch, t(pts), got).numpy(),
+                                   fps_profile(torch, t(pts), want).numpy(),
+                                   rtol=1e-5, atol=0)
+    assert bool(t(mask)[got.long()].all())
+
+
+def test_point_e_full_width_forward_on_card(cuda):
+    """base40M-textvec at full width on [2, 6, 1024], random weights with
+    output_proj filled: card against CPU within 1e-4 of the largest
+    output (fp32, TF32 off, summation order)."""
+    from gsgen_torch.guidance.point_e import BASE40M_TEXTVEC, PointEModel
+    m_cpu = PointEModel(BASE40M_TEXTVEC, device="cpu", seed=3)
+    g = torch.Generator().manual_seed(4)
+    proj = m_cpu.module.output_proj
+    with torch.no_grad():
+        proj.weight.copy_(torch.randn(proj.weight.shape, generator=g) * 0.02)
+        proj.bias.copy_(torch.randn(proj.bias.shape, generator=g) * 0.02)
+    m_dev = PointEModel(BASE40M_TEXTVEC, device=cuda).load_weights(
+        m_cpu.module.state_dict())
+    x = torch.randn(2, 6, 1024, generator=g)
+    tt = torch.tensor([10.0, 900.0])
+    cond = torch.randn(2, 768, generator=g)
+    want = m_cpu.apply(x, tt, cond)
+    got = m_dev.apply(x.to(cuda), tt.to(cuda), cond.to(cuda)).cpu()
+    assert float(want.abs().max()) > 0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_point_e_aux_loss_on_card_matches_cpu(cuda):
+    """The aux loss and its mean gradient on TINY (t and noise handed in):
+    loss rtol 1e-4, gradient within 1e-4 of its largest value."""
+    from gsgen_torch.guidance.point_e import TINY_POINT_E, PointEModel
+    from gsgen_torch.guidance.point_e_aux import (PointEAuxConfig,
+                                                  PointEAuxGuidance)
+    g = torch.Generator().manual_seed(5)
+    cfg = PointEAuxConfig(num_points=256, batch_size=4, base_name="tiny")
+    m = PointEModel(TINY_POINT_E, device="cpu", seed=6)
+    with torch.no_grad():
+        m.module.output_proj.weight.normal_(0.0, 0.3, generator=g)
+    mean = torch.randn(4096, 3, generator=g)
+    color = torch.rand(4096, 3, generator=g)
+    active = torch.arange(4096) < 3000
+    tt = torch.randint(20, 1003, (4,), generator=g)
+    noise = torch.randn(4, 6, 256, generator=g)
+    text = torch.randn(77, 1024, generator=g)
+    res = {}
+    for dev in ("cpu", cuda):
+        model = PointEModel(TINY_POINT_E, device=dev).load_weights(
+            m.module.state_dict())
+        guid = PointEAuxGuidance(cfg, model=model, device=dev)
+        x = mean.to(dev).detach().requires_grad_(True)
+        out = guid.loss(x, color.to(dev), active.to(dev), text.to(dev),
+                        t=tt.to(dev), noise=noise.to(dev))
+        out["loss_aux"].backward()
+        res[str(dev)] = (float(out["loss_aux"].detach()), x.grad.cpu())
+    (l_c, g_c), (l_d, g_d) = res["cpu"], res[str(cuda)]
+    np.testing.assert_allclose(l_d, l_c, rtol=1e-4)
+    assert float(g_c.abs().max()) > 0
+    np.testing.assert_allclose(g_d.numpy(), g_c.numpy(), rtol=0,
+                               atol=1e-4 * float(g_c.abs().max()))
