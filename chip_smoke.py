@@ -104,6 +104,26 @@ Phases, each reported on its own line:
    torch.profiler with a "point_e" part (FPS and the transformer) and
    FPS's device ops (trace: gsgen_torch/_build/point_e_step_trace.json);
    2 steps of configs/corgi.yaml as it ships (mock aux, MockUNet);
+13. render extras: (a) configs/base.yaml + renderer/mlp_bg.yaml on the
+   SD 2.1 slice (bf16, 512^2, batch 4, capacity 65,536): 2 steps with the
+   launch counters read around them, then one step under torch.profiler
+   with a "background" part (the SH-MLP over 262,144 rays a view), the
+   MLP's forward and backward for 4 views timed alone (trace:
+   gsgen_torch/_build/mlp_bg_step_trace.json); (b) base.yaml +
+   renderer/legacy.yaml (SH degree 1), mock guidance, 3 steps; (c)
+   base.yaml + renderer/normal_as_rgb.yaml (estimated normals, k = 30
+   over capacity 65,536), mock guidance, 2 steps and one profiled with a
+   "normals" part, knn_self and the batched 3x3 eigh timed alone, and the
+   card's normals against the CPU's on a sphere of 4,096 points; (d)
+   base.yaml with pbr (learned normals, render_normal: F = 8), the
+   learned_const background with random_aug at 0.5 and every penalty at a
+   nonzero weight, 3 steps in the padded and 3 in the compact layout
+   (K1-K4, or K8, K9 and K3, once per view), each run's first view held
+   through K1-K4 and K8/K9 against their plain versions at F = 8, and K1,
+   K2, K8, K9 timed in device time at F = 8 and at F = 5 on that view;
+   (e) the configuration of (d) at RES 32 with mock guidance, one step on
+   the card and on the CPU from the same state with the same background
+   draws: loss, each penalty and each field's gradient;
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -1231,6 +1251,78 @@ def run(torch) -> int:
     # ---- phase 12: Point-E (the init and the aux guidance) ----
     point_e = point_e_phases(torch, dev, build_trainer, load_config,
                              wrappers, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the rest of the render path ----
+    extras = extras_phases(torch, dev, build_trainer, load_config, wrappers,
+                           card)
+    f8_times = {}
+    for layout in ("padded", "compact"):
+        rec, restore = record_render_inputs(torch)
+        pens = {}
+
+        def keep_penalties(tr, step, metrics):
+            pens[step] = {n: float(metrics[f"pen_{n}"])
+                          for n in PENALTY_NAMES}
+
+        try:
+            trainer, d = drive(
+                torch, build_trainer, load_config, wrappers, "base.yaml",
+                EXTRAS_PBR + EXTRAS_PENALTY
+                + (COMPACT if layout == "compact" else []), 3, {},
+                layout=layout, on_step=keep_penalties)
+        finally:
+            restore()
+        require(set(trainer.state.scene.params) >= {"specular", "normal"},
+                f"13 d {layout}: no PBR fields")
+        require(all(math.isfinite(v) and v != 0.0
+                    for p in pens.values() for v in p.values()),
+                f"13 d {layout}: penalties {pens}")
+        bg_mu = float(trainer.state.opt.mu["bg/bg_color"].abs().max())
+        d.update(penalties=pens, bg_color_mu=bg_mu)
+        bargs, bkw = rec["bin"]
+        ra, _ = rec["raster"]
+        prep = dict(bin_args=tuple(bargs),
+                    bin_kw={k: v for k, v in bkw.items() if k != "layout"},
+                    mean2d=ra[0], conic=ra[1], alpha=ra[2], feats=ra[3],
+                    geom=make_geom(ra[5], ra[6], dev),
+                    intr=trainer.data.intrinsics(), rcfg=trainer.rcfg)
+        require(prep["feats"].shape[-1] == 8,
+                f"13 d {layout}: F = {prep['feats'].shape[-1]}, expected 8")
+        notes.clear()
+        label = f"13 d {layout} step 0 view 0"
+        r_pad = kernel_checks(label, prep, SCALE_TOL)
+        r_cmp = compact_checks(label, prep, SCALE_TOL, r_pad)
+        d["kernel_notes"] = list(notes)
+        if layout == "padded":
+            # F = 8 and the same scene's first 5 channels, in one call
+            prep5 = dict(prep, feats=prep["feats"][:, :5].contiguous())
+            r_pad5 = kernel_checks(label + " F=5", prep5, SCALE_TOL)
+            r_cmp5 = compact_checks(label + " F=5", prep5, SCALE_TOL, r_pad5)
+            for F, rp, rc in ((8, r_pad, r_cmp), (5, r_pad5, r_cmp5)):
+                tk = kernel_times(rp, 20, 3)
+                tk.update(compact_times(rc, 20, 3))
+                f8_times[F] = {k: tk[k] for k in RASTER}
+            d["f8_times"], d["f5_times"] = f8_times[8], f8_times[5]
+        print(f"phase 13 d {layout}: ok | card {card} | {d['config']}: "
+              f"{d['steps']} steps, batch {d['batch']}, {d['reso']}^2 | "
+              f"losses {d['losses']} | ms/step "
+              f"{[round(x, 2) for x in d['ms_per_step']]} | peak "
+              f"{d['peak_gib']:.2f} GiB | launches {d['launches']} | "
+              f"penalties at the last step {pens[2]} | bg_color max |mu| "
+              f"{bg_mu:.3e} | F=8 through K1/K2 and K8/K9 against their "
+              "plain versions: " + " | ".join(notes), flush=True)
+        extras[f"d_{layout}"] = d
+        del trainer, rec, prep
+        torch.cuda.empty_cache()
+    print(f"phase 13 d times: ok | card {card} | device time, a CUDA graph of "
+          "50 calls, on the padded run's first view, F = 8 (colour, depth, "
+          "z^2, normal) against its first 5 channels: " + " | ".join(
+              f"{k}: F=8 {f8_times[8][k]['ms']:.4f} ms (bound "
+              f"{f8_times[8][k]['bound_ms']:.4f} {f8_times[8][k]['bound_by']}, "
+              f"plain {f8_times[8][k]['plain_ms']:.2f}), F=5 "
+              f"{f8_times[5][k]['ms']:.4f} ms" for k in RASTER), flush=True)
+    extras["e"] = extras_card_vs_cpu(torch, build_trainer, load_config)
 
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
@@ -1265,7 +1357,13 @@ def run(torch) -> int:
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
             **{h: tb[h] for h in ("host_loop_ms", "library_host_loop_ms",
                                   "floor_ms", "edge_case_ms") if h in tb},
-            **({"design": RASTER_DESIGN[k[7:10]]} if k in RASTER else {}),
+            **({"design": RASTER_DESIGN[k[7:10]],
+                "f8": dict(f8_times[8][k], f5_ms=f8_times[5][k]["ms"],
+                           launches=extras["d_compact" if "compact" in k
+                                           else "d_padded"]["launches"][k],
+                           shapes="13 d: base.yaml + PBR render_normal, "
+                                  "first view of step 0")}
+               if k in RASTER else {}),
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
                    "2^20)",
             bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
@@ -1317,7 +1415,7 @@ def run(torch) -> int:
                       "train_profile": profile_info, "sds": sds,
                       "sds_profile": sds_profile, "vsd": vsd,
                       "vsd_profile": vsd_profile, "outputs": outputs,
-                      "point_e": point_e,
+                      "point_e": point_e, "render_extras": extras,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -1612,7 +1710,8 @@ PER_VIEW = dict(padded=("raster_fwd", "raster_bwd", "expansion_rank",
 
 
 def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
-          n_steps, flash_per_step, layout="padded", on_step=None):
+          n_steps, flash_per_step, layout="padded", on_step=None,
+          unread=()):
     """``n_steps`` training steps of a config (one file or a list merged in
     order) through build_trainer / fit with every kernel counter set to 0
     just before and read just after; losses finite and changing, every
@@ -1620,7 +1719,8 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
     render kernels of ``layout`` (K1-K4, or K8, K9 and K3) once per view and
     no other render kernel, and each flash kernel ``flash_per_step[name]``
     (default 0) times a step.  ``on_step(trainer, step, metrics)`` runs
-    after each step."""
+    after each step.  ``unread``: scene fields the config's render does not
+    read (normal_as_rgb's colour), which must stay exactly as they were."""
     names = [cfg_names] if isinstance(cfg_names, str) else cfg_names
     label = " + ".join(names) + "".join(" " + o for o in overrides)
     trainer = build_trainer(load_config([ROOT / "configs" / n for n in names],
@@ -1649,8 +1749,9 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
     require(len(set(losses)) > 1, f"{label}: loss never changed: {losses}")
     moved = {k: float((v - p0[k]).abs().max())
              for k, v in trainer.state.scene.params.items()}
-    require(all(m > 0 for m in moved.values()),
-            f"{label}: params not moved {moved}")
+    require(all((m == 0) if k in unread else (m > 0)
+                for k, m in moved.items()),
+            f"{label}: params moved {moved}, expected all but {unread}")
     gp_moved = max((float((v - gp0[k]).abs().max())
                     for k, v in trainer.state.gp.items()), default=None)
     require(gp_moved is None or gp_moved > 0,
@@ -2182,6 +2283,265 @@ def point_e_phases(torch, dev, build_trainer, load_config, wrappers, card):
     return res
 
 
+# phase 13: the rest of the render path.  d: base.yaml with PBR (learned
+# normals, a normal channel: F = 8 through K1/K2 or K8/K9), the
+# learned_const background with random_aug, and every penalty at a nonzero
+# weight; e: the same at a tiny size (mock guidance), card against CPU
+EXTRAS_PBR = ["renderer.pbr=true", "renderer.normal_type=learned",
+              "renderer.render_normal=true",
+              "renderer.background.type=learned_const",
+              "renderer.background.random_aug=true",
+              "renderer.background.random_aug_prob=0.5"]
+EXTRAS_PENALTY = ["trainer.penalty.alpha.value=0.01",
+                  "trainer.penalty.mean.value=0.01",
+                  "trainer.penalty.mean.type=weighted_l2",
+                  "trainer.penalty.scale.value=10.0",
+                  "trainer.penalty.NN.value=0.01",
+                  "trainer.penalty.compat.value=0.01",
+                  "trainer.penalty.compat.type=l2",
+                  "trainer.penalty.move.value=0.01",
+                  "trainer.penalty.specular.value=0.01"]
+EXTRAS_TINY = ["init.num_points=96", "init.capacity=128", "data.reso=[32]",
+               "renderer.tile_size=8", "renderer.chunk=128",
+               "renderer.dup_cap=4096", "trainer.batch_size=2",
+               "prompt.use_cache=false", "guidance.type=mock"]
+PENALTY_NAMES = ("alpha", "mean", "scale", "NN", "compat", "move",
+                 "specular")
+
+
+def events_ms(torch, fn, iters=5):
+    """Mean ms of ``fn`` between two CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def record_render_inputs(torch):
+    """Keep (detached) the inputs of the next render's first binning and
+    compositing calls: the step's own tensors for phase 13 d's kernel
+    checks.  Returns (record, restore)."""
+    import gsgen_torch.models.scene as scene_mod
+
+    rec = {}
+    orig = scene_mod.bin_gaussians, scene_mod.rasterize_tiles_cuda
+
+    def det(x):
+        return x.detach() if torch.is_tensor(x) else x
+
+    def keep(name, fn):
+        def wrapped(*a, **kw):
+            if name not in rec:
+                rec[name] = ([det(x) for x in a],
+                             {k: det(v) for k, v in kw.items()})
+            return fn(*a, **kw)
+        return wrapped
+
+    scene_mod.bin_gaussians = keep("bin", orig[0])
+    scene_mod.rasterize_tiles_cuda = keep("raster", orig[1])
+
+    def restore():
+        scene_mod.bin_gaussians, scene_mod.rasterize_tiles_cuda = orig
+
+    return rec, restore
+
+
+def extras_phases(torch, dev, build_trainer, load_config, wrappers, card):
+    """Phase 13 a-c.  (a) base.yaml + renderer/mlp_bg.yaml on the SD 2.1
+    slice (bf16): 2 steps with the launch counters read around them, the
+    MLP's Adam moments non-zero, then one step profiled with a
+    "background" part (the MLP forward over 262,144 rays a view; its
+    backward runs on the backward thread, in "render") and the MLP's
+    forward + backward for the step's 4 views timed alone.  (b)
+    base.yaml + renderer/legacy.yaml (SH degree 1), mock guidance, 3
+    steps.  (c) base.yaml + renderer/normal_as_rgb.yaml (estimated
+    normals, k = 30 over capacity 65,536), mock guidance: 2 steps and one
+    profiled with a "normals" part; knn_self and the batched 3x3 eigh
+    (in batches of EIGH_BATCH: cuSOLVER refuses 32,768 at once) timed
+    alone; the card's normals against the CPU's on a sphere."""
+    import gsgen_torch.models.scene as scene_mod
+    import gsgen_torch.training.trainer as trainer_mod
+    from gsgen_torch.models.background import mlp_background
+    from gsgen_torch.ops import cuda_lib
+    from gsgen_torch.ops.camera import get_rays_d
+    from gsgen_torch.utils.ops import (eigh_batched,
+                                       estimate_pointcloud_normals, knn_self)
+
+    res = {}
+    # (a) the MLP background on the SDS slice
+    trainer, a = drive(torch, build_trainer, load_config, wrappers,
+                       ["base.yaml", "renderer/mlp_bg.yaml"], SLICE, 2,
+                       dict(flash_attn_fwd=5))
+    bg_mu = {k: float(trainer.state.opt.mu[f"bg/{k}"].abs().max())
+             for k in trainer.state.bg}
+    require(sorted(bg_mu) == ["b0", "b1", "b2", "w0", "w1", "w2"]
+            and all(v > 0 for v in bg_mu.values()),
+            f"13 a: the MLP background got no gradient: {bg_mu}")
+    a["profile"] = profile_step(
+        torch, trainer, cuda_lib.BUILD / "mlp_bg_step_trace.json", False,
+        phase="13 a mlp_bg",
+        extra_spans=((trainer_mod, "apply_background", "background"),))
+    intr = trainer.data.intrinsics()
+    c2ws = torch.as_tensor(trainer.data.get_batch()["c2w"], device=dev)
+    dirs = torch.stack([get_rays_d(c, intr) for c in c2ws])
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in trainer.state.bg.items()}
+    deg = trainer.bg_cfg.sh_degree
+
+    def mlp_fwd_bwd():
+        img = mlp_background(params, deg, dirs)
+        torch.autograd.grad(img.sum(), list(params.values()))
+
+    a["background_fwd_bwd_ms"] = events_ms(torch, mlp_fwd_bwd)
+    a["background_fwd_ms"] = events_ms(
+        torch, lambda: mlp_background(params, deg, dirs))
+    a["rays"] = int(dirs.shape[0] * dirs.shape[1] * dirs.shape[2])
+    print(f"phase 13 a mlp_bg: ok | card {card} | {a['config']}: "
+          f"{a['steps']} steps + 1 profiled, batch {a['batch']}, "
+          f"{a['reso']}^2 | losses {a['losses']} | ms/step "
+          f"{[round(x, 2) for x in a['ms_per_step']]} | peak "
+          f"{a['peak_gib']:.2f} GiB | launches {a['launches']} | the MLP "
+          f"alone over {a['rays']} rays (4 views): forward "
+          f"{a['background_fwd_ms']:.3f} ms, forward + backward "
+          f"{a['background_fwd_bwd_ms']:.3f} ms (CUDA events)", flush=True)
+    res["a"] = a
+    del trainer, params, dirs
+    torch.cuda.empty_cache()
+
+    # (b) SH colour (degree 1)
+    trainer, b = drive(torch, build_trainer, load_config, wrappers,
+                       ["base.yaml", "renderer/legacy.yaml"],
+                       ["guidance.type=mock"], 3, {})
+    require(trainer.rcfg.sh_degree == 1, "13 b: sh_degree is not 1")
+    print(f"phase 13 b legacy: ok {b['config']}: {b['steps']} steps | "
+          f"losses {b['losses']} | ms/step "
+          f"{[round(x, 2) for x in b['ms_per_step']]} | peak "
+          f"{b['peak_gib']:.2f} GiB | launches {b['launches']}", flush=True)
+    res["b"] = b
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) estimated normals as colour
+    trainer, c = drive(torch, build_trainer, load_config, wrappers,
+                       ["base.yaml", "renderer/normal_as_rgb.yaml"],
+                       ["guidance.type=mock"], 2, {}, unread=("color",))
+    c["profile"] = profile_step(
+        torch, trainer, cuda_lib.BUILD / "normal_as_rgb_step_trace.json",
+        False, phase="13 c normal_as_rgb",
+        extra_spans=((scene_mod, "scene_normals", "normals"),))
+    scene = trainer.state.scene
+    k = trainer.rcfg.normal_neighborhood
+    mean = scene.params["mean"].detach()
+    with torch.no_grad():
+        c["knn_ms"] = events_ms(torch, lambda: knn_self(mean, k,
+                                                        scene.active), 3)
+        _, idx = knn_self(mean, k, scene.active)
+        nbr = mean[idx.long()]
+        d = nbr - nbr.mean(1, keepdim=True)
+        cov = torch.einsum("nki,nkj->nij", d, d) / k
+        c["eigh_ms"] = events_ms(torch, lambda: eigh_batched(cov), 5)
+        c["normals_ms"] = events_ms(
+            torch, lambda: estimate_pointcloud_normals(mean, k, scene.active),
+            3)
+        gen = torch.Generator().manual_seed(0)
+        v = torch.randn(4096, 3, generator=gen)
+        sphere = v / v.norm(dim=-1, keepdim=True)
+        n_cpu = estimate_pointcloud_normals(sphere, k)
+        n_card = estimate_pointcloud_normals(sphere.to(dev), k).cpu()
+        # rows whose k-th and (k+1)-th neighbours sit within rounding of
+        # each other may pick another neighbour set on each device
+        i_cpu = knn_self(sphere, k)[1].sort(1).values
+        i_card = knn_self(sphere.to(dev), k)[1].cpu().sort(1).values
+        rows = (i_cpu == i_card).all(1)
+    err = float((n_card - n_cpu)[rows].abs().max())
+    cos_min = float((n_card * n_cpu).sum(-1).min())
+    n_other = int((~rows).sum())
+    require(n_other <= 40 and err <= 1e-4 and cos_min > 0.99,
+            f"13 c: card normals against the CPU's on a sphere of 4,096 "
+            f"points: {n_other} rows with another neighbour set, max abs "
+            f"{err:.3e} on the others, min cosine {cos_min:.6f}")
+    c.update(capacity=int(mean.shape[0]), k=k, normals_card_vs_cpu=err,
+             rows_other_neighbours=n_other, min_cosine=cos_min)
+    print(f"phase 13 c normal_as_rgb: ok | card {card} | {c['config']}: "
+          f"{c['steps']} steps + 1 profiled | losses {c['losses']} | "
+          f"ms/step {[round(x, 2) for x in c['ms_per_step']]} | peak "
+          f"{c['peak_gib']:.2f} GiB | launches {c['launches']} | capacity "
+          f"{c['capacity']}, k {k}: knn_self {c['knn_ms']:.2f} ms, batched "
+          f"3x3 eigh {c['eigh_ms']:.2f} ms, estimate_pointcloud_normals "
+          f"{c['normals_ms']:.2f} ms (CUDA events) | sphere of 4,096: card "
+          f"vs CPU max abs {err:.2e} on the {4096 - n_other} rows with the "
+          f"same neighbours, {n_other} rows with another (min cosine "
+          f"{cos_min:.6f})", flush=True)
+    res["c"] = c
+    del trainer, scene, mean, nbr, d, cov
+    torch.cuda.empty_cache()
+    return res
+
+
+def extras_card_vs_cpu(torch, build_trainer, load_config):
+    """Phase 13 e: one step of 13 d's configuration at a tiny size (RES 32,
+    mock guidance) on the card and on the CPU from the same state, with the
+    same injected background draws: the loss, each penalty and each
+    field's gradient (Adam's first moment after one step) compared."""
+    import numpy as np
+
+    import gsgen_torch.training.trainer as trainer_mod
+    from gsgen_torch.io.checkpoint import state_arrays
+    from gsgen_torch.training.trainer import train_state_from_jax_arrays
+
+    cfg = load_config(ROOT / "configs" / "base.yaml",
+                      EXTRAS_TINY + EXTRAS_PBR + EXTRAS_PENALTY)
+    t_cpu = build_trainer(cfg, device="cpu")
+    t_card = build_trainer(cfg, device="cuda")
+    t_card.state = train_state_from_jax_arrays(state_arrays(t_cpu.state),
+                                               "cuda")
+    u = np.random.default_rng(0).uniform(
+        size=(t_cpu.cfg.batch_size, 6)).astype(np.float32)
+    u[:, 3] = (0.25, 0.75)      # view 0 keeps bg_color, view 1 a random one
+    orig = trainer_mod.apply_background
+    out = {}
+    for name, tr in (("cpu", t_cpu), ("card", t_card)):
+        draws = [torch.as_tensor(x) for x in u]
+
+        def injected(*a, **kw):
+            return orig(*a, u=draws.pop(0), **kw)
+
+        trainer_mod.apply_background = injected
+        try:
+            m = tr.train_step(0)
+        finally:
+            trainer_mod.apply_background = orig
+        out[name] = ({k: float(v) for k, v in m.items() if v.dim() == 0},
+                     {k: v.detach().cpu() for k, v in tr.state.opt.mu.items()})
+    (m_c, mu_c), (m_d, mu_d) = out["cpu"], out["card"]
+    rel = {}
+    for k in ["loss_total"] + [f"pen_{n}" for n in PENALTY_NAMES]:
+        rel[k] = abs(m_d[k] - m_c[k]) / max(abs(m_c[k]), 1e-12)
+        require(rel[k] <= 1e-4, f"13 e: {k} card {m_d[k]!r} vs CPU "
+                f"{m_c[k]!r}")
+    for k, want in mu_c.items():
+        got = mu_d[k]
+        scale = float(want.abs().max())
+        require(scale > 0, f"13 e: no gradient reached {k}")
+        rel[f"grad {k}"] = float((got - want).abs().max()) / scale
+        bad = (got - want).abs() > 2e-4 * scale + 2e-3 * want.abs()
+        require(not bool(bad.any()), f"13 e: gradient of {k}: "
+                f"{int(bad.sum())} values off, max rel "
+                f"{rel[f'grad {k}']:.3e}")
+    print("phase 13 e card vs cpu: ok tiny base.yaml + PBR + learned_const "
+          "+ random_aug + every penalty, 1 step (RES 32, mock guidance): "
+          "max |card - CPU| / max |CPU| " + ", ".join(
+              f"{k} {v:.2e}" for k, v in rel.items()), flush=True)
+    return dict(rel_err=rel, loss_cpu=m_c["loss_total"],
+                loss_card=m_d["loss_total"])
+
+
 def fps_profile(torch, points, idx):
     """The squared distance of each farthest-point pick to the picks before
     it: what FPS maximises at each step, the same for two index orders
@@ -2195,7 +2555,7 @@ def fps_profile(torch, points, idx):
     return torch.stack(out)
 
 
-def profile_step(torch, trainer, trace, vsd, phase=None):
+def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
     """Phase 8 (SDS), the end of phase 9 (VSD) and phase 10 (SDS in the
     compact layout): one step under
     torch.profiler.  Each device op is attributed to the host range its
@@ -2208,14 +2568,20 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
     launches from the backward thread are the render backward, the rest is
     "other" (optimizer, losses, guidance glue).  With an auxiliary
     guidance (phase 12), its loss is the "point_e" part (FPS and the
-    Point-E transformer); FPS's own launches are counted too."""
+    Point-E transformer); FPS's own launches are counted too.
+    ``extra_spans``: (module, function name, part) triples, each call of
+    the function a part of its own (phase 13: the background, the
+    normals).  A guidance without a backbone (mock) has no UNet or VAE
+    part; its backward is the launches from threads other than the
+    render forward's."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import gsgen_torch.guidance.point_e_aux as aux_mod
     import gsgen_torch.training.trainer as trainer_mod
 
-    bb = trainer.guidance.backbone
-    orig_render, orig_encode = trainer_mod.render_batch, bb.encode_images
+    bb = getattr(trainer.guidance, "backbone", None)
+    orig_render = trainer_mod.render_batch
+    orig_encode = None if bb is None else bb.encode_images
     span = {}
 
     def open_span(name):
@@ -2247,7 +2613,9 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
             z.register_hook(start)
         return z
 
-    if vsd:
+    if bb is None:
+        pass
+    elif vsd:
         orig_unet = bb.unet.forward
 
         def unet_forward(*a, **kw):
@@ -2282,7 +2650,18 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
         aux.loss = aux_loss
         aux_mod.farthest_point_sampling = fps
     trainer_mod.render_batch = render_batch
-    bb.encode_images = encode_images
+    if bb is not None:
+        bb.encode_images = encode_images
+    saved = []
+    for mod, fname, part in extra_spans:
+        orig_fn = getattr(mod, fname)
+        saved.append((mod, fname, orig_fn))
+
+        def wrapped(*a, _f=orig_fn, _p=part, **kw):
+            with record_function(f"step:{_p}"):
+                return _f(*a, **kw)
+
+        setattr(mod, fname, wrapped)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2294,15 +2673,18 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
     finally:
         trainer_mod.render_batch = orig_render
         aux_mod.farthest_point_sampling = orig_fps
+        for mod, fname, orig_fn in saved:
+            setattr(mod, fname, orig_fn)
         if aux is not None:
             del aux.loss
-        del bb.encode_images
-        if vsd:
-            del bb.unet.forward
-        else:
-            del bb.predict_noise
+        if bb is not None:
+            del bb.encode_images
+            if vsd:
+                del bb.unet.forward
+            else:
+                del bb.predict_noise
     prof.export_chrome_trace(str(trace))
-    what = "a VSD step" if vsd else "an SDS step"
+    what = "a VSD step" if vsd else "a training step"
     ev = [e for e in json.loads(trace.read_text())["traceEvents"]
           if e.get("ph") == "X"]
     dev_ev = [e for e in ev if e.get("cat") in DEVICE_CATS]
@@ -2314,6 +2696,11 @@ def profile_step(torch, trainer, trace, vsd, phase=None):
              for e in ev if e.get("cat") == "user_annotation"
              and e["name"].startswith("step:")]
     bwd_tids = {tid for name, _, _, tid in spans if name == "vae_bwd"}
+    if not bwd_tids:
+        # no VAE (mock guidance): the backward's launches are those from
+        # threads other than the one that ran the render forward
+        main = {tid for name, _, _, tid in spans if name == "render"}
+        bwd_tids = {tid for _, tid in launch.values()} - main
 
     def group(e):
         """The innermost span around the op's launch."""

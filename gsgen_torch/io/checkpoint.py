@@ -6,7 +6,8 @@ directory
   step_N/
     arrays.npz   every array of the train state, under the key paths that
                  the JAX package's ``_flatten_with_paths`` writes:
-                 ``.scene/.params/.mean``, ``.scene/.active``, the densify
+                 ``.scene/.params/.mean`` (and ``.specular`` / ``.normal``
+                 of a PBR scene), ``.scene/.active``, the densify
                  statistics, ``.bg/['name']``, ``.gp/['name']``,
                  ``.opt/.mu/[0]/.mean``, ``.opt/.mu/[1]/['name']`` (bg),
                  ``.opt/.mu/[2]/['name']`` (gp), the same for ``.nu``,
@@ -36,7 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from ..guidance import convert
-from ..models.scene import FIELDS, STATS
+from ..models.scene import STATS, present_fields
 from ..training.trainer import TrainState, train_state_from_jax_arrays
 
 
@@ -59,14 +60,15 @@ def state_arrays(state: TrainState, seed: int = 0) -> Dict[str, np.ndarray]:
     scene = state.scene
     gp = {k: _jax_gp_leaf(k, _np(v)) for k, v in state.gp.items()}
     order = sorted(state.gp, key=lambda k: gp[k][0])
-    out = {f".scene/.params/.{f}": _np(scene.params[f]) for f in FIELDS}
+    fields = present_fields(scene.params)
+    out = {f".scene/.params/.{f}": _np(scene.params[f]) for f in fields}
     out[".scene/.active"] = _np(scene.active)
     out.update({f".scene/.{s}": _np(getattr(scene, s)) for s in STATS})
     out.update({f".bg/['{k}']": _np(state.bg[k]) for k in sorted(state.bg)})
     out.update({f".gp/['{gp[k][0]}']": gp[k][1] for k in order})
     for m in ("mu", "nu"):
         mom = getattr(state.opt, m)
-        out.update({f".opt/.{m}/[0]/.{f}": _np(mom[f]) for f in FIELDS})
+        out.update({f".opt/.{m}/[0]/.{f}": _np(mom[f]) for f in fields})
         out.update({f".opt/.{m}/[1]/['{k}']": _np(mom[f"bg/{k}"])
                     for k in sorted(state.bg)})
         out.update({f".opt/.{m}/[2]/['{gp[k][0]}']":
@@ -114,7 +116,7 @@ def load_checkpoint(path, state_template: TrainState
     state = train_state_from_jax_arrays(arrays, device)
 
     def tensors(s: TrainState) -> Dict[str, Any]:
-        return {**{f"scene/{f}": s.scene.params[f] for f in FIELDS},
+        return {**{f"scene/{f}": v for f, v in s.scene.params.items()},
                 "scene/active": s.scene.active,
                 **{f"scene/{k}": getattr(s.scene, k) for k in STATS},
                 **{f"bg/{k}": v for k, v in s.bg.items()},

@@ -2,22 +2,30 @@
 
 Port of the JAX package's ``models/scene.py``.  Parameters are a dict of raw
 (pre-activation) tensors with a static capacity ``M`` (``mean`` [M,3],
-``qvec`` [M,4] wxyz, ``svec`` [M,3], ``color`` [M,3], ``alpha`` [M]); the
-live set is the ``active`` mask.  ``render_view`` is a pure function of
-its inputs; ``render_batch`` loops over views.  All channels (rgb, depth,
-z^2) composite in one pass; ``opacity = 1 - T`` and ``z_var = E[z^2] -
-E[z]^2`` fall out of it.
+``qvec`` [M,4] wxyz, ``svec`` [M,3], ``color`` [M,3] or SH coefficients
+[M, 3 sh_degree^2], ``alpha`` [M], and with ``pbr`` the optional
+``specular`` [M,3] and ``normal`` [M,3]); the live set is the ``active``
+mask.  ``render_view`` is a pure function of its inputs; ``render_batch``
+loops over views.  All channels (rgb, depth, z^2 and, with
+``render_normal``, the [0,1]-encoded normal) composite in one pass;
+``opacity = 1 - T`` and ``z_var = E[z^2] - E[z]^2`` fall out of it.
+
+Colour is sigmoid of the raw field, or with ``sh_degree > 0`` the SH
+colour of the raw coefficients toward each Gaussian from the camera
+centre; ``normal_as_rgb`` shows the normals instead; ``pbr`` with a light
+adds a specular term (:func:`shaded_color`).  Normals are estimated from
+the live means (``normal_type: estimated``) or learned; they do not depend
+on the view, so ``render_batch`` computes them once for its views.
 
 Both binning layouts are ported (``binning_layout``: padded | compact,
-chosen as the JAX package chooses them).  Not ported yet (each raises
-``NotImplementedError``): PBR, normal channels, spherical harmonics and
-tile-sharded rendering.
+chosen as the JAX package chooses them).  Tile-sharded rendering
+(``tile_mesh``) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +35,13 @@ from ..ops.camera import CameraIntrinsics, get_frustum, sphere_in_frustum
 from ..ops.cuda_raster import rasterize_tiles_cuda
 from ..ops.projection import (conic_from_cov2d, project_gaussians,
                               screen_radii)
+from ..ops.sh import eval_sh_color
 from ..utils.activations import act, inv_act
+from ..utils.ops import estimate_pointcloud_normals
 
 FIELDS = ("mean", "qvec", "svec", "color", "alpha")
+# the PBR fields, present only when RenderConfig.pbr made them
+OPTIONAL_FIELDS = ("specular", "normal")
 # The JAX package's compact layout needs its resident-cotangent backward,
 # whose cotangents (n_tiles * ch_out * P * 4 bytes) must fit this TPU VMEM
 # budget.  The port keeps the same rule so that a config picks the same
@@ -87,12 +99,7 @@ class RenderConfig:
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise for renderer features this port does not have yet."""
-    for name in ("pbr", "render_normal", "normal_as_rgb"):
-        if getattr(cfg, name):
-            raise NotImplementedError(name)
-    if cfg.sh_degree > 0:
-        raise NotImplementedError("sh_degree > 0")
+    """Raise for a layout or backend name the renderer does not know."""
     if cfg.binning_layout not in ("padded", "compact"):
         raise ValueError(f"binning_layout {cfg.binning_layout}")
     if cfg.backend not in ("auto", "pallas", "xla"):
@@ -107,12 +114,49 @@ def activate(params: Dict[str, torch.Tensor], cfg: RenderConfig):
             act(cfg.alpha_act)(params["alpha"]))
 
 
+def present_fields(params: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+    """The base fields, then the optional ones ``params`` holds."""
+    return FIELDS + tuple(f for f in OPTIONAL_FIELDS if f in params)
+
+
+def scene_normals(params: Dict[str, torch.Tensor], active: torch.Tensor,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """Per-Gaussian unit normals [M, 3]: estimated from the live means by
+    plane fitting over ``normal_neighborhood`` neighbours, or learned
+    (``normalize(tanh(raw normal))``)."""
+    if cfg.normal_type == "learned":
+        if "normal" not in params:
+            raise ValueError("normal_type='learned' needs the PBR normal "
+                             "field (RenderConfig.pbr=True)")
+        n = torch.tanh(params["normal"])
+        return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                               min=1e-6)
+    return estimate_pointcloud_normals(params["mean"],
+                                       cfg.normal_neighborhood, mask=active)
+
+
+def shaded_color(light_pos, light_color, normal, specular, mean, cam_pos
+                 ) -> torch.Tensor:
+    """Specular term ``light_color * |<half vector, normal>| * specular``
+    (the half vector between the directions to the light and to the
+    camera)."""
+    def unit(v):
+        return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                               min=1e-8)
+    half = unit(unit(light_pos[None] - mean) + unit(cam_pos[None] - mean))
+    dot = torch.clamp(torch.abs(torch.sum(half * normal, dim=-1)), 0.0, 1.0)
+    return light_color[None] * dot[:, None] * specular
+
+
 def make_scene(mean, qvec, svec, color, alpha, cfg: RenderConfig,
                capacity: Optional[int] = None, raw: bool = False
                ) -> SceneState:
     """SceneState from physical (or raw) initial tensors, padded to
     ``capacity`` (padding: identity rotation, scale 1e-4, alpha logit
-    -10, inactive)."""
+    -10, inactive).  With ``pbr``: raw specular ``inv_sigmoid(0.05)`` on
+    every slot and, for a learned normal, the raw normal set to the
+    normals estimated from the ``n`` initial means (not passed through an
+    inverse of tanh, as in the JAX package), zero in the padding."""
     n = mean.shape[0]
     m = capacity or n
     if m < n:
@@ -134,6 +178,13 @@ def make_scene(mean, qvec, svec, color, alpha, cfg: RenderConfig,
     svec_fill = inv_act(cfg.svec_act)(torch.tensor(1e-4))
     params = dict(mean=pad(mean), qvec=qvec, svec=pad(svec, svec_fill),
                   color=pad(color), alpha=pad(alpha, -10.0))
+    if cfg.pbr:
+        spec = inv_act("sigmoid")(torch.tensor(0.05, dtype=torch.float32))
+        params["specular"] = torch.full((m, 3), float(spec),
+                                        dtype=torch.float32, device=dev)
+        if cfg.normal_type == "learned":
+            params["normal"] = pad(estimate_pointcloud_normals(
+                mean.to(torch.float32), cfg.normal_neighborhood))
     active = torch.arange(m, device=dev) < n
     zeros = torch.zeros(m, dtype=torch.float32, device=dev)
     return SceneState(params=params, active=active, max_radii2d=zeros,
@@ -142,12 +193,14 @@ def make_scene(mean, qvec, svec, color, alpha, cfg: RenderConfig,
 
 def scene_from_numpy(arrays: Dict[str, np.ndarray], device) -> SceneState:
     """SceneState from the JAX package's raw fields as numpy arrays
-    (``mean qvec svec color alpha``, optional ``active`` and the densify
-    statistics; missing ones default to all-active and zeros)."""
+    (``mean qvec svec color alpha``, ``specular`` / ``normal`` where given,
+    optional ``active`` and the densify statistics; missing ones default
+    to all-active and zeros)."""
     def tens(x, dtype=torch.float32):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
-    params = {f: tens(arrays[f]) for f in FIELDS}
+    params = {f: tens(arrays[f]) for f in FIELDS + OPTIONAL_FIELDS
+              if arrays.get(f) is not None}
     m = params["mean"].shape[0]
     active = (tens(arrays["active"], torch.bool) if "active" in arrays
               else torch.ones(m, dtype=torch.bool, device=device))
@@ -169,6 +222,15 @@ def binning_layout(cfg: RenderConfig, n_tiles: int, rgb_only: bool) -> str:
     return "compact" if ok else "padded"
 
 
+def _uses_light(cfg: RenderConfig, params, light_pos) -> bool:
+    return cfg.pbr and "specular" in params and light_pos is not None
+
+
+def _needs_normals(cfg: RenderConfig, params, light_pos, rgb_only) -> bool:
+    return (cfg.normal_as_rgb or _uses_light(cfg, params, light_pos)
+            or (cfg.render_normal and not rgb_only))
+
+
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -176,14 +238,19 @@ def _f32(x, device) -> torch.Tensor:
 def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
                 c2w, intr: CameraIntrinsics, cfg: RenderConfig, bg,
                 fx=None, fy=None, cx=None, cy=None, rgb_only: bool = False,
-                mean2d_tap: Optional[torch.Tensor] = None
+                mean2d_tap: Optional[torch.Tensor] = None,
+                light_pos=None, light_color=None,
+                normals: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
     """Render one view on the device of ``params``.
 
     Returns ``rgb`` [H,W,3], ``T`` and ``n_dup`` (+ ``depth``,
-    ``opacity``, ``z_var``, ``radii2d``, ``visible`` unless
-    ``rgb_only``).  Focal/center scalars become float32 tensors, as the
-    JAX package's per-view batch scalars are float32 arrays.
+    ``opacity``, ``z_var``, ``radii2d``, ``visible`` unless ``rgb_only``,
+    and ``normal`` [H,W,3] with ``render_normal``).  Focal/center scalars
+    become float32 tensors, as the JAX package's per-view batch scalars
+    are float32 arrays.  ``light_pos`` / ``light_color`` [3] turn on the
+    PBR specular term; ``normals`` [M,3] passes in :func:`scene_normals`
+    when the caller has them already.
     """
     check_supported(cfg)
     dev = params["mean"].device
@@ -194,9 +261,28 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
     cy = _f32(intr.cy if cy is None else cy, dev)
 
     mean, qvec, svec, color, alpha = activate(params, cfg)
-    normals, pts = get_frustum(c2w, intr)
+    if cfg.sh_degree > 0:
+        # view-dependent colour from the raw coefficients, one direction
+        # per Gaussian (from the camera centre)
+        K = cfg.sh_degree ** 2
+        coeffs = params["color"].reshape(params["color"].shape[0], 3, K)
+        dirs = mean - c2w[:3, 3][None, :]
+        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1,
+                                                    keepdim=True), min=1e-8)
+        color = eval_sh_color(coeffs, dirs)
+    use_light = _uses_light(cfg, params, light_pos)
+    if normals is None and _needs_normals(cfg, params, light_pos, rgb_only):
+        normals = scene_normals(params, active, cfg)
+    if cfg.normal_as_rgb:
+        color = (normals + 1.0) * 0.5
+    elif use_light:
+        color = color + shaded_color(
+            _f32(light_pos, dev), _f32(light_color, dev), normals,
+            torch.sigmoid(params["specular"]), mean, c2w[:3, 3])
+
+    normals_f, pts = get_frustum(c2w, intr)
     radii = torch.amax(svec, dim=-1) * cfg.frustum_culling_radius
-    cull = sphere_in_frustum(mean, radii, normals, pts)
+    cull = sphere_in_frustum(mean, radii, normals_f, pts)
     proj = project_gaussians(mean, qvec, svec, c2w,
                              detach_depth=cfg.depth_detach, near=cfg.near)
     vis = active & cull & proj.in_front
@@ -220,8 +306,12 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
     if rgb_only:
         feats = color
     else:
-        feats = torch.cat([color, proj.depth[:, None],
-                           (proj.depth * proj.depth)[:, None]], dim=-1)
+        feats = [color, proj.depth[:, None],
+                 (proj.depth * proj.depth)[:, None]]
+        if cfg.render_normal:
+            # [0,1]-encoded normals as 3 more channels of the one pass
+            feats.append((normals + 1.0) * 0.5)
+        feats = torch.cat(feats, dim=-1)
 
     topleft = (-cx / fx, -cy / fy)
     psz = (1.0 / fx, 1.0 / fy)
@@ -241,16 +331,22 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
                    radii2d=torch.where(vis, screen_radii(proj.cov2d),
                                        torch.zeros_like(alpha)),
                    visible=vis)
+        if cfg.render_normal:
+            out["normal"] = img[..., 5:8]
     return out
 
 
 def render_batch(params, active, c2ws, intr, cfg, bgs, fxs=None, fys=None,
                  cxs=None, cys=None, rgb_only=False, mean2d_taps=None,
-                 tile_mesh=None):
+                 tile_mesh=None, light_pos=None, light_color=None):
     """:func:`render_view` over a batch of cameras, one view at a time
-    (the JAX package's ``lax.map``); outputs stack along a leading [B]."""
+    (the JAX package's ``lax.map``); outputs stack along a leading [B].
+    ``light_pos`` / ``light_color`` [B, 3] give each view's light.  The
+    normals, when a view needs them, are computed once for all views."""
     if tile_mesh is not None:
         raise NotImplementedError("tile_mesh")
+    normals = (scene_normals(params, active, cfg)
+               if _needs_normals(cfg, params, light_pos, rgb_only) else None)
     B = len(c2ws)
     outs = []
     for b in range(B):
@@ -258,5 +354,6 @@ def render_batch(params, active, c2ws, intr, cfg, bgs, fxs=None, fys=None,
         outs.append(render_view(
             params, active, c2ws[b], intr, cfg, bgs[b], pick(fxs),
             pick(fys), pick(cxs), pick(cys), rgb_only=rgb_only,
-            mean2d_tap=pick(mean2d_taps)))
+            mean2d_tap=pick(mean2d_taps), light_pos=pick(light_pos),
+            light_color=pick(light_color), normals=normals))
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

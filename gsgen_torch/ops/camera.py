@@ -89,3 +89,17 @@ def sphere_in_frustum(centers: torch.Tensor, radii: torch.Tensor,
     every plane, with the reference's unnormalized plane normals."""
     d = centers @ normals.T - (pts * normals).sum(-1)
     return torch.all(d > -radii[:, None], dim=-1)
+
+
+def get_rays_d(c2w: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
+    """Unnormalized world-space ray directions ``[H, W, 3]``: pixel (i, j)
+    looks through the camera-plane point ``((j - cx) / fx, (i - cy) / fy,
+    1)``, rotated by ``c2w[:3, :3]``."""
+    dev = c2w.device
+    xs = (torch.arange(intr.w, dtype=torch.float32, device=dev)
+          - intr.cx) / intr.fx
+    ys = (torch.arange(intr.h, dtype=torch.float32, device=dev)
+          - intr.cy) / intr.fy
+    yg, xg = torch.meshgrid(ys, xs, indexing="ij")          # [H, W]
+    dirs_cam = torch.stack([xg, yg, torch.ones_like(xg)], dim=-1)
+    return torch.einsum("ij,hwj->hwi", c2w[:3, :3], dirs_cam)

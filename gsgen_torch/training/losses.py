@@ -1,9 +1,10 @@
 """Scene penalties and image losses.
 
-The alpha penalty that ``configs/base.yaml`` configures
-(``trainer.penalty.alpha``; the other penalties wait for later slices),
-and the SSIM + L1/L2 image loss of the upsample fine-tune (the JAX
-package's ``training/losses.py::ssim`` and ``image_loss``).
+Port of the JAX package's ``training/losses.py``: the seven penalties over
+the masked fixed-capacity scene (``alpha``, ``mean``, ``scale``, ``NN``,
+``compat``, ``move``, ``specular``; ``trainer.penalty.<name>``), and the
+SSIM + L1/L2 image loss of the upsample fine-tune (``ssim`` and
+``image_loss``).  :func:`penalty` passes each penalty its keywords.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.scene import RenderConfig, activate
+from ..utils.ops import distance_to_gaussian_surface, knn_self
 
 
 def _masked_mean(x, mask):
@@ -34,7 +36,95 @@ def alpha_penalty(params, active, cfg: RenderConfig,
     raise ValueError(f"alpha penalty {kind}")
 
 
-PENALTIES = dict(alpha=alpha_penalty)
+def mean_penalty(params, active, kind: str = "uniform_l1") -> torch.Tensor:
+    """Mean distance of the Gaussians from the origin (plain, squared, or
+    weighted by its detached self)."""
+    r = torch.linalg.norm(params["mean"], dim=-1)
+    if kind == "uniform_l1":
+        return _masked_mean(r, active)
+    if kind == "uniform_l2":
+        return _masked_mean(r * r, active)
+    if kind == "weighted_l1":
+        return _masked_mean(r.detach() * r, active)
+    if kind == "weighted_l2":
+        rd = r.detach()
+        return _masked_mean(rd * rd * r * r, active)
+    raise ValueError(f"mean penalty {kind}")
+
+
+def scale_penalty(params, active, cfg: RenderConfig) -> torch.Tensor:
+    """Total ellipsoid volume: a sum over the live Gaussians, not a mean
+    (as the reference and the JAX package compute it)."""
+    vol = torch.prod(activate(params, cfg)[2], dim=-1)
+    return torch.sum(torch.where(active, vol, torch.zeros_like(vol)))
+
+
+def nn_penalty(params, active) -> torch.Tensor:
+    """Mean distance to the nearest live neighbour."""
+    d2, _ = knn_self(params["mean"], 1, mask=active)
+    return _masked_mean(torch.sqrt(torch.clamp(d2[:, 0], min=0.0)), active)
+
+
+def compat_penalty(params, active, cfg: RenderConfig, kind: str = "l1"
+                   ) -> torch.Tensor:
+    """Mean gap between each Gaussian's surface and its nearest live
+    neighbour's, over the pairs that leave a gap (the compactness
+    regularizer)."""
+    svec = activate(params, cfg)[2]
+    mean, qvec = params["mean"], params["qvec"]
+    _, idx = knn_self(mean, 1, mask=active)
+    idx = idx[:, 0].long()
+    nn_pos = mean[idx]
+    d_nn_surf = distance_to_gaussian_surface(nn_pos, svec[idx], qvec[idx],
+                                             mean)
+    d_self_surf = distance_to_gaussian_surface(mean, svec, qvec, nn_pos)
+    dist = torch.linalg.norm(nn_pos - mean, dim=-1)
+    gap = dist - d_self_surf - d_nn_surf
+    m = active & (gap > 0)
+    if kind == "l1":
+        return _masked_mean(gap, m)
+    if kind == "l2":
+        return _masked_mean(gap * gap, m)
+    raise ValueError(f"compat penalty {kind}")
+
+
+def move_penalty(params, active, prev_mean: torch.Tensor) -> torch.Tensor:
+    """Mean displacement from ``prev_mean`` (the trainer passes the means
+    before the previous update)."""
+    d2 = torch.sum((params["mean"] - prev_mean.detach()) ** 2, dim=-1)
+    return _masked_mean(torch.sqrt(d2 + 1e-12), active)
+
+
+def specular_penalty(params, active) -> torch.Tensor:
+    """Mean specular albedo."""
+    if "specular" not in params:
+        raise ValueError("specular penalty needs RenderConfig.pbr=True")
+    spec = torch.sigmoid(params["specular"])
+    return _masked_mean(torch.mean(spec, dim=-1), active)
+
+
+PENALTIES = dict(alpha=alpha_penalty, mean=mean_penalty, scale=scale_penalty,
+                 NN=nn_penalty, compat=compat_penalty, move=move_penalty,
+                 specular=specular_penalty)
+
+
+def penalty(name: str, spec: dict, params, active, cfg: RenderConfig,
+            prev_mean: torch.Tensor) -> torch.Tensor:
+    """Penalty ``name`` with its config block ``spec`` (its ``type``) and
+    the keywords it takes: the render config, the previous means."""
+    if name == "alpha":
+        kw = dict(cfg=cfg, kind=spec.get("type", "center_weighted"))
+    elif name == "compat":
+        kw = dict(cfg=cfg, kind=spec.get("type", "l1"))
+    elif name == "mean":
+        kw = dict(kind=spec.get("type", "uniform_l1"))
+    elif name == "scale":
+        kw = dict(cfg=cfg)
+    elif name == "move":
+        kw = dict(prev_mean=prev_mean)
+    else:
+        kw = {}
+    return PENALTIES[name](params, active, **kw)
 
 
 # -- image losses --

@@ -1,13 +1,14 @@
 """Training orchestration: one text-to-3D training step, eagerly.
 
 Port of the JAX package's ``training/trainer.py``.  A step runs in the
-same order as the JAX package's jitted ``train_step``: backgrounds,
-render, guidance, the sparsity / opague / z_var terms, penalties,
-backward, per-field Adam, then the densify statistics (``grad_accum``,
-``grad_cnt``, ``max_radii2d``); after the step, the densify and prune
-events that are due (:mod:`..models.density`).  The host loop evaluates ``C()``
-schedules, samples numpy camera poses and keeps the duplicate-capacity
-bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
+same order as the JAX package's jitted ``train_step``: backgrounds (the
+``mlp`` one over each view's ray directions), render (with each view's
+light under ``renderer.pbr``), guidance, the sparsity / opague / z_var
+terms, penalties, backward, per-field Adam, then the densify statistics
+(``grad_accum``, ``grad_cnt``, ``max_radii2d``); after the step, the
+densify and prune events that are due (:mod:`..models.density`).  The
+host loop evaluates ``C()`` schedules, samples numpy camera poses and
+keeps the duplicate-capacity bucket policy.  Eager PyTorch compiles nothing, so the JAX package's
 compile-ahead threads have no counterpart.
 
 Guidance is ``MockGuidance``, SDS (:mod:`..guidance.sds`) or VSD
@@ -15,9 +16,12 @@ Guidance is ``MockGuidance``, SDS (:mod:`..guidance.sds`) or VSD
 auxiliary guidance (:mod:`..guidance.point_e_aux`: SDS of a point-cloud
 diffusion model on the Gaussian means) adds ``w_aux · loss_aux`` to the
 same loss, so its gradient reaches the means through the same backward.
-The optimizer's leaves are the scene fields, the background (``bg/<name>``)
-and the guidance's trainable leaves (``gp/<name>``: VSD's LoRA and camera
-embedding, at ``lr_guidance``).
+The optimizer's leaves are the scene fields (the PBR ``specular`` and
+``normal`` at ``lr_specular`` / ``lr_normal``, by default ``lr_color``),
+the background (``bg/<name>``, at ``lr_bg``) and the guidance's trainable
+leaves (``gp/<name>``: VSD's LoRA and camera embedding, at
+``lr_guidance``).  The ``move`` penalty holds the means to where they were
+before the previous update (the current means on the first step).
 
 With a ``logger`` (:class:`..io.logging.RunLogger`), ``fit`` logs scalars,
 field statistics, eval images and orbit videos and saves checkpoints on
@@ -46,10 +50,12 @@ from ..models.background import (BackgroundConfig, apply_background,
 from ..models.density import (DensifyConfig, PruneConfig, densify, prune,
                               should_run)
 from ..models.init import InitConfig, initialize
-from ..models.scene import (FIELDS, RenderConfig, SceneState, activate,
+from ..models.scene import (FIELDS, OPTIONAL_FIELDS, RenderConfig,
+                            SceneState, activate, present_fields,
                             render_batch, scene_from_numpy)
+from ..ops.camera import get_rays_d
 from ..utils.schedule import C, make_lr_schedule
-from .losses import PENALTIES
+from .losses import PENALTIES, penalty
 from .optimizer import AdamState, adam_init, adam_update
 
 
@@ -142,8 +148,10 @@ def train_state_from_jax_arrays(arrays: Dict[str, np.ndarray], device
     def field(path, name):
         return arrays[f"{path}/.{name}"]
 
+    fields = [f for f in FIELDS + OPTIONAL_FIELDS
+              if f".scene/.params/.{f}" in arrays]
     scene = scene_from_numpy(
-        {**{f: field(".scene/.params", f) for f in FIELDS},
+        {**{f: field(".scene/.params", f) for f in fields},
          **{s: field(".scene", s) for s in
             ("active", "max_radii2d", "grad_accum", "grad_cnt")}},
         device)
@@ -160,7 +168,7 @@ def train_state_from_jax_arrays(arrays: Dict[str, np.ndarray], device
     moments = {}
     for m in ("mu", "nu"):
         mom = {f: torch.as_tensor(np.array(field(f".opt/.{m}/[0]", f)),
-                                  device=device) for f in FIELDS}
+                                  device=device) for f in fields}
         mom.update({f"bg/{k}": v for k, v in
                     named(f".opt/.{m}/[1]").items()})
         mom.update({f"gp/{k}": v for k, v in
@@ -210,7 +218,7 @@ class Trainer:
         scene = initialize(init_cfg, rcfg, self.generator, self.device,
                            points=init_points, colors=init_colors,
                            raw_values=init_raw)
-        bg = init_background(bg_cfg, self.device)
+        bg = init_background(bg_cfg, self.generator, self.device)
         gp = {k: v.detach().clone() for k, v in getattr(
             self.guidance, "trainable_params", {}).items()}
         self.state = TrainState(
@@ -220,6 +228,7 @@ class Trainer:
                        for k, v in cfg.lr.items()}
         self.dup_bucket = rcfg.dup_cap
         self._shrink_streak = 0
+        self._prev_mean = None
 
     def load(self, ckpt_path) -> int:
         """Resume from a checkpoint of either package (a ``step_N`` dir, or
@@ -255,24 +264,34 @@ class Trainer:
             return self.rcfg
         return dataclasses.replace(self.rcfg, dup_cap=self.dup_bucket)
 
-    def _loss(self, params, bg, gp, taps, batch, sched, intr, rcfg):
+    def _loss(self, params, bg, gp, taps, batch, sched, intr, rcfg,
+              prev_mean):
         cfg = self.cfg
         B = batch["c2w"].shape[0]
+        # the mlp reads the static intrinsics' rays, not the jittered focal
+        dirs = ([get_rays_d(c, intr) for c in batch["c2w"]]
+                if self.bg_cfg.type == "mlp" else [None] * B)
         bgs = torch.stack([apply_background(bg, self.bg_cfg, self.generator,
-                                            self.device, training=True)
-                           for _ in range(B)])
+                                            self.device, dirs=d,
+                                            training=True) for d in dirs])
         if not cfg.use_bg:
             bgs = torch.zeros_like(bgs)
+        lights = {}
+        if rcfg.pbr and "light_pos" in batch:
+            lights = dict(light_pos=batch["light_pos"],
+                          light_color=batch["light_color"])
         outs = render_batch(params, self.state.scene.active, batch["c2w"],
                             intr, rcfg, bgs, batch["fx"], batch["fy"],
                             batch["cx"], batch["cy"], rgb_only=cfg.rgb_only,
-                            mean2d_taps=taps)
+                            mean2d_taps=taps, **lights)
         embedding = (self.prompt_processor()
                      if self.prompt_processor is not None else None)
         g = self.guidance.loss(outs["rgb"], embedding, batch["elevation"],
                                batch["azimuth"], batch["camera_distance"],
                                generator=self.generator, sched=sched,
-                               c2ws=batch["c2w"], train=gp)
+                               c2ws=batch["c2w"], fxs=batch["fx"],
+                               fys=batch["fy"], cxs=batch["cx"],
+                               cys=batch["cy"], train=gp)
         loss = sched["w_sds"] * g.get("loss_sds", 0.0)
         if "loss_vsd" in g:
             loss = loss + sched["w_vsd"] * g["loss_vsd"]
@@ -300,15 +319,15 @@ class Trainer:
             metrics.update(loss_sparsity=sparsity, loss_opague=opague,
                            loss_z_var=z_var)
         for name, p in cfg.penalty.items():
-            pen = PENALTIES[name](params, self.state.scene.active, cfg=rcfg,
-                                  kind=p.get("type", "center_weighted"))
+            pen = penalty(name, p, params, self.state.scene.active, rcfg,
+                          prev_mean)
             loss = loss + sched[f"w_pen_{name}"] * pen
             metrics[f"pen_{name}"] = pen
         metrics["loss_total"] = loss
         metrics["n_dup_max"] = torch.amax(outs["n_dup"])
         return loss, outs, metrics
 
-    def _train_step(self, batches, sched, intr):
+    def _train_step(self, batches, sched, intr, prev_mean):
         """One optimizer step over ``grad_accum`` micro-batches."""
         cfg = self.cfg
         state = self.state
@@ -329,7 +348,7 @@ class Trainer:
             taps = torch.zeros(B, scene.params["mean"].shape[0], 2,
                                device=self.device, requires_grad=True)
             loss, outs, metrics = self._loss(params, bg, gp, taps, batch,
-                                             sched, intr, rcfg)
+                                             sched, intr, rcfg, prev_mean)
             names = list(leaves)
             grads = torch.autograd.grad(
                 loss, [leaves[k] for k in names] + [taps], allow_unused=True)
@@ -341,7 +360,9 @@ class Trainer:
                 vis_list.append(outs["visible"])
                 radii_list.append(outs["radii2d"].detach())
         grads = {k: v / A for k, v in gsum.items()}
-        lrs = {k: sched[f"lr_{k}"] for k in scene.params}
+        lrs = {k: sched.get(f"lr_{k}", sched["lr_color"])
+               if k in OPTIONAL_FIELDS else sched[f"lr_{k}"]
+               for k in scene.params}
         lrs.update({f"bg/{k}": sched["lr_bg"] for k in state.bg})
         lrs.update({f"gp/{k}": sched.get("lr_guidance", 1e-4)
                     for k in state.gp})
@@ -398,8 +419,14 @@ class Trainer:
         intr = self.data.intrinsics()
         sched = self.sched_scalars(step)
         batches = [self.data.get_batch() for _ in range(self.cfg.grad_accum)]
+        # the move penalty's reference: the means before the previous update
+        mean = self.state.scene.params["mean"]
+        prev_mean = self._prev_mean
+        if prev_mean is None or prev_mean.shape != mean.shape:
+            prev_mean = mean
         metrics = self._train_step([self._batch_tensors(b) for b in batches],
-                                   sched, intr)
+                                   sched, intr, prev_mean)
+        self._prev_mean = mean
         # bucket feedback every 10 steps: int() waits for the device
         if self.cfg.auto_dup_bucket and step % 10 == 0:
             self._adjust_dup_bucket(int(metrics["n_dup_max"]))
@@ -417,8 +444,9 @@ class Trainer:
         if not (due_d or due_p):
             return info
         opt = self.state.opt
-        scene_opt = AdamState(mu={k: opt.mu[k] for k in FIELDS},
-                              nu={k: opt.nu[k] for k in FIELDS},
+        fields = present_fields(self.state.scene.params)
+        scene_opt = AdamState(mu={k: opt.mu[k] for k in fields},
+                              nu={k: opt.nu[k] for k in fields},
                               count=opt.count)
         scene = self.state.scene
         if due_d:

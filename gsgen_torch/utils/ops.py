@@ -1,22 +1,25 @@
-"""Point-set ops: brute-force KNN, farthest point sampling and the
-Gaussian surface distance.
+"""Point-set ops: brute-force KNN, farthest point sampling, normal
+estimation and the Gaussian surface distance.
 
 Port of the JAX package's ``utils/ops.py`` (``pairwise_sqdist``, ``knn``,
-``knn_self``, ``farthest_point_sampling``,
-``distance_to_gaussian_surface``), what the compactness densify and the
-Point-E auxiliary guidance need.  Two differences of form, none of
-result:
+``knn_self``, ``farthest_point_sampling``, ``estimate_pointcloud_normals``,
+``distance_to_gaussian_surface``), what the compactness densify, the
+penalties, the normals and the Point-E auxiliary guidance need.  Three
+differences of form, none of result:
 
 * ``knn`` works in row blocks, so ``knn_self`` over a full capacity
   (65,536 in ``configs/base.yaml``) never holds the [M, M] distance
   matrix (16 GiB in fp32) at once; rows are independent, so the answer
-  is the same;
+  is the same.  The search runs without autograd and the picked pairs'
+  distances are recomputed, so a penalty's backward keeps [N, k];
 * ties: ``jax.lax.top_k`` returns the lower index first among equal
   values, which ``torch.topk`` does not promise.  A clone sits exactly on
   its source, so that order decides which column ``knn_self`` drops as
   "self".  The port ranks each row by one int64 key, the distance's
   float bits (order-preserving for non-negative floats) above the column
-  index, so equal distances come out by ascending index.
+  index, so equal distances come out by ascending index;
+* the normals' batched 3x3 ``eigh`` runs in batches of
+  :data:`EIGH_BATCH` matrices (:func:`eigh_batched`).
 
 ``a·bᵀ`` is summed per coordinate (no matrix product), so no TF32 setting
 reaches it and the same rows give bitwise the same distances.
@@ -31,6 +34,11 @@ import torch
 from ..ops.transforms import quat_to_rotmat
 
 KNN_ROWS = 1024     # query rows per block
+# cuSOLVER's batched symmetric eigensolver, as torch 2.11 + CUDA 12.8 call
+# it on the H100, rejects batches of 32,768 or more 3x3 matrices
+# (CUSOLVER_STATUS_INVALID_VALUE from cusolverDnXsyevBatched_bufferSize);
+# 16,384 run
+EIGH_BATCH = 16384
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,20 +58,35 @@ def knn(query: torch.Tensor, points: torch.Tensor, k: int,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours of each query point: (sqdists [N, k], idx
     [N, k] int32), ascending, lower index first among equal distances;
-    ``mask`` excludes points (distance +inf)."""
+    ``mask`` excludes points (distance +inf).
+
+    The search runs without autograd; the distances of the picked pairs
+    are then recomputed by the same elementwise steps as
+    :func:`pairwise_sqdist` (so bitwise the same values), which keeps the
+    autograd graph at [N, k] instead of [N, M]."""
     m = points.shape[0]
     col = torch.arange(m, dtype=torch.int64, device=points.device)
-    dists, idxs = [], []
-    for r0 in range(0, query.shape[0], KNN_ROWS):
-        d = pairwise_sqdist(query[r0:r0 + KNN_ROWS], points)
-        if mask is not None:
-            d = torch.where(mask[None, :], d, torch.full_like(d, float("inf")))
-        key = (d.view(torch.int32).to(torch.int64) << 32) | col[None, :]
-        top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-        i = top & 0xFFFFFFFF
-        idxs.append(i.to(torch.int32))
-        dists.append(torch.gather(d, 1, i))
-    return torch.cat(dists), torch.cat(idxs)
+    idxs = []
+    with torch.no_grad():
+        for r0 in range(0, query.shape[0], KNN_ROWS):
+            d = pairwise_sqdist(query[r0:r0 + KNN_ROWS], points)
+            if mask is not None:
+                d = torch.where(mask[None, :], d,
+                                torch.full_like(d, float("inf")))
+            key = (d.view(torch.int32).to(torch.int64) << 32) | col[None, :]
+            top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+            idxs.append(top & 0xFFFFFFFF)
+    idx = torch.cat(idxs)
+    nbr = points[idx]                                   # [N, k, D]
+    a2 = torch.sum(query * query, dim=-1, keepdim=True)
+    b2 = torch.sum(points * points, dim=-1)[idx]
+    ab = query[:, None, 0] * nbr[..., 0]
+    for j in range(1, query.shape[1]):
+        ab = ab + query[:, None, j] * nbr[..., j]
+    d = torch.clamp(a2 - 2.0 * ab + b2, min=0.0) + 0.0
+    if mask is not None:
+        d = torch.where(mask[idx], d, torch.full_like(d, float("inf")))
+    return d, idx.to(torch.int32)
 
 
 def knn_self(points: torch.Tensor, k: int,
@@ -98,6 +121,41 @@ def farthest_point_sampling(points: torch.Tensor, n_samples: int,
         last = torch.argmax(mind).view(1)
         picked.append(last)
     return torch.cat(picked).to(torch.int32)
+
+
+def eigh_batched(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of [N, n, n] symmetric matrices (ascending
+    eigenvalues), in batches of :data:`EIGH_BATCH` matrices: the same
+    result for any N (matrices are independent)."""
+    if a.shape[0] <= EIGH_BATCH:
+        return torch.linalg.eigh(a)
+    parts = [torch.linalg.eigh(a[i:i + EIGH_BATCH])
+             for i in range(0, a.shape[0], EIGH_BATCH)]
+    return (torch.cat([w for w, _ in parts]),
+            torch.cat([v for _, v in parts]))
+
+
+def estimate_pointcloud_normals(points: torch.Tensor, k: int = 16,
+                                mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Per-point unit normals [N, 3] by local plane fitting: the ``k``
+    nearest neighbours (:func:`knn_self` over ``mask``), their 3x3
+    covariance about their centroid, and its eigenvector of the smallest
+    eigenvalue (``torch.linalg.eigh``, ascending), turned to point away
+    from the centroid.  Only that last step fixes the sign, which
+    ``eigh`` leaves to the implementation."""
+    _, idx = knn_self(points, k, mask)
+    nbr = points[idx.long()]                       # [N, k, 3]
+    ctr = torch.mean(nbr, dim=1, keepdim=True)     # [N, 1, 3]
+    d = nbr - ctr
+    cov = torch.einsum("nki,nkj->nij", d, d) / k   # [N, 3, 3]
+    n = eigh_batched(cov)[1][..., 0]
+    out = points - ctr[:, 0]
+    sign = torch.where(torch.sum(n * out, dim=-1, keepdim=True) < 0.0,
+                       -1.0, 1.0)
+    n = n * sign
+    return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                           min=1e-8)
 
 
 def distance_to_gaussian_surface(mean: torch.Tensor, svec: torch.Tensor,

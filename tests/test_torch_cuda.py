@@ -6,7 +6,8 @@ them; there, skip the JAX-importing conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances as in test_pallas.py: T rtol 1e-5 / atol 1e-6, image rtol
+Render-path tests take F = 3, 5 and 8 feature channels (8: colour, depth,
+z^2 and the normal of render_normal).  Tolerances as in test_pallas.py: T rtol 1e-5 / atol 1e-6, image rtol
 1e-4 / atol 1e-5, gradients rtol 2e-3 / atol 2e-4; index kernels and the
 processed chunk / window counts exact.  On the deep multi-window scenes
 the gradient's atol is 2e-4 of each row's largest value, as chip_smoke.py
@@ -94,7 +95,7 @@ def test_expansion_rank_edge_cases(cuda, case):
                        expansion_rank.expansion_gid_plain(cum, cap))
 
 
-@pytest.mark.parametrize("F", [3, 5])
+@pytest.mark.parametrize("F", [3, 5, 8])
 def test_raster_kernels_match_plain(cuda, F):
     mean2d, cov2d, alpha, feats, depth = scene2d(80, 2, F=F)
     args = (mean2d, conic_np(cov2d), alpha, feats)
@@ -138,6 +139,75 @@ def test_render_view_on_card_matches_cpu(cuda):
     for k in ("rgb", "T", "depth", "z_var"):
         np.testing.assert_allclose(outs[1][k].numpy(), outs[0][k].numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_eigh_batched_on_card(cuda):
+    """The normals' batched 3x3 eigh past cuSOLVER's batch limit (40,000
+    matrices, 32,768 or more fail in one call): R diag(1, 2, 3) s R^T with
+    known eigenvalues (rtol 1e-5 of s) and eigenvectors (|dot| with R's
+    columns within 1e-5 of 1); bitwise the same as batch by batch."""
+    from gsgen_torch.utils.ops import EIGH_BATCH, eigh_batched
+    g = torch.Generator().manual_seed(0)
+    q = torch.linalg.qr(torch.randn(40000, 3, 3, generator=g))[0]
+    s = torch.rand(40000, 1, generator=g) + 0.5
+    lam = torch.tensor([1.0, 2.0, 3.0]) * s
+    a = ((q * lam[:, None, :]) @ q.transpose(1, 2)).to(cuda)
+    a = 0.5 * (a + a.transpose(1, 2))
+    w, v = eigh_batched(a)
+    assert EIGH_BATCH < 32768 < a.shape[0]
+    np.testing.assert_allclose(w.cpu().numpy(), lam.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    dots = (v.cpu() * q).sum(1).abs()
+    assert float((dots - 1.0).abs().max()) < 1e-5
+    w1, v1 = torch.linalg.eigh(a[:EIGH_BATCH])
+    assert torch.equal(w[:EIGH_BATCH], w1) and torch.equal(v[:EIGH_BATCH], v1)
+
+
+@pytest.mark.parametrize("layout", ["padded", "compact"])
+def test_render_normal_pbr_on_card_matches_cpu(cuda, layout):
+    """render_view with pbr (learned normals, a point light) and
+    render_normal (F = 8: colour, depth, z^2, normal) on the card against
+    the same call on the CPU: outputs rtol 1e-4 / atol 1e-5, gradients of
+    every field (specular and normal included) rtol 2e-3 / atol 2e-4 of
+    the largest; K1/K2 (padded) or K8/K9 (compact) launched once each."""
+    from gsgen_torch.models.scene import scene_from_numpy
+    raw = scene3d(150, seed=4, capacity=160)
+    rng = np.random.default_rng(5)
+    raw["specular"] = rng.normal(-2.0, 0.5, (160, 3)).astype(np.float32)
+    raw["normal"] = rng.standard_normal((160, 3)).astype(np.float32)
+    cfg = RenderConfig(tile_size=8, chunk=128, dup_cap=4096, pbr=True,
+                       normal_type="learned", render_normal=True,
+                       binning_layout=layout)
+    c2w = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.5]],
+                   np.float32)
+    light = dict(light_pos=np.float32([2.5, 1.0, -1.0]),
+                 light_color=np.ones(3, np.float32))
+    w = t(rng.standard_normal((RES, RES, 3)).astype(np.float32))
+    fwd, bwd = ((cuda_raster.raster_fwd, cuda_raster.raster_bwd)
+                if layout == "padded" else
+                (cuda_raster.raster_fwd_compact,
+                 cuda_raster.raster_bwd_compact))
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        sc = scene_from_numpy(raw, dev)
+        ps = {k: v.requires_grad_(True) for k, v in sc.params.items()}
+        n = (fwd.launches, bwd.launches)
+        o = render_view(ps, sc.active, c2w, CameraIntrinsics.from_reso(RES),
+                        cfg, np.ones(3, np.float32), **light)
+        ((o["rgb"] * w.to(dev)).sum() + (o["normal"] * w.to(dev)).sum()
+         + o["depth"].sum()).backward()
+        assert (fwd.launches - n[0], bwd.launches - n[1]) == \
+            ((1, 1) if dev == cuda else (0, 0))
+        outs.append({k: v.detach().cpu() for k, v in o.items()})
+        grads.append({k: v.grad.cpu() for k, v in ps.items()})
+    assert tuple(outs[1]["normal"].shape) == (RES, RES, 3)
+    for k in ("rgb", "T", "depth", "z_var", "normal"):
+        np.testing.assert_allclose(outs[1][k].numpy(), outs[0][k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    for k, g in grads[0].items():
+        scale = max(float(g.abs().max()), 1e-6)
+        np.testing.assert_allclose(grads[1][k].numpy(), g.numpy(),
+                                   rtol=2e-3, atol=2e-4 * scale, err_msg=k)
     assert torch.equal(outs[1]["n_dup"], outs[0]["n_dup"])
 
 
@@ -285,7 +355,7 @@ def test_flash_attention_autograd_on_card(cuda):
     assert fa.flash_bwd_dkv.launches == n[1] + 1
 
 
-@pytest.mark.parametrize("F", [3, 5])
+@pytest.mark.parametrize("F", [3, 5, 8])
 def test_compact_kernels_match_plain(cuda, F):
     """K8 and K9 against their plain versions on compact bins with empty
     tiles whose starts are unaligned and windows shared by two tiles: T,

@@ -157,9 +157,12 @@ def test_make_scene_padding_and_unported_features():
     assert sc.params["qvec"][4].tolist() == [1.0, 0.0, 0.0, 0.0]
     np.testing.assert_allclose(sc.params["svec"][4].numpy(), np.log(1e-4),
                                rtol=1e-6)
-    for bad in (dict(pbr=True), dict(sh_degree=1),
-                dict(render_normal=True)):
-        with pytest.raises(NotImplementedError):
+    for bad in (dict(binning_layout="tiled"), dict(backend="triton")):
+        with pytest.raises(ValueError):
             render_view(sc.params, sc.active, np.eye(3, 4, dtype=np.float32),
                         CameraIntrinsics.from_reso(16),
                         dataclasses.replace(cfg, **bad), np.ones(3))
+    with pytest.raises(NotImplementedError):
+        render_batch(sc.params, sc.active, np.eye(3, 4, dtype=np.float32)[None],
+                     CameraIntrinsics.from_reso(16), cfg, np.ones((1, 3)),
+                     tile_mesh=object())
