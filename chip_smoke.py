@@ -26,7 +26,12 @@ Phases, each reported on its own line:
    1.5's level 0 [8, 4096, 8, 40] in bf16, a small [2, 256, 2, 64] in
    fp32, and in bf16 [1, 4096, 2, 64] (the whole TMA ring on few CTAs),
    [2, 128, 3, 40] (one tile, TMA zero fill past D) and [2, 256, 2, 160]
-   (the mma.sync instance); and K5's lse, K6 (dK, dV) and K7 (dQ) against
+   (the mma.sync instance), at the IF-II upsampler's levels [2, 16384, 8,
+   16] and [2, 4096, 8, 32] in fp32 and bf16 (bf16 there also each
+   element within one bf16 step plus 5% of the output's RMS) and at phase
+   14 d's TINY_SR level 0 [8, 65536, 2, 16] in fp32 (the plain version on
+   its first, a middle and its last 2,048 queries); and
+   K5's lse, K6 (dK, dV) and K7 (dQ) against
    the plain backward at the VSD path's [4, 4096, 5, 64] in fp32 and
    bf16 (K7 fp32 there also within 1e-5 of max|dq|), a small
    [2, 256, 2, 64] in fp32, [1, 4096, 2, 64] and [2, 256, 2, 160] in bf16,
@@ -47,7 +52,8 @@ Phases, each reported on its own line:
    shapes, and the full render forward+backward in both layouts; one
    line gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
    SDPA's time, with the bound at the rate its design can reach (bf16
-   989 TFLOP/s; fp32 3xTF32 3 x ops / 495 TFLOP/s);
+   989 TFLOP/s; fp32 3xTF32 3 x ops / 495 TFLOP/s); K5 fp32 at the IF-II
+   upsampler's two levels with its plain version and SDPA in fp32;
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
@@ -84,7 +90,11 @@ Phases, each reported on its own line:
    it (32 poses, 4 epochs at 256^2) with K1-K4's counters read around it
    (once per view: 64^2 renders forward, 256^2 steps forward and
    backward), ply / splat / mesh, each output's seconds and bytes, and
-   the final checkpoint loaded into a fresh trainer, every array equal.
+   the final checkpoint loaded into a fresh trainer, every array equal;
+   with trainer.guidance_eval_period=2 the guidance-eval sample at step 2
+   (SD 2.1 bf16, 25 CFG steps: 125 K5 launches, counters set to 0 around
+   it) and with trainer.profile_steps=[1, 2] the profiler trace of step 1
+   (device ops required).
    Phase 3 also holds K3 bitwise on count patterns the renders do not
    reach (total 0, total past cap, N 1, zero-count runs, ragged cap) and
    phase 5 prints K3 (render shapes and edge cases), torch.searchsorted
@@ -124,6 +134,19 @@ Phases, each reported on its own line:
    (e) the configuration of (d) at RES 32 with mock guidance, one step on
    the card and on the CPU from the same state with the same background
    draws: loss, each penalty and each field's gradient;
+14. sampling and DeepFloyd IF: (a) DDIM (eta 0 and 0.5), PNDM and
+   ancestral CFG samples on the TINY UNet, the card against the CPU on
+   the same injected draws; (b) VSD's sample (through the trainer's
+   guidance-eval hook) and sample_lora at full width, 25 steps each (SD
+   2.1 UNet fp32 + LoRA + camera; 125 K5 launches each); (c)
+   guidance/if.yaml over base.yaml at full width (IF_PIXEL bf16, 64^2
+   pixel space, batch 4, prompts at T5-XXL's width): 3 SDS steps and one
+   guidance sample with no K5 launch, and the TINY IF loss and its render
+   gradient on the card against the CPU; (d) the IF-II upsampler
+   (IF2_PIXEL, random weights) at a 256^2 target, B = 1, 3 of the
+   config's 50 steps, then the upsample fine-tune through
+   make_diffusion_upsampler (TINY_SR, 3 steps) on 8 poses; each part's
+   ms, peak GiB and launches;
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -151,11 +174,26 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 # K5 (and its lse) against its plain version: max abs error over max
 # |plain output|; K6 / K7: the same over each gradient's max |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K5 bf16 at the IF-II levels, where each output averages thousands of keys
+# (typical |out| ~ max/20, so a limit on max|out| is loose): each element
+# within one bf16 step of the plain value (2^-7 |plain|) plus this share of
+# the plain output's RMS
+FLASH_BF16_RMS_TOL = 0.05
 FLASH_BWD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # K7 fp32 (3xTF32) at the VSD path's shape: within this share of max|dq|
 K7_FP32_VSD_TOL = 1e-5
 SD21_ATTN = (8, 4096, 5, 64)    # SD 2.1 level-0 self-attention [B, L, H, D]
 VSD_ATTN = (4, 4096, 5, 64)     # the same under VSD's LoRA pass (batch 4)
+# the IF-II upsampler (IF2_PIXEL, 8 heads on 128 / 256 channels) at a 256^2
+# target, CFG batch 2 (B = 1): its two K5 levels
+IF2_ATTN = {"IF-II level 1": (2, 16384, 8, 16),
+            "IF-II level 2": (2, 4096, 8, 32)}
+# TINY_SR level 0 in phase 14 d's fine-tune at a 256^2 target (CFG batch 2
+# x 4 views); the plain version takes it one block of queries at a time
+TINY_SR_ATTN = (8, 65536, 2, 16)
+K5_QUERY_BLOCK = 2048
+SD21_K5_PER_FWD = 5   # SD 2.1's level 0: 2 down + 3 up transformer blocks
+IF_CONFIGS = ["base.yaml", "guidance/if.yaml", "prompt/if.yaml"]
 SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
          "guidance.backbone_dtype=bfloat16"]
 VSD_CONFIGS = ["base.yaml", "guidance/vsd.yaml", "prompt/vsd.yaml"]
@@ -619,26 +657,54 @@ def run(torch) -> int:
             ("small", (2, 256, 2, 64), "float32"),
             ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
             ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
-            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"))):
+            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"),
+            *((label, shape, dtn) for label, shape in IF2_ATTN.items()
+              for dtn in ("float32", "bfloat16")),
+            ("TINY_SR level 0 (fine-tune)", TINY_SR_ATTN, "float32"))):
         dt = getattr(torch, dtn)
         q, k, v = qkv(shape, dt, 20 + i)
         scale = shape[-1] ** -0.5
         got = flash_attention.flash_self_attention(q, k, v, scale)
-        want = flash_attention.flash_self_attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         require(got.shape == q.shape and got.dtype == dt,
                 f"K5 {label} {dtn}: output {got.dtype} {tuple(got.shape)}")
         require(bool(torch.isfinite(got).all()),
                 f"K5 {label} {dtn}: non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        tol = FLASH_TOL[dtn] * float(want.float().abs().max())
+        L = shape[1]
+        # past L = 16,384 the plain version takes the first, a middle and
+        # the last block of queries against all L keys
+        rows = ([slice(None)] if L <= 16384 else
+                [slice(s, s + K5_QUERY_BLOCK) for s in
+                 (0, (L - K5_QUERY_BLOCK) // 2, L - K5_QUERY_BLOCK)])
+        elementwise = label in IF2_ATTN and dtn == "bfloat16"
+        err = top = rel = 0.0
+        for r in rows:
+            want = flash_attention.flash_self_attention_plain(
+                q[:, r], k, v, scale).float()
+            diff = (got[:, r].float() - want).abs()
+            err, top = max(err, float(diff.max())), max(
+                top, float(want.abs().max()))
+            if elementwise:
+                rms = float(want.square().mean().sqrt())
+                rel = max(rel, float(((diff - 2 ** -7 * want.abs())
+                                      / rms).max()))
+            del want, diff
+        tol = FLASH_TOL[dtn] * top
         require(err <= tol, f"K5 {label} {shape} {dtn}: max abs err "
                 f"{err:.3e} above {tol:.3e}")
+        require(rel <= FLASH_BF16_RMS_TOL,
+                f"K5 {label} {shape} {dtn}: an output is {rel:.3e} x RMS "
+                f"past one bf16 step of the plain value (limit "
+                f"{FLASH_BF16_RMS_TOL})")
         errs["flash_attn_fwd"] = max(errs["flash_attn_fwd"], err)
+        blocks = (f", query blocks {[(r.start, r.stop) for r in rows]}"
+                  if len(rows) > 1 else "")
+        bf16_rms = (f", past one bf16 step {rel:.2e} x RMS (tol "
+                    f"{FLASH_BF16_RMS_TOL})" if elementwise else "")
         notes.append(f"K5 {label} {list(shape)} {dtn}: max abs err "
-                     f"{err:.2e} (tol {tol:.2e})")
-        del q, k, v, got, want
-    torch.cuda.empty_cache()
+                     f"{err:.2e} (tol {tol:.2e}){bf16_rms}{blocks}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
 
     # K6 / K7 (flash backward) against the plain formulas from the same
     # lse and Di, and K5's lse against the plain lse
@@ -1038,6 +1104,32 @@ def run(torch) -> int:
     del q, k, v, qh, kh, vh, q32, k32, v32, qh32, kh32, vh32
     torch.cuda.empty_cache()
 
+    # K5 fp32 at the IF-II upsampler's two attention levels (the upsampler
+    # runs fp32): its time, the plain version's, SDPA's in fp32 and the
+    # bound (3xTF32 at 495/3 TFLOP/s, or the bytes of q, k, v and out)
+    if2_times = {}
+    for label, shp in IF2_ATTN.items():
+        Bi, Li, Hi, Di = shp
+        sc = Di ** -0.5
+        q, k, v = qkv(shp, torch.float32, 31)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        ops = 4.0 * Bi * Hi * Li * Li * Di
+        b_ms = 1e3 * 4 * Bi * Li * Hi * Di * 4 / PEAK_BYTES
+        o_ms = 1e3 * ops / PEAK_3XTF32_FLOPS
+        if2_times[label] = dict(
+            shape=list(shp), ops=ops,
+            ms=time_ms(lambda: flash_attention.flash_self_attention(
+                q, k, v, sc), 10),
+            plain_ms=time_ms(
+                lambda: flash_attention.flash_self_attention_plain(
+                    q, k, v, sc), 2),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=sc), 10),
+            bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations")
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+
     # K6 / K7 at the VSD path's [4, 4096, 5, 64] (fp32 on the path, bf16
     # beside it); the yardstick is SDPA's backward, one call computing all
     # three gradients; K5 with its lse at the same shape
@@ -1091,6 +1183,9 @@ def run(torch) -> int:
          sdpa_fp32["b4"]),
         ("K5 bf16 wgmma+TMA +lse", list(VSD_ATTN), k5_b4["bfloat16"],
          4.0 * units, 1e3 * 4.0 * units / PEAK_BF16_FLOPS, None)]
+    flash_rows += [(f"K5 fp32 3xTF32 {label}", r["shape"], r["ms"],
+                    r["ops"], r["bound_ms"], r["library_ms"])
+                   for label, r in if2_times.items()]
     for (name, dtn), v in times_bwd.items():
         design = {("flash_attn_bwd_dkv", "bfloat16"): "K6 bf16 wgmma+TMA",
                   ("flash_attn_bwd_dkv", "float32"): "K6 fp32 3xTF32",
@@ -1136,6 +1231,13 @@ def run(torch) -> int:
           f"| SDPA fp32 "
           f"at B=4: {sdpa_fp32['b4']:.3f} ms (K5 with lse "
           f"{k5_b4['float32']:.3f})", flush=True)
+    print(f"phase 5 if2: ok | card {card} | K5 fp32 at the IF-II "
+          "upsampler's levels (256^2 target, B = 1): " + " | ".join(
+              f"{k} {r['shape']}: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f}, SDPA fp32 {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} {r['bound_by']}, "
+              f"{100.0 * r['bound_ms'] / r['ms']:.1f}% of it)"
+              for k, r in if2_times.items()), flush=True)
     print(f"phase 5 times: ok | card {card} | render fwd+bwd 512^2: "
           + ", ".join(f"{k} {v:.3f} ms = {512 * 512 / v * 1e3:.0f} rays/s"
                       for k, v in render.items())
@@ -1324,6 +1426,13 @@ def run(torch) -> int:
               f"{f8_times[5][k]['ms']:.4f} ms" for k in RASTER), flush=True)
     extras["e"] = extras_card_vs_cpu(torch, build_trainer, load_config)
 
+    # ---- phase 14: guidance sampling and DeepFloyd IF ----
+    sampling = sampling_phases(torch, dev, build_trainer, load_config,
+                               wrappers, card)
+    sampling["k5_launches"]["11 flagship guidance sample"] = \
+        outputs["guidance_sample"]["launches"]["flash_attn_fwd"]
+    torch.cuda.empty_cache()
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1381,6 +1490,7 @@ def run(torch) -> int:
         fp32_library_ms=sdpa_fp32["b8"], fp32_b4_lse_ms=k5_b4["float32"],
         fp32_b4_library_ms=sdpa_fp32["b4"],
         fp32_bound_ms=1e3 * flash_ops / PEAK_3XTF32_FLOPS,
+        if2_fp32=if2_times, path_launches=sampling["k5_launches"],
         design="bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
                "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
                "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double buffer"))
@@ -1416,6 +1526,7 @@ def run(torch) -> int:
                       "sds_profile": sds_profile, "vsd": vsd,
                       "vsd_profile": vsd_profile, "outputs": outputs,
                       "point_e": point_e, "render_extras": extras,
+                      "sampling": sampling,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -1480,10 +1591,13 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
     from gsgen_torch.io import export as export_mod
     from gsgen_torch.training import evaluation, upsample
 
+    from gsgen_torch.training import trainer as trainer_mod
+
     cfg_path = ROOT / "configs" / "flagship_rehearsal.yaml"
     overrides = ["trainer.eval_image_period=1", "trainer.eval_video_period=2",
-                 "trainer.save_period=2"]
-    seconds, tune, stamps, saved = {}, {}, [], []
+                 "trainer.save_period=2", "trainer.guidance_eval_period=2",
+                 "trainer.profile_steps=[1, 2]"]
+    seconds, tune, stamps, saved, gsample = {}, {}, [], [], {}
     patched, views = [], {}
 
     def patch(mod, name, wrapper):
@@ -1524,6 +1638,25 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
             return losses
         return call
 
+    def sampled(fn):
+        """The guidance-eval sample with every counter set to 0 just
+        before it and read just after."""
+        def call(self, step, **kw):
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            img = fn(self, step, **kw)
+            torch.cuda.synchronize()
+            gsample.update(step=step, seconds=time.perf_counter() - t0,
+                           launches={k: w.launches
+                                     for k, w in wrappers.items()},
+                           steps=self.cfg.guidance_eval_steps,
+                           shape=list(img.shape),
+                           finite=bool(np.isfinite(img).all()))
+            return img
+        return call
+
     def recorded(fn):
         """The first view the fine-tune renders at each resolution: its
         camera, intrinsics and render config."""
@@ -1544,6 +1677,7 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
     patch(upsample, "tune_with_upsample", counted)
     patch(upsample, "adam_update", stamped)
     patch(upsample, "render_batch", recorded)
+    patch(trainer_mod.Trainer, "_guidance_sample", sampled)
     for mod, name in ((export_mod, "to_ply"), (export_mod, "to_splat"),
                       (export_mod, "to_mesh"),
                       (ckpt_mod, "save_checkpoint"),
@@ -1585,12 +1719,30 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
                      "ckpts/step_2/arrays.npz", "ckpts/step_3/arrays.npz",
                      "eval/eval_image_000000.png",
                      "eval/eval_image_000001.png",
-                     "eval/eval_image_000002.png", "exports/scene.ply",
+                     "eval/eval_image_000002.png",
+                     "eval/eval_guidance_sample_000002.png",
+                     "profile/steps_1_2.json", "exports/scene.ply",
                      "exports/scene.splat", "exports/scene.obj"):
             require(need in files and files[need].stat().st_size > 0,
                     f"phase 11: {need} missing or empty in {sorted(files)}")
         video = [k for k in files if "orbit" in k]
         require(video, f"phase 11: no orbit video in {sorted(files)}")
+        # the guidance-eval sample at step 2: SD 2.1 in bf16, 25 CFG steps
+        # at batch 2, K5 five times a forward and no other kernel
+        n_s = gsample.get("steps", 0)
+        want_s = {k: SD21_K5_PER_FWD * n_s if k == "flash_attn_fwd" else 0
+                  for k in wrappers}
+        require(gsample.get("step") == 2 and n_s == 25
+                and gsample["launches"] == want_s and gsample["finite"]
+                and gsample["shape"] == [512, 512, 3],
+                f"phase 11: guidance sample {gsample}, expected launches "
+                f"{want_s}")
+        # the profiler trace of step 1 holds the card's kernels
+        trace = json.loads(files["profile/steps_1_2.json"].read_text())
+        n_dev = sum(1 for e in trace.get("traceEvents", [])
+                    if e.get("cat") in DEVICE_CATS)
+        require(n_dev > 0, "phase 11: the profile trace holds no device op")
+        del trace
 
         # a fresh trainer of the same config resumes from the final
         # checkpoint: every array equal
@@ -1620,7 +1772,8 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
             run_wall_s=wall_s, seconds=seconds, bytes=sizes,
             video=sorted({k.rsplit("/", 1)[0] if "/orbit_" in k else k
                           for k in video}), video_files=len(video),
-            live=live, mesh_faces=faces,
+            live=live, mesh_faces=faces, guidance_sample=gsample,
+            profile_device_ops=n_dev,
             fine_tune=dict(launches=got, losses=losses,
                            kernel_checks=tune["kernel_checks"],
                            seconds=tune["seconds"],
@@ -1646,7 +1799,10 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
               f"{k} {v}" for k, v in sorted(res["bytes"].items()))
           + f" | orbit video: {res['video']} ({len(video)} files)"
           f" | mesh faces {faces} | checkpoint loaded into a fresh "
-          "trainer: every array equal", flush=True)
+          "trainer: every array equal | guidance sample at step 2: "
+          f"{gsample['steps']} steps, {gsample['seconds']:.3f} s, K5 "
+          f"{gsample['launches']['flash_attn_fwd']} launches | profile "
+          f"trace of step 1: {n_dev} device ops", flush=True)
     return res
 
 
@@ -1711,7 +1867,7 @@ PER_VIEW = dict(padded=("raster_fwd", "raster_bwd", "expansion_rank",
 
 def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
           n_steps, flash_per_step, layout="padded", on_step=None,
-          unread=()):
+          unread=(), prepare=None):
     """``n_steps`` training steps of a config (one file or a list merged in
     order) through build_trainer / fit with every kernel counter set to 0
     just before and read just after; losses finite and changing, every
@@ -1720,11 +1876,15 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
     no other render kernel, and each flash kernel ``flash_per_step[name]``
     (default 0) times a step.  ``on_step(trainer, step, metrics)`` runs
     after each step.  ``unread``: scene fields the config's render does not
-    read (normal_as_rgb's colour), which must stay exactly as they were."""
+    read (normal_as_rgb's colour), which must stay exactly as they were.
+    ``prepare(trainer)`` runs once after the build, before the counters
+    are set to 0."""
     names = [cfg_names] if isinstance(cfg_names, str) else cfg_names
     label = " + ".join(names) + "".join(" " + o for o in overrides)
     trainer = build_trainer(load_config([ROOT / "configs" / n for n in names],
                                         overrides), device="cuda")
+    if prepare is not None:
+        prepare(trainer)
     p0 = {k: v.detach().clone() for k, v in trainer.state.scene.params.items()}
     gp0 = {k: v.detach().clone() for k, v in trainer.state.gp.items()}
     losses, stamps = [], []
@@ -2540,6 +2700,268 @@ def extras_card_vs_cpu(torch, build_trainer, load_config):
               f"{k} {v:.2e}" for k, v in rel.items()), flush=True)
     return dict(rel_err=rel, loss_cpu=m_c["loss_total"],
                 loss_card=m_d["loss_total"])
+
+
+def k5_per_forward(cfg, reso: int) -> int:
+    """Self-attention blocks of a UNet config whose token count takes K5
+    under "auto" (L >= 2048, L % 128 == 0) at a reso^2 input: 2 x
+    layers_per_block + 1 at each attention level (down, then up), and the
+    mid block's one at the last level."""
+    def k5(L):
+        return L >= 2048 and L % 128 == 0
+    n = sum(2 * cfg.layers_per_block + 1
+            for lvl, attn in enumerate(cfg.cross_attn_levels)
+            if attn and k5((reso >> lvl) ** 2))
+    return n + k5((reso >> (len(cfg.block_out_channels) - 1)) ** 2)
+
+
+def sampling_phases(torch, dev, build_trainer, load_config, wrappers, card):
+    """Phase 14: guidance sampling and DeepFloyd IF.  a: DDIM (eta 0 and
+    0.5), PNDM and ancestral CFG samples on the TINY UNet (latent 32) on
+    the card against the CPU from the same injected draws; b: VSD's
+    ``sample`` (through the trainer's guidance-eval hook) and
+    ``sample_lora`` at full width (SD 2.1 UNet fp32 + LoRA + camera, 25
+    steps); c: guidance/if.yaml over base.yaml at full width (IF_PIXEL in
+    bf16, 64^2 pixel space, batch 4, mock prompts at T5-XXL's width 4096):
+    3 SDS steps and one guidance sample, no K5; the TINY IF loss and its
+    render gradient on the card against the CPU; d: DiffusionUpsampler
+    (IF2_PIXEL) at a 256^2 target on random weights, B = 1, 3 steps (cut
+    from the config's 50 for the time limit), then the upsample fine-tune
+    with make_diffusion_upsampler (TINY_SR, 3 steps) on 8 poses.  Each
+    sub-phase: ms, peak GiB and launches, every counter set to 0 just
+    before and read just after."""
+    import copy
+    import dataclasses as dc
+
+    import numpy as np
+
+    from gsgen_torch.guidance import samplers
+    from gsgen_torch.guidance.diffusion import scaled_linear_schedule
+    from gsgen_torch.guidance.sd_unet import IF_PIXEL, TINY, SDUNetBackbone
+    from gsgen_torch.guidance.sds import SDSConfig, SDSGuidance
+    from gsgen_torch.guidance.unet2d import set_fused_attention
+    from gsgen_torch.guidance.upsampler import (IF2_PIXEL, TINY_SR,
+                                                DiffusionUpsampler,
+                                                UpsamplerConfig)
+    from gsgen_torch.prompt import processors
+    from gsgen_torch.training import upsample
+
+    cpu = torch.device("cpu")
+    res, k5 = {}, {}
+
+    def counted(key, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        r = dict(ms=1e3 * (time.perf_counter() - t0),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 launches={k: w.launches for k, w in wrappers.items()})
+        k5[key] = r["launches"]["flash_attn_fwd"]
+        return out, r
+
+    def only_k5(key, r, n):
+        want = {k: n if k == "flash_attn_fwd" else 0 for k in wrappers}
+        require(r["launches"] == want,
+                f"14 {key}: launches {r['launches']}, expected {want}")
+
+    def image_ok(key, img, shape):
+        img = torch.as_tensor(img)
+        require(list(img.shape) == list(shape)
+                and bool(torch.isfinite(img).all())
+                and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                f"14 {key}: image {list(img.shape)}, expected {shape} in "
+                "[0, 1]")
+
+    def line(key, r, extra=""):
+        print(f"phase 14 {key}: ok | card {card} | {r['ms']:.1f} ms, peak "
+              f"{r['peak_gib']:.2f} GiB, K5 launches "
+              f"{r['launches']['flash_attn_fwd']}" + extra, flush=True)
+
+    # a: the loops, card against CPU (TF32 off) on one set of draws
+    g = torch.Generator(device="cpu").manual_seed(21)
+    bb_cpu = SDUNetBackbone(TINY, latent_size=32, device="cpu")
+    bb_dev = copy.deepcopy(bb_cpu).to(dev)
+    text2 = torch.randn(4, 77, 1024, generator=g)
+    x = torch.randn(2, 32, 32, 4, generator=g)
+    loops = {}
+    for kind, typ, eta, n in (("ddim", "ddim", 0.0, 3),
+                              ("ddim eta 0.5", "ddim", 0.5, 3),
+                              ("pndm", "pndm", 0.0, 5),
+                              ("ancestral", "ancestral", 0.0, 3)):
+        noise = torch.randn(n, *x.shape, generator=g)
+        scfg = samplers.SamplerConfig(type=typ, num_steps=n, eta=eta)
+        outs, r = {}, None
+        for d, bb in ((cpu, bb_cpu), (dev, bb_dev)):
+            def run_loop(d=d, bb=bb):
+                return samplers.cfg_sample(
+                    scfg, scaled_linear_schedule(), x.shape, 7.5,
+                    lambda lat2, t2: bb.predict_noise(lat2, t2,
+                                                      text2.to(d)),
+                    device=d, x=x.to(d), noise=noise.to(d))
+            if d.type == "cuda":
+                out, r = counted(f"a {kind}", run_loop)
+            else:
+                out = run_loop()
+            outs[d.type] = out.cpu()
+        err = float((outs["cuda"] - outs["cpu"]).abs().max())
+        top = float(outs["cpu"].abs().max())
+        require(err <= 1e-4 * top, f"14 a {kind}: card vs CPU max abs err "
+                f"{err:.3e} (max |CPU| {top:.3e})")
+        only_k5(f"a {kind}", r, 0)
+        loops[kind] = dict(steps=n, max_abs_err=err, **r)
+    del bb_cpu, bb_dev
+    res["a"] = loops
+    print(f"phase 14 a loops: ok | card {card} | TINY latent 32, CFG 7.5, "
+          "card against CPU from the same draws: " + " | ".join(
+              f"{k} {v['steps']} steps: max abs err {v['max_abs_err']:.2e}, "
+              f"{v['ms']:.1f} ms" for k, v in loops.items()), flush=True)
+
+    # b: VSD's samples at full width (UNet fp32 + LoRA + camera)
+    tr = build_trainer(load_config([ROOT / "configs" / n for n in
+                                    VSD_CONFIGS]), device="cuda")
+    gd = tr.guidance
+    n_fwd = tr.cfg.guidance_eval_steps
+    img, rb = counted("b vsd sample", lambda: tr._guidance_sample(1))
+    image_ok("b sample", img, [512, 512, 3])
+    only_k5("b vsd sample", rb, SD21_K5_PER_FWD * n_fwd)
+    emb = tr.prompt_processor()
+    pose = [torch.tensor([v], device=dev) for v in (15.0, 30.0, 2.5)]
+    c2w = torch.as_tensor(tr.data.get_batch()["c2w"][:1],
+                          dtype=torch.float32, device=dev)
+    img_l, rl = counted("b vsd sample_lora", lambda: gd.sample_lora(
+        emb, *pose, c2w, generator=torch.Generator(device=dev).manual_seed(3),
+        num_steps=n_fwd, train=tr.state.gp))
+    image_ok("b sample_lora", img_l, [1, 512, 512, 3])
+    only_k5("b vsd sample_lora", rl, SD21_K5_PER_FWD * n_fwd)
+    res["b"] = dict(steps=n_fwd, sample=rb, sample_lora=rl)
+    line("b vsd sample", rb, f" | {n_fwd} steps, UNet fp32, through "
+         "Trainer._guidance_sample")
+    line("b vsd sample_lora", rl, f" | {n_fwd} steps, UNet fp32 + LoRA, "
+         "camera against a zero camera")
+    del tr, gd, emb
+    torch.cuda.empty_cache()
+
+    # c: if.yaml at full width, prompts at T5-XXL's width
+    prompts = {}
+
+    def t5_width(trainer):
+        prompts["config"] = trainer.prompt_processor
+        # no embedding cache: it holds the config's 1024-wide embeddings
+        trainer.prompt_processor = processors.PromptProcessor(
+            dc.replace(trainer.prompt_processor.cfg, use_cache=False),
+            encode_fn=lambda t: processors.mock_encode(t, D=4096),
+            device=dev)
+
+    tr, c = drive(torch, build_trainer, load_config, wrappers, IF_CONFIGS,
+                  [], 3, {}, prepare=t5_width)
+    bb = tr.guidance.backbone
+    require(bb.cfg == IF_PIXEL and bb.vae is None
+            and bb.latent_size == 64 and tr.guidance.cfg.rgb_as_latents
+            and all(p.dtype == torch.bfloat16 for p in bb.parameters()),
+            "14 c: if.yaml did not build IF_PIXEL in bf16 without a VAE")
+    require(k5_per_forward(IF_PIXEL, 64) == 0, "14 c: IF_PIXEL at 64^2 "
+            "reaches K5")
+    k5["c if sds steps"] = c["launches"]["flash_attn_fwd"]
+    img, rc = counted("c if sample", lambda: tr._guidance_sample(3))
+    image_ok("c sample", img, [64, 64, 3])
+    only_k5("c if sample", rc, 0)
+    # the TINY IF loss and its render gradient, card against CPU (level 0
+    # at L = 256 with fused attention on: K5 fp32, three launches)
+    tiny_if = dc.replace(TINY, in_channels=3, out_channels=6,
+                         encoder_hid_dim=64)
+    bb_c = SDUNetBackbone(tiny_if, latent_size=16, device="cpu",
+                          use_vae=False)
+    bb_d = copy.deepcopy(bb_c).to(dev)
+    set_fused_attention(bb_d, "on")
+    rgb = torch.rand(2, 40, 40, 3, generator=g)
+    tt = torch.tensor([150, 800])
+    noise = torch.randn(2, 16, 16, 3, generator=g)
+    cams = (torch.tensor([10.0, 70.0]), torch.tensor([20.0, -160.0]),
+            torch.tensor([2.5, 2.5]))
+    got = {}
+    for d, bbx in ((cpu, bb_c), (dev, bb_d)):
+        guid = SDSGuidance(SDSConfig(rgb_as_latents=True,
+                                     guidance_scale=20.0), bbx, device=d)
+        emb = processors.PromptProcessor(
+            processors.PromptProcessorConfig(use_cache=False),
+            encode_fn=lambda t: processors.mock_encode(t, D=64),
+            device=d)()
+        xr = rgb.to(d).detach().requires_grad_(True)
+
+        def tiny_loss(guid=guid, emb=emb, xr=xr, d=d):
+            r = guid.loss(xr, emb, *(cc.to(d) for cc in cams), t=tt.to(d),
+                          noise=noise.to(d))
+            r["loss_sds"].backward()
+            return float(r["loss_sds"].detach())
+
+        if d.type == "cuda":
+            loss, rt = counted("c tiny if loss", tiny_loss)
+        else:
+            loss = tiny_loss()
+        got[d.type] = (loss, xr.grad.cpu())
+    (l_c, g_c), (l_d, g_d) = got["cpu"], got["cuda"]
+    only_k5("c tiny if loss", rt, 3)
+    require(abs(l_d - l_c) <= 1e-3 * abs(l_c),
+            f"14 c: TINY IF loss card {l_d} vs CPU {l_c}")
+    g_err = float((g_d - g_c).abs().max())
+    require(g_err <= 1e-3 * float(g_c.abs().max()),
+            f"14 c: TINY IF rgb grad card vs CPU: max abs err {g_err:.3e}")
+    res["c"] = dict(steps=c, sample=rc, tiny_card_vs_cpu=dict(
+        loss=[l_c, l_d], grad_max_abs_err=g_err))
+    print(f"phase 14 c if: ok | card {card} | {c['config']}: {c['steps']} "
+          f"steps, batch {c['batch']}, render {c['reso']}^2 -> 64^2 pixel "
+          f"space | losses {c['losses']} | ms/step "
+          f"{[round(v, 2) for v in c['ms_per_step']]} | peak "
+          f"{c['peak_gib']:.2f} GiB | launches {c['launches']} | guidance "
+          f"sample {tr.cfg.guidance_eval_steps} steps {rc['ms']:.1f} ms, "
+          f"peak {rc['peak_gib']:.2f} GiB, K5 0 | TINY IF loss card "
+          f"{l_d:.6g} vs CPU {l_c:.6g}, rgb grad max abs err {g_err:.2e}, "
+          "K5 3", flush=True)
+    del bb_c, bb_d
+
+    # d: the IF-II upsampler at full width, then the fine-tune on TINY_SR
+    text2 = tr.prompt_processor().get_text_embedding(*pose, True)
+    up = DiffusionUpsampler(UpsamplerConfig(reso=256, num_steps=3),
+                            IF2_PIXEL, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rgb64 = torch.rand(1, 64, 64, 3, generator=gen, device=dev)
+    out, rd = counted("d IF2_PIXEL upsample", lambda: up.upsample_images(
+        rgb64, text2, generator=gen))
+    image_ok("d IF2_PIXEL", out, [1, 256, 256, 3])
+    only_k5("d IF2_PIXEL upsample", rd,
+            up.cfg.num_steps * k5_per_forward(IF2_PIXEL, 256))
+    line("d IF2_PIXEL upsample", rd, " | 64^2 -> 256^2, B = 1, 3 steps "
+         "(cut from 50), fp32; K5 at [2, 16384, 8, 16] and "
+         "[2, 4096, 8, 32]")
+    del up
+    tr.prompt_processor = prompts["config"]      # TINY_SR's 1024-wide text
+    ucfg = upsample.UpsampleTuneConfig(num_poses=8, batch_size=4, reso=256,
+                                       epoch=1, use_cache=False)
+    fn = upsample.make_diffusion_upsampler(tr, 256, num_steps=3)
+    losses, rf = counted("d TINY_SR fine-tune", lambda:
+                         upsample.tune_with_upsample(tr, ucfg,
+                                                     upsample_fn=fn))
+    views = ucfg.num_poses
+    want = dict(raster_fwd=2 * views, raster_bwd=views,
+                expansion_rank=2 * views, gid_repack=2 * views,
+                flash_attn_fwd=views // ucfg.batch_size * 3
+                * k5_per_forward(TINY_SR, 256))
+    require(rf["launches"] == {k: want.get(k, 0) for k in wrappers},
+            f"14 d: fine-tune launches {rf['launches']}, expected {want}")
+    require(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+            f"14 d: fine-tune losses {losses}")
+    res["d"] = dict(if2=rd, fine_tune=dict(losses=losses, **rf))
+    line("d TINY_SR fine-tune", rf, f" | 8 poses at 256^2, batch 4, 3 "
+         f"upsampler steps, 1 epoch: losses {losses}, launches "
+         f"{rf['launches']}")
+    del tr
+    torch.cuda.empty_cache()
+    res["k5_launches"] = k5
+    return res
 
 
 def fps_profile(torch, points, idx):

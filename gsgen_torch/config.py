@@ -4,8 +4,9 @@ Port of the JAX package's ``config.py``: ``load_config`` reads a YAML
 file, deep-merges its ``include:`` list and applies dotted CLI overrides
 with YAML-typed values (``guidance.type=mock``); ``build_trainer`` wires
 the subsystems the port has from the same ``configs/`` tree: guidance
-``mock``, ``sds`` and ``vsd`` (on ``MockUNet`` or the SD UNet + VAE
-backbone), the Point-E ``auxiliary`` guidance, and the ``base`` and
+``mock``, ``sds``, ``vsd`` and ``deep_floyd`` / ``if`` (pixel-space SDS)
+on ``MockUNet`` or the UNet backbone (SD with its VAE, or ``if_pixel``
+without one), the Point-E ``auxiliary`` guidance, and the ``base`` and
 ``point_e`` inits.
 """
 
@@ -177,9 +178,10 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
         return None
     if kind != "sd_unet":
         raise NotImplementedError(f"backbone {kind}")
-    from .guidance.sd_unet import (SD15, SD21, TINY, SDUNetBackbone,
-                                   load_diffusers_weights)
-    presets = {"tiny": TINY, "sd15": SD15, "sd21": SD21}
+    from .guidance.sd_unet import (IF_PIXEL, SD15, SD21, TINY,
+                                   SDUNetBackbone, load_diffusers_weights)
+    presets = {"tiny": TINY, "sd15": SD15, "sd21": SD21,
+               "if_pixel": IF_PIXEL}
     if preset not in presets:
         raise NotImplementedError(f"backbone preset {preset}")
     if weights:
@@ -189,9 +191,10 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
         cfg = dataclasses.replace(
             cfg, lora_rank=int(vsd["lora_rank"]),
             class_embed_proj_dim=int(vsd["camera_condition_dim"]))
+    # if_pixel: DeepFloyd's pixel space, no VAE
     bb = SDUNetBackbone(cfg, latent_size=8 if preset == "tiny" else 64,
                         compute_dtype=dtype, device=device,
-                        fp32_unet=bool(vsd))
+                        fp32_unet=bool(vsd), use_vae=preset != "if_pixel")
     set_fused_attention(bb, fused_attn)
     return bb
 
@@ -236,9 +239,13 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
         # behind; MockGuidance takes only its own
         guidance = MockGuidance(**{k: v for k, v in g_d.items()
                                    if k in ("mode", "color")})
-    elif g_type == "sds":
+    elif g_type in ("sds", "deep_floyd", "if"):
         prompt_processor = _build_prompt_processor(
             dict(cfg.get("prompt", {})), device)
+        if g_type != "sds":
+            # DeepFloyd: SDS in pixel space at 64^2 with CFG 20
+            g_d.setdefault("rgb_as_latents", True)
+            g_d.setdefault("guidance_scale", 20.0)
         backbone = _build_backbone(g_d, device)
         guidance = SDSGuidance(_from_dict(SDSConfig, g_d), backbone,
                                device=device)

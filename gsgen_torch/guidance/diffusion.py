@@ -4,6 +4,7 @@ Port of the JAX package's ``guidance/diffusion.py``.  A backbone offers:
 
   .latent_size / .latent_channels / .image_size
   .encode_images(imgs [B, H, W, 3]) -> latents [B, h, w, c]
+  .decode_latents(latents) -> images [B, H', W', 3] in [0, 1]
   .predict_noise(latents_noisy [N, h, w, c], t [N], text [N, S, D])
       -> eps [N, h, w, c]      (N already CFG-expanded)
 
@@ -126,6 +127,11 @@ class MockUNet:
         pad = torch.zeros(B, h, h, self.latent_channels - 3,
                           dtype=x.dtype, device=x.device)
         return torch.cat([x, pad], dim=-1) * 2.0 - 1.0
+
+    def decode_latents(self, latents):
+        """[B, h, w, c] -> [B, h, w, 3] in [0, 1]: the first three channels
+        mapped back from [-1, 1] (the inverse of the channel lift)."""
+        return torch.clamp(latents[..., :3] * 0.5 + 0.5, 0.0, 1.0)
 
     def predict_noise(self, latents_noisy, t, text):
         p = self.params

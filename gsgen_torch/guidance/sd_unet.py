@@ -15,6 +15,10 @@ outputs come back in fp32, as in the JAX package.  SDS never
 differentiates through the UNet, but it does through the VAE encoder.
 ``fp32_unet=True`` casts only the VAE: the JAX VSD path encodes in
 ``compute_dtype`` but applies its UNet to the fp32 master weights.
+``use_vae=False`` gives the pixel-space backbone of DeepFloyd IF
+(``IF_PIXEL``): no VAE, ``image_size == latent_size``, ``encode_images``
+a bilinear resize padded to ``in_channels`` and mapped to [-1, 1],
+``decode_latents`` the first three channels mapped back to [0, 1].
 
 Without weights the backbone draws random ones from flax's default
 family (variance-scaling 1/fan_in truncated normal kernels, zero biases,
@@ -36,12 +40,14 @@ import torch
 from torch import nn
 
 from . import convert
-from .unet2d import (SD15, SD21, TINY, TINY_VSD, UNet2DConditionModel,
-                     UNetConfig, init_lora_)
+from .diffusion import resize_bilinear
+from .unet2d import (IF_PIXEL, SD15, SD21, TINY, TINY_VSD,
+                     UNet2DConditionModel, UNetConfig, init_lora_)
 from .vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
 
 __all__ = ["SDUNetBackbone", "UNetConfig", "TINY", "TINY_VSD", "SD21",
-           "SD15", "backbone_from_jax_params", "load_diffusers_weights"]
+           "SD15", "IF_PIXEL", "backbone_from_jax_params",
+           "load_diffusers_weights"]
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -64,13 +70,15 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator):
 
 
 class SDUNetBackbone(nn.Module):
-    """UNet + VAE pair behind the guidance; weights frozen."""
+    """UNet + VAE pair behind the guidance (``use_vae=False``: the UNet
+    alone, in pixel space); weights frozen."""
 
     def __init__(self, cfg: UNetConfig = TINY, latent_size: int = 64,
                  vae_cfg: Optional[VAEConfig] = None,
                  compute_dtype: Optional[str] = None, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 random_init: bool = True, fp32_unet: bool = False):
+                 random_init: bool = True, fp32_unet: bool = False,
+                 use_vae: bool = True):
         super().__init__()
         dev = torch.device(device)
         self.cfg = cfg
@@ -84,13 +92,17 @@ class SDUNetBackbone(nn.Module):
         # back to TINY_VAE there: a 128^2 encode of the 512^2 render)
         sd_family = dataclasses.replace(cfg, lora_rank=0,
                                         class_embed_proj_dim=None)
-        self.vae_cfg = vae_cfg or (SD_VAE if sd_family in (SD21, SD15)
-                                   else TINY_VAE)
-        self.image_size = latent_size * 2 ** (
-            len(self.vae_cfg.block_out_channels) - 1)
+        if use_vae:
+            self.vae_cfg = vae_cfg or (SD_VAE if sd_family in (SD21, SD15)
+                                       else TINY_VAE)
+            self.image_size = latent_size * 2 ** (
+                len(self.vae_cfg.block_out_channels) - 1)
+        else:
+            self.vae_cfg = None
+            self.image_size = latent_size
         with dev:
             self.unet = UNet2DConditionModel(cfg)
-            self.vae = AutoencoderKL(self.vae_cfg)
+            self.vae = AutoencoderKL(self.vae_cfg) if use_vae else None
         if random_init and dev.type != "meta":
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -101,7 +113,10 @@ class SDUNetBackbone(nn.Module):
 
     def _cast(self):
         if self.compute_dtype is not None:
-            (self.vae if self.fp32_unet else self).to(self.compute_dtype)
+            if not self.fp32_unet:
+                self.to(self.compute_dtype)
+            elif self.vae is not None:
+                self.vae.to(self.compute_dtype)
 
     def _vae_dtype(self):
         return self.compute_dtype or torch.float32
@@ -112,13 +127,25 @@ class SDUNetBackbone(nn.Module):
 
     def encode_images(self, imgs):
         """[B, H, W, 3] in [0, 1] -> scaled latents [B, h, w, c], fp32;
-        differentiable with respect to ``imgs``."""
+        differentiable with respect to ``imgs``.  Without a VAE: the
+        image resized to ``latent_size``, zero channels appended up to
+        ``latent_channels``, all mapped to [-1, 1] (the padding to -1)."""
+        if self.vae is None:
+            x = resize_bilinear(imgs, self.latent_size)
+            if self.latent_channels > 3:
+                x = torch.cat([x, x.new_zeros(
+                    *x.shape[:3], self.latent_channels - 3)], dim=-1)
+            return x * 2.0 - 1.0
         z = self.vae.encode((imgs * 2.0 - 1.0).to(self._vae_dtype()))
         return z.to(torch.float32)
 
     @torch.no_grad()
     def decode_latents(self, latents):
-        """Scaled latents -> [B, H, W, 3] in [0, 1]."""
+        """Scaled latents -> [B, H, W, 3] in [0, 1]; without a VAE the
+        first three channels, mapped from [-1, 1]."""
+        if self.vae is None:
+            return torch.clamp(latents[..., :3].float() * 0.5 + 0.5, 0.0,
+                               1.0)
         img = self.vae.decode(latents.to(self._vae_dtype())).to(
             torch.float32)
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
@@ -126,7 +153,7 @@ class SDUNetBackbone(nn.Module):
     def predict_noise(self, latents_noisy, t, text, class_labels=None,
                       lora_scale: float = 1.0):
         dt = self._unet_dtype()
-        if class_labels is not None:
+        if class_labels is not None and class_labels.is_floating_point():
             class_labels = class_labels.to(dt)
         eps = self.unet(latents_noisy.to(dt), t, text.to(dt),
                         class_labels=class_labels, lora_scale=lora_scale)
@@ -141,11 +168,14 @@ def backbone_from_jax_params(params_np: Mapping, cfg: UNetConfig = TINY,
                              ) -> SDUNetBackbone:
     """Backbone holding the JAX package's SDUNetBackbone parameters,
     given as ``{"unet": flax tree, "vae": flax tree}`` with numpy leaves
-    (LoRA and class-embedding leaves included when ``cfg`` has them)."""
+    (LoRA, class-embedding and ``encoder_hid_proj`` leaves included when
+    ``cfg`` has them); a tree without ``"vae"`` gives the pixel-space
+    backbone."""
+    use_vae = "vae" in params_np
     bb = SDUNetBackbone(cfg, latent_size=latent_size, vae_cfg=vae_cfg,
                         device=device, random_init=False,
-                        fp32_unet=fp32_unet)
-    for name in ("unet", "vae"):
+                        fp32_unet=fp32_unet, use_vae=use_vae)
+    for name in ("unet", "vae") if use_vae else ("unet",):
         state = {k: torch.tensor(v) for k, v in
                  convert.flax_to_torch_state(params_np[name]).items()}
         getattr(bb, name).load_state_dict(state, strict=True)

@@ -11,7 +11,11 @@ Port of the JAX package's ``guidance/sds.py``:
   Perp-Neg removal of the negative directions;
 * ``w(t)`` in {sds: 1 - ac, uniform, fantasia3d: ac^0.5 (1 - ac)};
 * the reparameterised loss ``0.5 |latents - sg(latents - grad)|^2 / B``
-  with nan_to_num and an optional clip of ``grad``.
+  with nan_to_num and an optional clip of ``grad``;
+* :meth:`SDSGuidance.sample`: a text-to-image CFG sample from the frozen
+  backbone with the configured scheduler (the trainer's guidance-eval
+  image), decoded by the backbone (its VAE, or on the pixel backbone and
+  MockUNet ``x[..., :3]`` mapped from [-1, 1]).
 
 The score network runs under ``torch.no_grad`` (the JAX package wraps it
 in ``stop_gradient``).  Random draws come from the caller's
@@ -29,7 +33,7 @@ from ..prompt.processors import PromptEmbedding
 from ..utils.schedule import C
 from .diffusion import (MockUNet, NoiseSchedule, resize_bilinear,
                         scaled_linear_schedule)
-from .samplers import resolve_scheduler
+from .samplers import backbone_sample, resolve_scheduler
 
 
 def perpendicular_component(x, y):
@@ -71,6 +75,25 @@ class SDSGuidance:
             # guidance.scheduler carries the training betas too
             schedule, _ = resolve_scheduler(cfg.scheduler)
         self.schedule = (schedule or scaled_linear_schedule()).to(device)
+
+    @torch.no_grad()
+    def sample(self, embedding: PromptEmbedding, elevation, azimuth,
+               camera_distance, generator: Optional[torch.Generator] = None,
+               num_steps: int = 25, x: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, H, W, 3] in [0, 1]: CFG text-to-image from the frozen
+        backbone at ``guidance_scale`` with the configured scheduler cut to
+        ``num_steps``; ``x`` (the initial latents) and ``noise`` (the
+        sampler's per-step draws) come from ``generator`` unless given."""
+        bb = self.backbone
+        emb = embedding.get_text_embedding(
+            elevation, azimuth, camera_distance,
+            self.cfg.use_view_dependent_prompt)
+        return backbone_sample(
+            bb, self.cfg.scheduler, self.schedule, elevation.shape[0],
+            self.cfg.guidance_scale,
+            lambda lat2, t2: bb.predict_noise(lat2, t2, emb), num_steps,
+            generator, emb.device, x=x, noise=noise)
 
     def sched_scalars(self, step: int, max_steps: int) -> Dict[str, float]:
         """Host-side t-range annealing."""

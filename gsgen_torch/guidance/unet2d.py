@@ -19,13 +19,17 @@ diffusers checkpoint's keys therefore match without renaming.
   ``*_lora.up`` on to_q/k/v/out, scaled by ``lora_scale``; a projection
   class embedding (``class_embed_proj_dim``, VSD's camera condition) adds
   ``class_embedding(class_labels)`` to the time embedding.
+* DeepFloyd IF: ``class_embed_type="timestep"`` runs integer class labels
+  (IF-II's noise level) through the sinusoidal embedding at
+  ``block_out_channels[0]`` before the class ``TimestepEmbedding``;
+  ``encoder_hid_dim`` adds ``encoder_hid_proj``, a Linear from the text
+  encoder's width (T5-XXL's 4096) to ``cross_attention_dim``, applied to
+  the context.
 
 GroupNorm is ``nn.GroupNorm``; the JAX package's matmul form of it
 (``guidance/norm.py``) is a TPU layout workaround with the same values.
 ``UNet2DConditionModel`` takes and returns NHWC samples, as the JAX
-model does; inside, activations stay contiguous NCHW.  The "timestep"
-class embedding and ``encoder_hid_proj`` (DeepFloyd IF) raise until their
-slice.
+model does; inside, activations stay contiguous NCHW.
 """
 
 from __future__ import annotations
@@ -449,6 +453,16 @@ SD21 = UNetConfig()
 # SD 1.4/1.5 (runwayml/stable-diffusion-v1-5)
 SD15 = UNetConfig(cross_attention_dim=768, attention_head_dim=(8, 8, 8, 8),
                   use_linear_projection=False)
+# DeepFloyd-IF-style pixel-space preset: 3 -> 6 channels (eps, variance),
+# T5 hidden states projected by encoder_hid_proj; the SD block family (the
+# JAX package's preset, which documents the delta to IF-I-XL's blocks)
+IF_PIXEL = UNetConfig(in_channels=3, out_channels=6,
+                      block_out_channels=(64, 128, 256, 256),
+                      layers_per_block=2,
+                      cross_attention_dim=256,
+                      attention_head_dim=(8, 8, 8, 8),
+                      cross_attn_levels=(False, True, True, True),
+                      encoder_hid_dim=4096)
 TINY = UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
                   cross_attention_dim=1024, attention_head_dim=(2, 2),
                   cross_attn_levels=(True, True))
@@ -460,12 +474,8 @@ class UNet2DConditionModel(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.class_embed_type != "projection":
-            raise NotImplementedError("timestep class embeddings wait for "
-                                      "the IF slice")
-        if cfg.encoder_hid_dim is not None:
-            raise NotImplementedError("encoder_hid_proj waits for the IF "
-                                      "slice")
+        if cfg.class_embed_type not in ("projection", "timestep"):
+            raise ValueError(f"class_embed_type {cfg.class_embed_type!r}")
         self.cfg = c = cfg
         ch0 = c.block_out_channels[0]
         tdim = ch0 * 4
@@ -474,9 +484,13 @@ class UNet2DConditionModel(nn.Module):
         lora = c.lora_rank
         self.conv_in = nn.Conv2d(c.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, tdim)
-        if c.class_embed_proj_dim is not None:
+        if c.class_embed_type == "timestep":
+            self.class_embedding = TimestepEmbedding(ch0, tdim)
+        elif c.class_embed_proj_dim is not None:
             self.class_embedding = TimestepEmbedding(c.class_embed_proj_dim,
                                                      tdim)
+        if c.encoder_hid_dim is not None:
+            self.encoder_hid_proj = nn.Linear(c.encoder_hid_dim, xdim)
 
         down = []
         out_ch = ch0
@@ -526,7 +540,8 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, sample, timesteps, encoder_hidden_states,
                 class_labels=None, lora_scale: float = 1.0):
         """sample [B, H, W, C] (NHWC), timesteps [B], states [B, S, D],
-        class_labels [B, class_embed_proj_dim] or None -> eps
+        class_labels (integer [B] for the "timestep" class embedding,
+        [B, class_embed_proj_dim] for the projection one) or None -> eps
         [B, H, W, C_out]."""
         c = self.cfg
         temb = get_timestep_embedding(
@@ -537,9 +552,19 @@ class UNet2DConditionModel(nn.Module):
         # must match the sample, or `h + time_emb_proj(temb)` promotes
         # every resnet trunk back to fp32
         temb = self.time_embedding(temb.to(sample.dtype))
-        if class_labels is not None and c.class_embed_proj_dim is not None:
-            temb = temb + self.class_embedding(class_labels.to(sample.dtype))
+        if class_labels is not None:
+            if c.class_embed_type == "timestep":
+                cl = get_timestep_embedding(
+                    class_labels, c.block_out_channels[0],
+                    flip_sin_to_cos=c.flip_sin_to_cos,
+                    downscale_freq_shift=c.freq_shift)
+                temb = temb + self.class_embedding(cl.to(sample.dtype))
+            elif c.class_embed_proj_dim is not None:
+                temb = temb + self.class_embedding(
+                    class_labels.to(sample.dtype))
         ctx = encoder_hidden_states
+        if c.encoder_hid_dim is not None:
+            ctx = self.encoder_hid_proj(ctx)
 
         h = self.conv_in(sample.permute(0, 3, 1, 2).contiguous())
         skips = [h]

@@ -26,8 +26,14 @@ fp32 masters) and the VAE in the backbone's ``compute_dtype``.
 On MockUNet (no attention layers) a small additive camera-conditioned
 low-rank adapter stands in, so the same trainer path runs.  Random draws
 come from the caller's ``torch.Generator``; tests hand in ``t``, ``noise``,
-``t_lora``, ``noise_lora`` and ``drop``.  ``sample`` / ``sample_lora``
-wait for the sampling loops.
+``t_lora``, ``noise_lora`` and ``drop``.
+
+``sample`` and ``sample_lora`` draw CFG images for the guidance-eval hook
+through the configured scheduler: the frozen model at ``guidance_scale``
+on the view-dependent prompt, or the LoRA model at ``guidance_scale_lora``
+conditioned on ``[camera, 0]`` with the view-independent prompt; both in
+the UNet's fp32, decoded by the VAE (on MockUNet, ``x[..., :3]`` mapped
+from [-1, 1]).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..prompt.processors import PromptEmbedding
 from ..utils.schedule import C
 from .diffusion import (MockUNet, NoiseSchedule, resize_bilinear,
                         scaled_linear_schedule)
+from .samplers import backbone_sample
 
 
 def _pad_c2w16(c2ws: torch.Tensor) -> torch.Tensor:
@@ -77,7 +84,7 @@ class VSDConfig:
     lora_rank: int = 4
     lr_lora: float = 1e-4
     grad_clip: Optional[float] = None
-    scheduler: Optional[dict] = None    # sampling scheduler (not ported)
+    scheduler: Optional[dict] = None    # sampling scheduler
 
 
 class VSDGuidance:
@@ -238,10 +245,53 @@ class VSDGuidance:
         return {"loss_vsd": loss_vsd, "loss_lora": loss_lora,
                 "grad_norm": torch.linalg.norm(grad.reshape(-1))}
 
-    def sample(self, *args, **kwargs):
-        raise NotImplementedError("VSD sampling waits for the sampling "
-                                  "loops")
+    # ---- visualisation sampling ----
 
-    def sample_lora(self, *args, **kwargs):
-        raise NotImplementedError("VSD LoRA sampling waits for the "
-                                  "sampling loops")
+    @torch.no_grad()
+    def _cfg_sample(self, text2, guidance_scale: float, num_steps: int,
+                    generator, cam2=None, train=None, x=None, noise=None):
+        """CFG sampling from pure noise through the configured scheduler;
+        ``text2`` / ``cam2`` are the [2B] conditionings (cond first); the
+        LoRA model when ``cam2`` is given."""
+        if cam2 is None:
+            eps = lambda lat2, t2: self._eps_pretrain(  # noqa: E731
+                lat2, t2, text2)
+        else:
+            train = self.trainable_params if train is None else train
+            eps = lambda lat2, t2: self._eps_lora(  # noqa: E731
+                train, lat2, t2, text2, cam2)
+        return backbone_sample(
+            self.backbone, self.cfg.scheduler, self.schedule,
+            text2.shape[0] // 2, guidance_scale, eps, num_steps, generator,
+            text2.device, x=x, noise=noise)
+
+    def sample(self, embedding: PromptEmbedding, elevation, azimuth,
+               camera_distance, generator: Optional[torch.Generator] = None,
+               num_steps: int = 25, x=None, noise=None) -> torch.Tensor:
+        """[B, H, W, 3] in [0, 1] from the frozen model at
+        ``guidance_scale`` on the view-dependent prompt; ``x`` and ``noise``
+        as in :func:`.samplers.cfg_sample`."""
+        emb_vd = embedding.get_text_embedding(
+            elevation, azimuth, camera_distance,
+            self.cfg.use_view_dependent_prompt)
+        return self._cfg_sample(emb_vd, self.cfg.guidance_scale, num_steps,
+                                generator, x=x, noise=noise)
+
+    def sample_lora(self, embedding: PromptEmbedding, elevation, azimuth,
+                    camera_distance, c2ws,
+                    generator: Optional[torch.Generator] = None,
+                    num_steps: int = 25,
+                    train: Optional[Dict[str, torch.Tensor]] = None,
+                    x=None, noise=None) -> torch.Tensor:
+        """[B, H, W, 3] in [0, 1] from the LoRA model (``train``'s leaves,
+        default the initial ones) at ``guidance_scale_lora``, conditioned
+        on the cameras ``c2ws`` [B, 3, 4] against a zero camera, with the
+        view-independent prompt."""
+        B = elevation.shape[0]
+        emb_vi = embedding.get_text_embedding(
+            elevation, azimuth, camera_distance, False)[:B]
+        cam = self._camera_condition(c2ws)
+        cam2 = torch.cat([cam, torch.zeros_like(cam)])
+        return self._cfg_sample(
+            torch.cat([emb_vi, emb_vi]), self.cfg.guidance_scale_lora,
+            num_steps, generator, cam2=cam2, train=train, x=x, noise=noise)

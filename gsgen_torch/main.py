@@ -33,11 +33,10 @@ Runs on the card unless ``--device cpu`` is given.
 As the JAX package's ``main.py`` does, a run writes, unless ``--no-log``,
 a run directory ``<log root>/<prompt>/<date>/<time>/`` with
 ``config.json``, the code snapshot, ``scalars.jsonl``, eval images and
-orbit videos and periodic checkpoints (the trainer's periods), then the
-final checkpoint and the ``export.types`` exports (default ply and splat)
-under ``exports/``.  One printed line names what the JAX trainer would
-also write and the port does not yet: guidance samples and the profiler
-trace.
+orbit videos, guidance samples and periodic checkpoints (the trainer's
+periods), the profiler trace of ``trainer.profile_steps`` under
+``profile/``, then the final checkpoint and the ``export.types`` exports
+(default ply and splat) under ``exports/``.
 """
 
 from __future__ import annotations
@@ -45,24 +44,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from typing import Optional
-
-
-def skipped_outputs(tcfg, has_sampler: bool) -> Optional[str]:
-    """The line naming what the JAX trainer writes under the trainer
-    config ``tcfg`` and the port does not yet (guidance samples, where the
-    guidance has a sampler there; the trace of ``profile_steps``), or None;
-    an output whose period is 0 is off there and left out."""
-    parts = []
-    if tcfg.guidance_eval_period and has_sampler:
-        parts.append(f"guidance samples every {tcfg.guidance_eval_period} "
-                     "steps (ROADMAP Queue 1 item 5)")
-    if tcfg.profile_steps is not None:
-        parts.append(f"the profiler trace of steps {list(tcfg.profile_steps)}")
-    if not parts:
-        return None
-    return ("not written (the JAX package's trainer writes them): "
-            + ", ".join(parts))
 
 
 def export_assets(trainer, types, base) -> None:
@@ -122,9 +103,6 @@ def main(argv=None):
         print(f"run dir: {logger.dir}", flush=True)
 
     trainer = build_trainer(cfg, device=args.device, logger=logger)
-    line = skipped_outputs(trainer.cfg, trainer.prompt_processor is not None)
-    if line:
-        print(line, flush=True)
     if ckpt:
         step = trainer.load(ckpt)
         print(f"resumed from {ckpt} at step {step}", flush=True)

@@ -28,10 +28,13 @@ field statistics, eval images and orbit videos and saves checkpoints on
 the JAX package's periods; :meth:`Trainer.load` resumes from a checkpoint
 of either package (:mod:`..io.checkpoint`).
 
-Not ported yet (``NotImplementedError``): DeepFloyd guidance, estimators,
-image-to-3D.  Guidance samples
-(``guidance_eval_period``) and trace capture (``profile_steps``) are
-accepted and not written.
+Every ``guidance_eval_period`` steps the logger also gets a CFG sample of
+the guidance at a fixed pose (``eval/guidance_sample``,
+:meth:`Trainer._guidance_sample`), and ``profile_steps: [a, b]`` writes a
+``torch.profiler`` trace of steps a to b - 1 under the run directory's
+``profile/`` (:func:`..utils.profiling.trace`).
+
+Not ported yet (``NotImplementedError``): estimators, image-to-3D.
 """
 
 from __future__ import annotations
@@ -74,8 +77,7 @@ class LossConfig:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """Same keys as the JAX package's TrainerConfig; ``guidance_eval_*``
-    and ``profile_steps`` are accepted and have no effect here."""
+    """Same keys as the JAX package's TrainerConfig."""
 
     max_steps: int = 15000
     batch_size: int = 4
@@ -472,20 +474,47 @@ class Trainer:
         n = (n_steps if n_steps is not None
              else max(self.cfg.max_steps - start, 0))
         eval_rng = np.random.default_rng(self.cfg.seed + 1)
-        for step in range(start, start + n):
-            metrics = self.train_step(step)
-            dinfo = self.density_step(step)
-            if callback is not None:
-                callback(step, {**metrics, **dinfo})
-            if self.logger is not None:
-                self._periodic_logging(step, metrics, eval_rng)
+        prof = self.cfg.profile_steps
+        trace = None
+        try:
+            for step in range(start, start + n):
+                if prof is not None and step == int(prof[0]):
+                    trace = self._start_trace(int(prof[0]), int(prof[1]))
+                metrics = self.train_step(step)
+                dinfo = self.density_step(step)
+                if trace is not None and step + 1 == int(prof[1]):
+                    self._stop_trace(trace)
+                    trace = None
+                if callback is not None:
+                    callback(step, {**metrics, **dinfo})
+                if self.logger is not None:
+                    self._periodic_logging(step, metrics, eval_rng)
+        finally:
+            if trace is not None:
+                self._stop_trace(trace)
         return self.state
+
+    def _start_trace(self, a: int, b: int):
+        """Enter a profiler trace of steps [a, b) written under the run
+        directory's ``profile/`` (``./profile`` without a logger)."""
+        from ..utils import profiling
+        logdir = (self.logger.dir / "profile" if self.logger is not None
+                  else "profile")
+        trace = profiling.trace(logdir, f"steps_{a}_{b}",
+                                cuda=self.device.type == "cuda")
+        trace.__enter__()
+        return trace
+
+    def _stop_trace(self, trace):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        trace.__exit__(None, None, None)
 
     def _periodic_logging(self, step: int, metrics: Dict,
                           eval_rng: np.random.Generator):
-        """Scalars, field statistics, the eval image, the orbit video and
-        a checkpoint, each on its period (0 turns it off); the video and
-        the checkpoint not at step 0."""
+        """Scalars, field statistics, the eval image, the orbit video, the
+        guidance sample and a checkpoint, each on its period (0 turns it
+        off); the video, the sample and the checkpoint not at step 0."""
         from ..io.checkpoint import save_checkpoint
         from ..utils.profiling import field_stats
         from .evaluation import eval_image, eval_video
@@ -509,5 +538,29 @@ class Trainer:
                 self.state.scene, intr, self.rcfg, cfg.eval_n_frames,
                 elevation=cfg.eval_elevation,
                 camera_distance=cfg.eval_camera_distance))
+        if cfg.guidance_eval_period and step % cfg.guidance_eval_period == 0 \
+                and step > 0:
+            img = self._guidance_sample(step)
+            if img is not None:
+                log.log_image(step, "eval/guidance_sample", img)
         if cfg.save_period and step % cfg.save_period == 0 and step > 0:
             save_checkpoint(log.ckpt_dir, step, self.state, seed=cfg.seed)
+
+    def _guidance_sample(self, step: int, **draws) -> Optional[np.ndarray]:
+        """One CFG sample of the guidance's scheduler at a front-ish pose
+        (elevation 15, azimuth 30, distance 2.5) as [H, W, 3] in [0, 1],
+        drawn from a generator seeded from (seed + 7, step); ``draws``
+        (``x``, ``noise``) replace those draws.  None where the guidance
+        has no sampler (mock guidance) or no prompt."""
+        if not hasattr(self.guidance, "sample") \
+                or self.prompt_processor is None:
+            return None
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(
+            ((self.cfg.seed + 7) << 32) + step)
+        pose = [torch.tensor([v], device=dev) for v in (15.0, 30.0, 2.5)]
+        with torch.no_grad():
+            img = self.guidance.sample(
+                self.prompt_processor(), *pose, generator=gen,
+                num_steps=self.cfg.guidance_eval_steps, **draws)
+        return np.clip(img[0].float().cpu().numpy(), 0.0, 1.0)

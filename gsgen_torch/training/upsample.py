@@ -9,8 +9,9 @@ densify -> ``epoch`` passes of Adam at one ``lr`` over the scene fields on
 
 The upsampler is pluggable: ``upsample_fn(rgb [B, 64, 64, 3], batch) ->
 [B, reso, reso, 3]``.  The default is :func:`bicubic_upsample`, the JAX
-package's default; its diffusion upsampler (IF-II) is not ported
-(:func:`make_diffusion_upsampler` raises).
+package's default; :func:`make_diffusion_upsampler` gives the IF-II-style
+diffusion upsampler (:mod:`..guidance.upsampler`) conditioned on the
+trainer's prompt.
 """
 
 from __future__ import annotations
@@ -75,11 +76,37 @@ def bicubic_upsample(rgb: torch.Tensor, reso: int) -> torch.Tensor:
     return torch.einsum("bhwc,hy,wx->byxc", rgb, wh, ww)
 
 
-def make_diffusion_upsampler(trainer, reso: int, *args, **kwargs):
-    raise NotImplementedError(
-        "the diffusion upsampler (DeepFloyd IF-II) is not ported yet "
-        "(ROADMAP Queue 1 item 6); the fine-tune's default is "
-        "bicubic_upsample")
+def make_diffusion_upsampler(trainer, reso: int,
+                             weights_path: Optional[str] = None,
+                             num_steps: int = 50,
+                             guidance_scale: float = 4.0,
+                             generator: Optional[torch.Generator] = None
+                             ) -> Callable:
+    """IF-II-style ``upsample_fn(rgb, batch)`` on the trainer's device,
+    conditioned on the trainer's prompt embedding at each batch's poses
+    (view-dependent), drawing from ``generator`` (default: seeded 0):
+    ``IF2_PIXEL`` filled from ``weights_path`` (which raises until IF-II
+    weights are in the repository), or ``TINY_SR`` on random weights."""
+    from ..guidance.upsampler import (IF2_PIXEL, TINY_SR, DiffusionUpsampler,
+                                      UpsamplerConfig)
+    up = DiffusionUpsampler(
+        UpsamplerConfig(reso=reso, num_steps=num_steps,
+                        guidance_scale=guidance_scale),
+        unet_cfg=IF2_PIXEL if weights_path else TINY_SR,
+        device=trainer.device)
+    if weights_path:
+        up.load_weights(weights_path)
+    embedding = trainer.prompt_processor()
+    if generator is None:
+        generator = torch.Generator(device=trainer.device).manual_seed(0)
+
+    def fn(rgb, batch):
+        text2 = embedding.get_text_embedding(
+            batch["elevation"], batch["azimuth"], batch["camera_distance"],
+            True)
+        return up.upsample_images(rgb, text2, generator=generator)
+
+    return fn
 
 
 def tune_with_upsample(trainer, cfg: UpsampleTuneConfig,

@@ -1,16 +1,33 @@
-"""Field statistics for the training logs.
+"""Profiling: torch.profiler traces of chosen steps and field statistics.
 
-Port of ``field_stats`` of the JAX package's ``utils/profiling.py``: the
-scalar form of per-field histograms.  Its XLA trace capture
-(``profile_steps``) is not ported: the port's traces come from
-``torch.profiler`` (``chip_smoke.py``).
+Port of the JAX package's ``utils/profiling.py``: :func:`trace` captures a
+``torch.profiler`` trace (the JAX package's XLA trace of
+``trainer.profile_steps``) and writes it as a Chrome trace, viewable in
+Perfetto (ui.perfetto.dev) or ``chrome://tracing``; :func:`field_stats`
+is the scalar form of per-field histograms.
 """
 
 from __future__ import annotations
 
+import contextlib
+from pathlib import Path
 from typing import Dict
 
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir, name: str = "trace", cuda: bool = False):
+    """Profile the block (host ops, and the card's kernels when ``cuda``)
+    and write ``<logdir>/<name>.json``, a Chrome trace.  The caller
+    synchronises the card before leaving the block."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(out / f"{name}.json"))
 
 
 @torch.no_grad()

@@ -238,6 +238,73 @@ def test_flash_attention_matches_plain(cuda, dtype, D):
         fa.flash_self_attention(q[:, :100], k[:, :100], v[:, :100], scale)
 
 
+@pytest.mark.parametrize("L", [4096, 16384, 65536])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [16, 32])
+def test_flash_attention_if2_shapes_match_plain(cuda, dtype, D, L):
+    """K5 at the head widths of the IF-II upsampler's attention levels (8
+    heads on 128 and 256 channels: D = 16 at L = 16,384 and D = 32 at L =
+    4,096 for a 256^2 target) and TINY_SR level 0's L = 65,536, both
+    instances, B = 1, 2 heads.  fp32: within 1e-4 of max|plain|.  bf16:
+    within 2e-2 of max|plain| and, since each output averages thousands
+    of keys (typical |out| ~ max/20), each element within one bf16 step
+    (2^-7 |plain|) plus 5% of the plain output's RMS.  At L = 65,536 the
+    plain version takes the last 2,048 queries against all keys."""
+    from gsgen_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(D + L)
+    dt = getattr(torch, dtype)
+    q, k, v = (t(rng.standard_normal((1, L, 2, D)).astype(np.float32))
+               .to(cuda, dt) for _ in range(3))
+    scale = 1.0 / np.sqrt(D)
+    n0 = fa.flash_self_attention.launches
+    got = fa.flash_self_attention(q, k, v, scale)
+    assert fa.flash_self_attention.launches == n0 + 1
+    assert got.dtype == dt and got.shape == q.shape
+    rows = slice(L - 2048 if L > 16384 else 0, L)
+    want = fa.flash_self_attention_plain(q[:, rows], k, v, scale).float()
+    torch.cuda.synchronize()
+    diff = (got[:, rows].float() - want).abs()
+    err = float(diff.max())
+    tol = (2e-2 if dt == torch.bfloat16 else 1e-4) * float(
+        want.abs().max())
+    assert err <= tol, (err, tol)
+    if dt == torch.bfloat16:
+        rms = float(want.square().mean().sqrt())
+        past = float(((diff - 2 ** -7 * want.abs()) / rms).max())
+        assert past <= 0.05, (past, err, rms)
+
+
+def test_ddim_cfg_sample_on_card_matches_cpu(cuda):
+    """One DDIM CFG sample (4 steps, scale 7.5) on the TINY UNet at latent
+    64: on the card its level 0 runs K5 (fp32, [4, 4096, 2, 16]) three
+    times a step; within 1e-4 of the CPU's largest value (TF32 off)."""
+    import copy
+
+    from gsgen_torch.guidance import samplers
+    from gsgen_torch.guidance.diffusion import scaled_linear_schedule
+    from gsgen_torch.guidance.sd_unet import TINY, SDUNetBackbone
+    from gsgen_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 64, 64, 4)).astype(np.float32)
+    text2 = rng.standard_normal((4, 77, 1024)).astype(np.float32)
+    bb_cpu = SDUNetBackbone(TINY, latent_size=64, device="cpu")
+    outs = {}
+    for dev, bb in (("cpu", bb_cpu), ("cuda", copy.deepcopy(bb_cpu).to(
+            cuda))):
+        n0 = fa.flash_self_attention.launches
+        outs[dev] = samplers.cfg_sample(
+            samplers.SamplerConfig(num_steps=4), scaled_linear_schedule(),
+            x.shape, 7.5,
+            lambda lat2, t2, bb=bb, dev=dev: bb.predict_noise(
+                lat2, t2, t(text2).to(dev)),
+            device=dev, x=t(x).to(dev)).cpu()
+        assert fa.flash_self_attention.launches - n0 == (
+            12 if dev == "cuda" else 0)
+    want = outs["cpu"].numpy()
+    np.testing.assert_allclose(outs["cuda"].numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
 def _qkv_dout(cuda, shape, dt, seed):
     rng = np.random.default_rng(seed)
     return [t(rng.standard_normal(shape).astype(np.float32)).to(cuda, dt)

@@ -5,9 +5,9 @@ cuBLAS matmuls and cuDNN convolutions in IEEE fp32, read here through
 both of torch's interfaces.  ``gsgen_torch.main`` writes the run
 directory, checkpoints, eval images and the exports, runs the upsample
 fine-tune of ``configs/flagship_rehearsal.yaml``, resumes with ``ckpt=``
-(``--tune-only`` runs the fine-tune alone), writes nothing with
-``--no-log``, and names in one line what the JAX trainer also writes and
-the port does not yet.  CPU only, tiny sizes; TensorBoard off.
+(``--tune-only`` runs the fine-tune alone), writes guidance samples and
+the profiler trace of ``profile_steps``, and writes nothing with
+``--no-log``.  CPU only, tiny sizes; TensorBoard off.
 """
 
 import json
@@ -22,7 +22,6 @@ from gsgen_torch import config as config_mod
 from gsgen_torch import main as main_mod
 from gsgen_torch.io import logging as logging_mod
 from gsgen_torch.io.checkpoint import state_arrays
-from gsgen_torch.training.trainer import TrainerConfig
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 TINY = ["guidance.type=mock", "data.reso=[32]", "renderer.dup_cap=16384",
@@ -94,34 +93,25 @@ def test_build_trainer_sets_exact_fp32(tf32_on):
 def test_main_sets_exact_fp32_and_names_skipped_outputs(tf32_on, capsys,
                                                         tmp_path,
                                                         quiet_logger):
-    """SDS on MockUNet with guidance samples due every 5 steps: the JAX
-    trainer would write them, the port names them; exact fp32 after."""
+    """SDS on MockUNet with guidance samples every 2 steps and the profiler
+    trace of step 1: main writes both (no output is left unwritten, so no
+    line names one), and leaves exact fp32 after."""
     assert main_mod.main(["--config", str(CONFIGS / "base.yaml"),
-                          "--steps", "1", "--device", "cpu",
+                          "--steps", "3", "--device", "cpu",
                           "--log-root", str(tmp_path), *TINY[1:],
                           "guidance.backbone_latent_size=8",
-                          "trainer.guidance_eval_period=5"]) == 0
+                          "trainer.guidance_eval_period=2",
+                          "trainer.profile_steps=[1, 2]"]) == 0
     assert_exact_fp32()
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if ln.startswith("not written")]
-    assert len(lines) == 1
-    assert "guidance samples every 5 steps (ROADMAP Queue 1 item 5)" \
-        in lines[0], lines[0]
-    assert (_run_dir(tmp_path) / "ckpts" / "step_1").is_dir()
-
-
-def test_skipped_outputs_leaves_out_periods_set_to_zero():
-    """A period of 0 turns that output off in the JAX trainer, so the line
-    does not name it; guidance samples only where the guidance has a
-    sampler; the periods come from the trainer's own config."""
-    assert main_mod.skipped_outputs(
-        TrainerConfig(guidance_eval_period=0), True) is None
-    assert main_mod.skipped_outputs(
-        TrainerConfig(guidance_eval_period=250), False) is None
-    line = main_mod.skipped_outputs(
-        TrainerConfig(guidance_eval_period=250, profile_steps=[3, 5]), True)
-    assert "guidance samples every 250 steps" in line
-    assert "the profiler trace of steps [3, 5]" in line
+    assert "not written" not in capsys.readouterr().out
+    run = _run_dir(tmp_path)
+    assert (run / "ckpts" / "step_3").is_dir()
+    sample = run / "eval" / "eval_guidance_sample_000002.png"
+    assert sample.is_file() and sample.stat().st_size > 0
+    assert not (run / "eval" / "eval_guidance_sample_000001.png").exists()
+    trace = json.loads((run / "profile" / "steps_1_2.json").read_text())
+    assert any(e.get("name") == "aten::conv2d"
+               for e in trace["traceEvents"])
 
 
 def test_main_flagship_writes_run_outputs(tmp_path, quiet_logger, capsys):
@@ -133,7 +123,7 @@ def test_main_flagship_writes_run_outputs(tmp_path, quiet_logger, capsys):
                           "--log-root", str(tmp_path), *FLAGSHIP]) == 0
     out = capsys.readouterr().out
     assert "upsample fine-tune: 2 poses, 1 epochs at 96^2" in out
-    assert "guidance samples every 2500 steps" in out
+    assert "not written" not in out
     run = _run_dir(tmp_path)
     assert run.parts[-3] == "A_high_quality_photo_of_a_furry_corgi"
     names = {p.relative_to(run).as_posix() for p in run.rglob("*")}

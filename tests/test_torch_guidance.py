@@ -15,6 +15,8 @@ losses rtol 1e-4 and rgb gradients within 1e-4 of their largest value
 rounding-level fraction of the gradient).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,8 +88,18 @@ def test_resolve_scheduler_and_unported_sampling():
                                np.asarray(s_j.alphas_cumprod), atol=1e-6)
     with pytest.raises(ValueError):
         samplers.resolve_scheduler({"beta_schedule": "linear"})
-    with pytest.raises(NotImplementedError):
-        samplers.cfg_sample()
+    # the resolved pair drives cfg_sample: PNDM, 3 steps, one extra eps
+    # call for the warm-up, every call a [2B] stack
+    calls = []
+
+    def net(lat2, t2):
+        calls.append(tuple(lat2.shape))
+        return 0.1 * lat2
+    x = samplers.cfg_sample(dataclasses.replace(c_t, num_steps=3), s_t,
+                            (2, 4, 4, 4), 7.5, net, device="cpu",
+                            x=torch.ones(2, 4, 4, 4))
+    assert x.shape == (2, 4, 4, 4) and bool(torch.isfinite(x).all())
+    assert calls == [(4, 4, 4, 4)] * 4
 
 
 def test_mock_encode_and_prompt_bank(tmp_path):

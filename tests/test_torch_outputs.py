@@ -7,7 +7,8 @@ included).  ``to_ply`` and ``to_splat`` write the JAX exporter's bytes;
 the rest holds these tolerances (fp32 on the CPU, summation order):
 ``density_grid`` 1e-5 abs at reso 16, the mesh's vertices 1e-5 with the
 same faces, ``ssim`` / ``image_loss`` 1e-6, ``bicubic_upsample`` 1e-5 of
-``jax.image.resize(..., "cubic")`` border rows included, the eval strip's
+``jax.image.resize(..., "cubic")`` border rows included (and the
+diffusion upsampler's ``upsample_fn`` form on TINY_SR), the eval strip's
 rgb within the render gates of test_torch_raster.py (rtol 1e-4 / atol
 1e-5) and its colormapped columns within one step of their lookup table
 (a render difference at rounding level may move a value across a table
@@ -277,8 +278,27 @@ def test_bicubic_upsample_matches_jax_resize():
         t(x).permute(0, 3, 1, 2), size=(64, 64), mode="bicubic",
         align_corners=False).permute(0, 2, 3, 1).numpy()
     assert np.abs(other - want).max() > 1e-3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        upsample_t.make_diffusion_upsampler(None, 256)
+    # the diffusion upsampler in the fine-tune's upsample_fn(rgb, batch)
+    # form: TINY_SR on random weights (1 step here), or IF2_PIXEL from a
+    # weights_path, which raises until IF-II weights are in the repository
+    from types import SimpleNamespace
+
+    from gsgen_torch.prompt.processors import (PromptProcessor,
+                                               PromptProcessorConfig)
+    stand_in = SimpleNamespace(device=torch.device("cpu"),
+                               prompt_processor=PromptProcessor(
+                                   PromptProcessorConfig(use_cache=False),
+                                   device="cpu"))
+    fn = upsample_t.make_diffusion_upsampler(stand_in, 16, num_steps=1)
+    batch = {"elevation": torch.tensor([10.0, 80.0]),
+             "azimuth": torch.tensor([0.0, 90.0]),
+             "camera_distance": torch.tensor([2.5, 2.5])}
+    up = fn(t(x), batch)
+    assert up.shape == (2, 16, 16, 3)
+    assert float(up.min()) >= 0.0 and float(up.max()) <= 1.0
+    with pytest.raises(NotImplementedError, match="IF-II weights"):
+        upsample_t.make_diffusion_upsampler(stand_in, 256,
+                                            weights_path="/nonexistent/if2")
 
 
 def test_colormaps_equal_jax():

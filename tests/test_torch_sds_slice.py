@@ -136,8 +136,9 @@ def test_base_yaml_tiny_sd_backbone_trains_two_steps():
 
 def test_config_guidance_selection(tmp_path, monkeypatch):
     """base.yaml as it is builds SDS on MockUNet; the flagship rehearsal
-    builds (TINY preset here) and steps at its c2f stage 0; what is not
-    ported (DeepFloyd IF guidance, weights, encoders) raises."""
+    builds (TINY preset here) and steps at its c2f stage 0; DeepFloyd's
+    guidance types build pixel-space SDS; what is not ported (weights,
+    encoders) raises."""
     monkeypatch.chdir(tmp_path)          # the prompt cache is cwd-relative
     tr = build_trainer(load_config(ROOT / "configs" / "base.yaml"),
                        device="cpu")
@@ -160,8 +161,17 @@ def test_config_guidance_selection(tmp_path, monkeypatch):
     assert tr.state.step == 1
 
     base = ROOT / "configs" / "base.yaml"
-    for bad in (["guidance.type=if"], ["guidance.type=deep_floyd"],
-                TINY_SD + ["guidance.weights_path=/nonexistent/sd21"],
+    # DeepFloyd's types are pixel-space SDS (MockUNet here); CFG 20 is
+    # their default only where the config sets no scale (base.yaml: 100)
+    for typ in ("if", "deep_floyd"):
+        cfg = load_config(base, SMALL)
+        del cfg["guidance"]["guidance_scale"]
+        cfg["guidance"]["type"] = typ
+        g = build_trainer(cfg, device="cpu").guidance
+        assert isinstance(g, SDSGuidance) and isinstance(g.backbone,
+                                                         MockUNet)
+        assert g.cfg.rgb_as_latents and g.cfg.guidance_scale == 20.0
+    for bad in (TINY_SD + ["guidance.weights_path=/nonexistent/sd21"],
                 ["prompt.model_id=/nonexistent/clip"]):
         with pytest.raises(NotImplementedError):
             build_trainer(load_config(base, SMALL + bad), device="cpu")

@@ -152,9 +152,15 @@ def test_load_config_base_yaml_with_overrides(tmp_path):
     assert tr.state.scene.params["mean"].shape == (128, 3)
     tr.fit(2)
     assert tr.state.step == 2
+    # DeepFloyd's type builds pixel-space SDS; a type the JAX package
+    # does not have raises
+    g = build_trainer(load_config(ROOT / "configs" / "base.yaml",
+                                  ["guidance.type=deep_floyd"]),
+                      device="cpu").guidance
+    assert g.cfg.rgb_as_latents
     with pytest.raises(NotImplementedError):
         build_trainer(load_config(ROOT / "configs" / "base.yaml",
-                                  ["guidance.type=deep_floyd"]),
+                                  ["guidance.type=make_it_3d"]),
                       device="cpu")
 
 

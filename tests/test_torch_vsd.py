@@ -330,5 +330,16 @@ def test_vsd_configs_build_and_train(tmp_path, monkeypatch):
                for k, v in tr.state.gp.items()) > 0
     assert (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
             fa.flash_bwd_dq.launches) == n
-    with pytest.raises(NotImplementedError):
-        g.sample()
+    # the guidance-eval samples of the trained state: the frozen model and
+    # the LoRA model on the trainer's leaves, 2 DDIM steps, no K5 on the CPU
+    emb = tr.prompt_processor()
+    pose = [torch.tensor([15.0]), torch.tensor([30.0]), torch.tensor([2.5])]
+    img = g.sample(emb, *pose, num_steps=2,
+                   generator=torch.Generator().manual_seed(0))
+    c2w = torch.eye(4)[None, :3]
+    img_l = g.sample_lora(emb, *pose, c2w, num_steps=2, train=tr.state.gp,
+                          generator=torch.Generator().manual_seed(0))
+    assert img.shape == img_l.shape == (1, bb.image_size, bb.image_size, 3)
+    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+    assert float((img - img_l).abs().max()) > 0.0
+    assert fa.flash_self_attention.launches == n[0]
