@@ -147,6 +147,24 @@ Phases, each reported on its own line:
    config's 50 steps, then the upsample fine-tune through
    make_diffusion_upsampler (TINY_SR, 3 steps) on 8 poses; each part's
    ms, peak GiB and launches;
+15. image-to-3D: (a) card against CPU at TINY sizes from one state and
+   one set of draws: an image step at RES 32 (TINY SD, a TINY DPT depth
+   estimator, the grad mask on: every loss and field gradient), the TINY
+   CLIP text and vision towers, encode_grid's cubic resize, the TINY
+   grid Point-E and Make-It-3D's clip_ref_loss; (b) base.yaml +
+   data/sit3d.yaml (378^2, batch 4) on a shaded-sphere PNG (auto-matted),
+   its depth from a random-weight DPT-hybrid omnidata .ckpt, the DPT
+   depth estimator on every render, SD 2.1 bf16: 3 steps with the
+   counters read (K1-K4 once a view, K5 5 a step), every loss term
+   finite, the 4,096 front rows bitwise frozen and the others moved, the
+   first view through K1-K4 against plain; one step profiled (render,
+   vae, unet, dpt, other) and DPT's forward + backward timed alone;
+   (c) the normal estimator (3-channel DPT, mock guidance),
+   2 steps, F = 8 through K1/K2; (d) init.type=point_e_image on
+   random-weight base40M-image, upsample and ViT-L/14 .pt checkpoints
+   (64 + 64 Karras steps at CFG 3), then a cache hit; (e) Make-It-3D at
+   full width (random ViT-B/16 on the SD 2.1 bf16 backbone, 4 views at
+   378^2, 2 original): loss_sds + loss_clip, the rgb gradient, ms;
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -540,6 +558,30 @@ def run(torch) -> int:
 
     c2w_front = [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -2.5]]
 
+    wrappers = dict(raster_fwd=cuda_raster.raster_fwd,
+                    raster_bwd=cuda_raster.raster_bwd,
+                    expansion_rank=expansion_rank.expansion_gid,
+                    gid_repack=gid_repack.repack_gid,
+                    flash_attn_fwd=flash_attention.flash_self_attention,
+                    flash_attn_bwd_dkv=flash_attention.flash_bwd_dkv,
+                    flash_attn_bwd_dq=flash_attention.flash_bwd_dq,
+                    raster_fwd_compact=cuda_raster.raster_fwd_compact,
+                    raster_bwd_compact=cuda_raster.raster_bwd_compact)
+
+    def check_recorded(label, rec, trainer):
+        """The first view a drive recorded (record_render_inputs) through
+        K1-K4 against their plain versions, as kernel_checks holds them."""
+        bargs, bkw = rec["bin"]
+        ra, _ = rec["raster"]
+        prep = dict(bin_args=tuple(bargs),
+                    bin_kw={k: v for k, v in bkw.items() if k != "layout"},
+                    mean2d=ra[0], conic=ra[1], alpha=ra[2], feats=ra[3],
+                    geom=make_geom(ra[5], ra[6], dev),
+                    intr=trainer.data.intrinsics(), rcfg=trainer.rcfg)
+        notes.clear()
+        kernel_checks(label, prep, SCALE_TOL)
+        return notes[-1]
+
     # ---- phase 3: kernels vs plain versions ----
     # small: tests' sizes (RES 32, TILE 8, CHUNK 128) + a full render
     # against the dense oracle (culling radius 60: the alpha-aware AABB
@@ -790,15 +832,6 @@ def run(torch) -> int:
     print("phase 3 kernels: ok | " + " | ".join(notes), flush=True)
 
     # ---- phase 4: train configs/base.yaml (guidance.type=mock) ----
-    wrappers = dict(raster_fwd=cuda_raster.raster_fwd,
-                    raster_bwd=cuda_raster.raster_bwd,
-                    expansion_rank=expansion_rank.expansion_gid,
-                    gid_repack=gid_repack.repack_gid,
-                    flash_attn_fwd=flash_attention.flash_self_attention,
-                    flash_attn_bwd_dkv=flash_attention.flash_bwd_dkv,
-                    flash_attn_bwd_dq=flash_attention.flash_bwd_dq,
-                    raster_fwd_compact=cuda_raster.raster_fwd_compact,
-                    raster_bwd_compact=cuda_raster.raster_bwd_compact)
     trainer, mock = drive(torch, build_trainer, load_config, wrappers,
                           "base.yaml", ["guidance.type=mock"], 5, {})
     step_ms = mock["ms_per_step"]
@@ -1433,6 +1466,11 @@ def run(torch) -> int:
         outputs["guidance_sample"]["launches"]["flash_attn_fwd"]
     torch.cuda.empty_cache()
 
+    # ---- phase 15: image-to-3D ----
+    image = image_phases(torch, dev, build_trainer, load_config, wrappers,
+                         card, check_recorded)
+    torch.cuda.empty_cache()
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1461,6 +1499,7 @@ def run(torch) -> int:
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=ref,
             launches=on_path[k], sds_launches=launches[k],
+            image_launches=image["b"]["launches"][k],
             max_abs_err=errs[k], ms=tb["ms"],
             plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"],
@@ -1484,6 +1523,7 @@ def run(torch) -> int:
                                 "_flash_self_attention"),
         launches=vsd_launches["flash_attn_fwd"],
         sds_launches=launches["flash_attn_fwd"],
+        image_launches=image["b"]["launches"]["flash_attn_fwd"],
         max_abs_err=errs["flash_attn_fwd"], **times_flash,
         shapes=f"SD 2.1 level-0 self-attention {list(SD21_ATTN)} bf16",
         fp32_ms=flash_fp32_ms, fp32_plain_ms=flash_fp32_plain_ms,
@@ -1526,7 +1566,7 @@ def run(torch) -> int:
                       "sds_profile": sds_profile, "vsd": vsd,
                       "vsd_profile": vsd_profile, "outputs": outputs,
                       "point_e": point_e, "render_extras": extras,
-                      "sampling": sampling,
+                      "sampling": sampling, "image": image,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -2990,7 +3030,10 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
     launches from the backward thread are the render backward, the rest is
     "other" (optimizer, losses, guidance glue).  With an auxiliary
     guidance (phase 12), its loss is the "point_e" part (FPS and the
-    Point-E transformer); FPS's own launches are counted too.
+    Point-E transformer); FPS's own launches are counted too.  With
+    estimators (phase 15), the DPT network's forward and its backward
+    (from the gradient reaching its output until it leaves its input) are
+    the "dpt" part.
     ``extra_spans``: (module, function name, part) triples, each call of
     the function a part of its own (phase 13: the background, the
     normals).  A guidance without a backbone (mock) has no UNet or VAE
@@ -3058,6 +3101,22 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
         bb.predict_noise = predict_noise
     aux = trainer.aux_guidance
     orig_fps = aux_mod.farthest_point_sampling
+    ests = getattr(trainer, "estimators", {})
+    for est in ests.values():
+        orig_fwd = est.module.forward
+
+        def dpt_forward(x, _f=orig_fwd):
+            # the estimator's backward: from the gradient reaching its
+            # output until it leaves its input
+            if x.requires_grad:
+                x.register_hook(lambda grad: close_span("dpt_bwd"))
+            with record_function("step:dpt"):
+                out = _f(x)
+            if out.requires_grad:
+                out.register_hook(lambda grad: open_span("dpt_bwd"))
+            return out
+
+        est.module.forward = dpt_forward
     if aux is not None:
         orig_aux = aux.loss
 
@@ -3099,6 +3158,8 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
             setattr(mod, fname, orig_fn)
         if aux is not None:
             del aux.loss
+        for est in ests.values():
+            del est.module.forward
         if bb is not None:
             del bb.encode_images
             if vsd:
@@ -3136,7 +3197,8 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
                                                  or a > inner[1]):
                 inner = (name, a)
         if inner is not None:
-            return "vae" if inner[0].startswith("vae") else inner[0]
+            return (inner[0][:3] if inner[0].startswith(("vae", "dpt"))
+                    else inner[0])
         return "render" if tid in bwd_tids else "other"
 
     # a part's device ms is the union of its ops' spans: cuDNN runs some
@@ -3182,6 +3244,454 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
           + fps_note + " | top (summed kernel ms): " + "; ".join(
               f"[{g}] {k} {v:.3f} ms" for (g, k), v in top), flush=True)
     return info
+
+
+# phase 15: image-to-3D (base.yaml + data/sit3d.yaml, 378², batch 4)
+IMAGE_CONFIGS = ["base.yaml", "data/sit3d.yaml"]
+# the random-weight DPT's depth is a clamped [0, 1] map: the reference's
+# scale 100 (for omnidata's metric-like range) would put the lifted points
+# up to 100 units off, so the phase scales it by 1
+IMAGE_DEPTH = ["image.depth_scale=1.0"]
+IMAGE_TINY = ["data.reso=[32]", "renderer.dup_cap=16384",
+              "init.num_points=64", "init.capacity=256",
+              "trainer.batch_size=4", "prompt.use_cache=false",
+              "guidance.backbone=sd_unet", "guidance.backbone_preset=tiny",
+              "renderer.background.type=fixed",
+              "image.original_view_prob=0.5"]
+
+
+def seeded_state(torch, module, seed):
+    """A state dict of ``module``'s names drawn from a seeded generator:
+    weights ~ N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), biases and
+    embeddings N(0, 0.1²); transformers' ``position_ids`` left out."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in module.state_dict().items():
+        if "position_ids" in k:
+            continue
+        n = torch.randn(v.shape, generator=g)
+        if v.dim() >= 2 and "embedding" not in k and \
+                not k.endswith(("cls_token", "pos_embed")):
+            sd[k] = n / math.sqrt(v[0].numel())
+        elif "norm" in k and k.endswith("weight"):
+            sd[k] = 1.0 + 0.1 * n
+        else:
+            sd[k] = 0.1 * n
+    return sd
+
+
+def dpt_state(torch, cfg, seed):
+    """A random-weight DPT-hybrid state dict whose head sits inside (0, 1)
+    (its last conv a tenth of the rest, bias 0.8), so the estimator's clamp
+    passes gradient."""
+    from gsgen_torch.priors.dpt import DPTHybrid
+    sd = seeded_state(torch, DPTHybrid(cfg), seed)
+    sd["scratch.output_conv.4.weight"] *= 0.1
+    sd["scratch.output_conv.4.bias"] += 0.8
+    return sd
+
+
+def sphere_png(folder, size):
+    """A ``size``² RGB PNG: a shaded sphere on white (auto_matte mattes
+    it)."""
+    import numpy as np
+
+    from gsgen_torch.io.logging import write_png
+    yy, xx = np.mgrid[:size, :size]
+    r2 = ((xx - size / 2) ** 2 + (yy - size / 2) ** 2) / (0.3 * size) ** 2
+    shade = np.sqrt(np.clip(1.0 - r2, 0.0, 1.0))[..., None]
+    img = np.where(r2[..., None] < 1.0,
+                   np.array([0.8, 0.3, 0.2]) * (0.3 + 0.7 * shade), 1.0)
+    path = folder / f"sphere{size}.png"
+    write_png(path, img.astype(np.float32))
+    return path
+
+
+def dpt_alone(torch, dev, est, batch, reso):
+    """The depth estimator's forward and backward (into the rgb) on
+    ``batch`` views at ``reso``², timed alone between CUDA events."""
+    x = torch.rand(batch, reso, reso, 3, device=dev, requires_grad=True)
+
+    def fwd_bwd():
+        est.estimate(x).sum().backward()
+
+    ms = events_ms(torch, fwd_bwd, iters=3)
+    print(f"phase 15 b dpt alone: ok forward + backward into the rgb, "
+          f"{batch} views at {reso}^2 -> 384^2: {ms:.2f} ms", flush=True)
+    return dict(ms=ms)
+
+
+def image_phases(torch, dev, build_trainer, load_config, wrappers, card,
+                 check_view):
+    """Phase 15: image-to-3D.  (a) card against CPU at TINY sizes from one
+    state and one set of draws: an image-to-3D step at RES 32 (TINY SD, a
+    TINY DPT depth estimator, the grad mask on; the losses and each field's
+    gradient), the TINY CLIP text and vision towers, ``encode_grid``'s
+    cubic resize, the TINY grid Point-E forward and Make-It-3D's
+    ``clip_ref_loss``.  (b) the slice: base.yaml + data/sit3d.yaml (378²,
+    batch 4) on a shaded-sphere PNG (auto-matted), its depth from a
+    random-weight full-width DPT-hybrid omnidata ``.ckpt``, the DPT depth
+    estimator on every render, SD 2.1 bf16: 3 steps with the counters read
+    (K1-K4 once a view, K5 5 a step), every loss finite, the frozen front
+    rows bitwise unchanged and the others moved, the first view through
+    K1-K4 against their plain versions; then one step profiled (render,
+    vae, unet, dpt, other).  (c) the normal estimator (3-channel DPT,
+    mock guidance): 2 steps, F = 8 through K1/K2.  (d) init.type=
+    point_e_image on random-weight base40M-image, upsample and ViT-L/14
+    ``.pt`` checkpoints (64 + 64 Karras steps), then a cache hit.  (e)
+    Make-It-3D at full width: a random ViT-B/16 tower on the SD 2.1 bf16
+    backbone, 4 views at 378², 2 of them original."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import gsgen_torch.priors as priors_mod
+    from gsgen_torch.guidance import make_it_3d
+    from gsgen_torch.guidance.point_e import (BASE40M_IMAGE, TINY_POINT_E_GRID,
+                                              UPSAMPLE_CFG,
+                                              PointEImageGridModel,
+                                              PointEUpsamplerModel)
+    from gsgen_torch.io.checkpoint import state_arrays
+    from gsgen_torch.priors.dpt import (TINY_DPT, DPTConfig, DPTEstimator,
+                                        load_dpt)
+    from gsgen_torch.prompt import clip
+    from gsgen_torch.prompt.clip_vision import (TINY_VISION, VIT_B16,
+                                                VIT_L14, CLIPImageEncoder,
+                                                CLIPVisionModelWithProjection)
+    from gsgen_torch.training.trainer import train_state_from_jax_arrays
+
+    res = {}
+    folder = Path(tempfile.mkdtemp(prefix="gsgen_image_"))
+    old_assets = os.environ.get("GSGEN_ASSET_DIR")
+    os.environ["GSGEN_ASSET_DIR"] = str(folder / "assets")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(ms=1e3 * (time.perf_counter() - t0),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         launches={k: w.launches
+                                   for k, w in wrappers.items()})
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    try:
+        # ---- a: card against CPU at TINY sizes ----
+        png32 = sphere_png(folder, 32)
+        rng = np.random.default_rng(0)
+        np.save(folder / "depth32.npy",
+                rng.uniform(2.3, 2.7, (32, 32)).astype(np.float32))
+        over = IMAGE_TINY + [f"image.path={png32}",
+                             f"image.depth={folder / 'depth32.npy'}"]
+        cfg = load_config([ROOT / "configs" / n for n in IMAGE_CONFIGS],
+                          over)
+        sd_tiny = dpt_state(torch, TINY_DPT, 1)
+        t_cpu = build_trainer(cfg, device="cpu")
+        t_card = build_trainer(cfg, device="cuda")
+        # one set of TINY UNet / VAE weights (each build draws its own)
+        t_card.guidance.backbone = copy.deepcopy(
+            t_cpu.guidance.backbone).to(dev)
+        B = t_cpu.cfg.batch_size
+        g = torch.Generator().manual_seed(3)
+        draws = dict(t=torch.tensor([150, 800, 400, 600])[:B],
+                     noise=torch.randn(B, 8, 8, 4, generator=g))
+        # anisotropic, rotated Gaussians (the image init's isotropic ones
+        # have a rotation gradient of rounding noise only)
+        sc = t_cpu.state.scene.params
+        sc["qvec"] = torch.randn(sc["qvec"].shape, generator=g)
+        sc["svec"] = torch.log(0.05 * (0.5 + torch.rand(
+            sc["svec"].shape, generator=g)))
+        t_card.state = train_state_from_jax_arrays(
+            state_arrays(t_cpu.state), "cuda")
+        out = {}
+        for name, tr in (("cpu", t_cpu), ("card", t_card)):
+            d = torch.device("cpu") if name == "cpu" else dev
+            tr.estimators = {"depth": DPTEstimator(
+                load_dpt(sd_tiny, TINY_DPT, device=d), "depth")}
+            orig = tr.guidance.loss
+
+            def injected(*a, _orig=orig, _d=d, **kw):
+                kw.update({k: v.to(_d) for k, v in draws.items()})
+                return _orig(*a, **kw)
+
+            tr.guidance.loss = injected
+            m = tr.train_step(0)
+            out[name] = ({k: float(v) for k, v in m.items()
+                          if v.dim() == 0},
+                         {k: v.detach().cpu()
+                          for k, v in tr.state.opt.mu.items()},
+                         {k: v.detach().cpu()
+                          for k, v in tr.state.scene.params.items()})
+        (m_c, mu_c, p_c), (m_d, mu_d, p_d) = out["cpu"], out["card"]
+        errs = {}
+        for k in ("loss_image", "loss_depth", "loss_est_depth", "loss_sds",
+                  "loss_total"):
+            require(math.isfinite(m_d[k]) and m_c[k] != 0.0,
+                    f"15 a: {k} card {m_d[k]} CPU {m_c[k]}")
+            errs[k] = rel(m_d[k], m_c[k])
+            require(errs[k] <= 1e-4, f"15 a: {k} card {m_d[k]!r} vs CPU "
+                    f"{m_c[k]!r}")
+        n_front = int(t_card.grad_mask.sum())
+        for k, want in mu_c.items():
+            got = mu_d[k]
+            scale = float(want.abs().max())
+            require(scale > 0, f"15 a: no gradient reached {k}")
+            errs[f"grad {k}"] = float((got - want).abs().max()) / scale
+            bad = (got - want).abs() > 2e-4 * scale + 2e-3 * want.abs()
+            require(not bool(bad.any()), f"15 a: gradient of {k}: "
+                    f"{int(bad.sum())} values off")
+            if k in p_d:
+                require(not bool(got[:n_front].any()),
+                        f"15 a: a frozen row of {k} got a moment")
+        del t_cpu, t_card
+
+        # the TINY towers, encode_grid, the grid Point-E, clip_ref_loss
+        gen = torch.Generator().manual_seed(4)
+        sd_text = seeded_state(torch, clip.CLIPTextModelWithProjection(
+            clip.TINY_TEXT, 16), 5)
+        sd_vis = seeded_state(torch, CLIPVisionModelWithProjection(
+            TINY_VISION, 16), 6)
+        ids = torch.randint(0, 128, (3, 16), generator=gen)
+        img = torch.rand(2, 50, 50, 3, generator=gen)
+        ref = torch.rand(40, 40, 3, generator=gen)
+        xg = torch.randn(2, 6, 32, generator=gen)
+        tg = torch.tensor([3.0, 700.0])
+        grid = torch.randn(2, 256, 16, generator=gen)
+        grid_sd = PointEImageGridModel(TINY_POINT_E_GRID, "cpu", seed=7
+                                       ).module.state_dict()
+        grid_sd["output_proj.weight"] = torch.randn(
+            grid_sd["output_proj.weight"].shape, generator=gen) * 0.05
+        towers = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            text = clip.load_clip_textvec(sd_text, clip.TINY_TEXT, 16,
+                                          device=d)
+            enc = CLIPImageEncoder.from_state_dict(sd_vis, TINY_VISION, 16,
+                                                   device=d)
+            pe_grid = PointEImageGridModel(TINY_POINT_E_GRID, d
+                                           ).load_weights(grid_sd)
+            g3d = make_it_3d.MakeIt3DGuidance(
+                make_it_3d.MakeIt3DConfig(backbone_latent_size=8),
+                image_encoder=enc, ref_image=ref.to(d), device=d)
+            with torch.no_grad():
+                towers[where] = dict(
+                    text=text(ids.to(d)).cpu(),
+                    encode=enc.encode(img.to(d)).cpu(),
+                    encode_grid=enc.encode_grid(img.to(d)).cpu(),
+                    grid_point_e=pe_grid.apply(xg.to(d), tg.to(d),
+                                               grid.to(d)).cpu(),
+                    clip_ref_loss=g3d.clip_ref_loss(
+                        img.to(d), torch.tensor([0.0, 0.0],
+                                                device=d)).cpu())
+        for k, want in towers["cpu"].items():
+            got = towers["card"][k]
+            e = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-12)
+            errs[k] = e
+            require(e <= 1e-4 and bool(torch.isfinite(got).all()),
+                    f"15 a: {k} card vs CPU: max rel err {e:.3e}")
+        res["a"] = dict(rel_err=errs)
+        print("phase 15 a card vs cpu: ok tiny base.yaml + data/sit3d.yaml "
+              "image step (RES 32, TINY SD, TINY DPT depth estimator, grad "
+              f"mask on {n_front} rows), TINY CLIP text / vision, "
+              "encode_grid (cubic), TINY grid Point-E, clip_ref_loss: max "
+              "|card - CPU| / max |CPU| " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+
+        # ---- b: the slice at 378² ----
+        png = sphere_png(folder, 378)
+        for mode, seed in (("depth", 8), ("normal", 9)):
+            cfg_d = DPTConfig(num_channels=1 if mode == "depth" else 3)
+            torch.save({"state_dict": {
+                "model." + k: v for k, v in dpt_state(torch, cfg_d,
+                                                      seed).items()}},
+                folder / f"dpt_{mode}.ckpt")
+        over = SLICE + IMAGE_DEPTH + [
+            f"image.path={png}",
+            f"image.dpt_checkpoint={folder / 'dpt_depth.ckpt'}",
+            "trainer.estimators.depth.enabled=true",
+            f"trainer.estimators.depth.checkpoint={folder / 'dpt_depth.ckpt'}"]
+        rec, restore = record_render_inputs(torch)
+        snap = {}
+
+        def keep(tr):
+            snap["p0"] = {k: v.detach().clone()
+                          for k, v in tr.state.scene.params.items()}
+            snap["n_front"] = int(tr.grad_mask.sum())
+
+        terms = []
+
+        def losses(tr, step, metrics):
+            terms.append({k: float(metrics[k]) for k in (
+                "loss_sds", "loss_image", "loss_depth", "loss_est_depth",
+                "loss_total")})
+
+        try:
+            trainer, b = drive(torch, build_trainer, load_config, wrappers,
+                               IMAGE_CONFIGS, over, 3,
+                               dict(flash_attn_fwd=5), prepare=keep,
+                               on_step=losses)
+        finally:
+            restore()
+        require(all(math.isfinite(v) for t_ in terms for v in t_.values()),
+                f"15 b: loss terms {terms}")
+        require(any(t_["loss_image"] > 0 for t_ in terms),
+                f"15 b: no original view in 3 steps: {terms}")
+        n = snap["n_front"]
+        frozen, moved = {}, {}
+        for k, v in trainer.state.scene.params.items():
+            frozen[k] = bool(torch.equal(v[:n], snap["p0"][k][:n]))
+            moved[k] = float((v[n:] - snap["p0"][k][n:]).abs().max())
+        require(all(frozen.values()), f"15 b: front rows moved: {frozen}")
+        require(all(m > 0 for m in moved.values()),
+                f"15 b: other rows did not move: {moved}")
+        b["kernel_note"] = check_view("15 b step 0 view 0", rec, trainer)
+        b.update(loss_terms=terms, n_front=n, other_rows_moved=moved)
+        print(f"phase 15 b image: ok | card {card} | {b['config']}: "
+              f"{b['steps']} steps, batch {b['batch']}, {b['reso']}^2 | "
+              f"loss terms {terms} | ms/step "
+              f"{[round(x, 2) for x in b['ms_per_step']]} | peak "
+              f"{b['peak_gib']:.2f} GiB | launches {b['launches']} | "
+              f"{n} front rows bitwise frozen, the other rows moved "
+              f"(max {moved}) | first view through K1-K4 against plain: "
+              f"{b['kernel_note']}", flush=True)
+        b["profile"] = profile_step(
+            torch, trainer, ROOT / "gsgen_torch" / "_build" /
+            "image_step_trace.json", vsd=False, phase="15 b")
+        b["dpt_alone"] = dpt_alone(torch, dev, trainer.estimators["depth"],
+                                   b["batch"], b["reso"])
+        res["b"] = b
+
+        # ---- e: Make-It-3D at full width on (b)'s SD 2.1 backbone ----
+        bb = trainer.guidance.backbone
+        emb = trainer.prompt_processor()
+        enc = CLIPImageEncoder.from_state_dict(
+            seeded_state(torch, CLIPVisionModelWithProjection(VIT_B16, 512),
+                         10), VIT_B16, 512, device=dev)
+        ref = trainer.image_target.image
+        g3d = make_it_3d.MakeIt3DGuidance(make_it_3d.MakeIt3DConfig(), bb,
+                                          image_encoder=enc, ref_image=ref,
+                                          device=dev)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        rgb = torch.rand(4, 378, 378, 3, generator=gen, device=dev)
+        cams = [torch.tensor(v, device=dev) for v in
+                ([0.0, 20.0, 0.0, -10.0], [0.0, 90.0, 0.0, 200.0],
+                 [2.0] * 4)]
+        is_orig = torch.tensor([1.0, 0.0, 1.0, 0.0], device=dev)
+        sched = trainer.sched_scalars(0)
+
+        def m3d_step():
+            x = rgb.detach().requires_grad_(True)
+            r = g3d.loss(x, emb, *cams, generator=gen, sched=sched,
+                         batch_is_original=is_orig)
+            (r["loss_sds"] + r["loss_clip"]).backward()
+            return r, x.grad
+
+        m3d_step()
+        (r_e, grad_e), e = counted(m3d_step)
+        vals = {k: float(r_e[k].detach()) for k in ("loss_sds", "loss_clip")}
+        gnorm = float(grad_e.norm())
+        require(all(math.isfinite(v) for v in vals.values())
+                and vals["loss_clip"] > 0 and math.isfinite(gnorm)
+                and gnorm > 0, f"15 e: Make-It-3D {vals}, |grad| {gnorm}")
+        require(e["launches"] == {k: 5 if k == "flash_attn_fwd" else 0
+                                  for k in wrappers},
+                f"15 e: launches {e['launches']}")
+        res["e"] = dict(losses=vals, rgb_grad_norm=gnorm, **e)
+        print(f"phase 15 e make_it_3d: ok | card {card} | SD 2.1 bf16 + "
+              "random ViT-B/16 CLIP tower, 4 views at 378^2 (2 original) | "
+              f"{vals} | rgb grad norm {gnorm:.4e} | {e['ms']:.1f} ms, peak "
+              f"{e['peak_gib']:.2f} GiB, launches {e['launches']}",
+              flush=True)
+        del trainer, bb, g3d, enc, emb
+        torch.cuda.empty_cache()
+
+        # ---- c: the normal estimator, F = 8 through K1/K2 ----
+        rec, restore = record_render_inputs(torch)
+        try:
+            trainer, c = drive(
+                torch, build_trainer, load_config, wrappers, IMAGE_CONFIGS,
+                ["guidance.type=mock", f"image.path={png}",
+                 "trainer.estimators.normal.enabled=true",
+                 "trainer.estimators.normal.checkpoint="
+                 f"{folder / 'dpt_normal.ckpt'}"], 2, {})
+        finally:
+            restore()
+        F = rec["raster"][0][3].shape[-1]
+        require(trainer.rcfg.render_normal and F == 8,
+                f"15 c: render_normal {trainer.rcfg.render_normal}, F {F}")
+        c["kernel_note"] = check_view("15 c step 0 view 0 F=8", rec, trainer)
+        print(f"phase 15 c normal estimator: ok | card {card} | "
+              f"{c['config']}: {c['steps']} steps, batch {c['batch']}, "
+              f"{c['reso']}^2 | losses {c['losses']} | ms/step "
+              f"{[round(x, 2) for x in c['ms_per_step']]} | peak "
+              f"{c['peak_gib']:.2f} GiB | launches {c['launches']} | F = 8 "
+              f"through K1/K2 against plain: {c['kernel_note']}", flush=True)
+        res["c"] = c
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- d: init.type=point_e_image ----
+        ck = {}
+        sd = seeded_state(torch, CLIPVisionModelWithProjection(VIT_L14, 768),
+                          12)
+        ck["clip"] = folder / "vit_l14.pt"
+        torch.save(sd, ck["clip"])
+        for i, (name, model) in enumerate((
+                ("base40M-image", PointEImageGridModel(BASE40M_IMAGE, "cpu",
+                                                       seed=13)),
+                ("upsample", PointEUpsamplerModel(UPSAMPLE_CFG, "cpu",
+                                                  seed=14)))):
+            state = model.module.state_dict()
+            gen = torch.Generator().manual_seed(15 + i)
+            for k in ("output_proj.weight", "output_proj.bias"):
+                state[k] = torch.randn(state[k].shape, generator=gen) * 0.02
+            ck[name] = folder / f"{name}.pt"
+            torch.save(state, ck[name])
+        del sd
+        over = ["guidance.type=mock", "init.type=point_e_image",
+                f"init.image={png}", f"init.point_e_image_base="
+                f"{ck['base40M-image']}",
+                f"init.point_e_upsample={ck['upsample']}",
+                f"init.clip_vision_dir={ck['clip']}"]
+        cfg = load_config(ROOT / "configs" / "base.yaml", over)
+        tr, d1 = counted(lambda: build_trainer(cfg, device="cuda"))
+        mean = tr.state.scene.params["mean"][tr.state.scene.active]
+        require(mean.shape[0] == 4096 and bool(torch.isfinite(mean).all()),
+                f"15 d: init cloud {tuple(mean.shape)}")
+        cached = priors_mod._asset_path(priors_mod._image_key(str(png)),
+                                        "point_e_image")
+        require(cached.exists(), f"15 d: no cached cloud at {cached}")
+        del tr
+        tr, d2 = counted(lambda: build_trainer(load_config(
+            ROOT / "configs" / "base.yaml",
+            over[:3] + ["init.point_e_image_base=/nonexistent.pt"]),
+            device="cuda"))
+        require(d2["ms"] < d1["ms"], f"15 d: cache hit {d2['ms']} ms vs "
+                f"sampling {d1['ms']} ms")
+        res["d"] = dict(sample=d1, cache_hit=d2)
+        print(f"phase 15 d point_e_image: ok | card {card} | random-weight "
+              "base40M-image + upsample + ViT-L/14 .pt, 64 + 64 Karras "
+              f"steps at CFG 3, build_trainer {d1['ms'] / 1e3:.3f} s (peak "
+              f"{d1['peak_gib']:.2f} GiB), then from the cache "
+              f"{d2['ms'] / 1e3:.3f} s", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        if old_assets is None:
+            os.environ.pop("GSGEN_ASSET_DIR", None)
+        else:
+            os.environ["GSGEN_ASSET_DIR"] = old_assets
+        shutil.rmtree(folder, ignore_errors=True)
+    return res
 
 
 if __name__ == "__main__":

@@ -6,8 +6,13 @@ with YAML-typed values (``guidance.type=mock``); ``build_trainer`` wires
 the subsystems the port has from the same ``configs/`` tree: guidance
 ``mock``, ``sds``, ``vsd`` and ``deep_floyd`` / ``if`` (pixel-space SDS)
 on ``MockUNet`` or the UNet backbone (SD with its VAE, or ``if_pixel``
-without one), the Point-E ``auxiliary`` guidance, and the ``base`` and
-``point_e`` inits.
+without one), the Point-E ``auxiliary`` guidance, the DPT ``estimators``
+(top level or under ``trainer``), the inits ``base``, ``unisphere``,
+``semisphere``, ``box``, ``unbounded``, ``ckpt``, ``point_e`` and
+``point_e_image``, and image-to-3D: an ``image:`` block with a ``path``
+(an 8-bit PNG) swaps in the single-view camera sampler, the depth-lifted
+init with its gradient mask and the original-view losses; a block
+without a path only configures.
 """
 
 from __future__ import annotations
@@ -260,14 +265,36 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
                                device=device)
     else:
         raise NotImplementedError(f"guidance type {g_type}")
-    img_d = cfg.get("image") or {}
-    if img_d.get("enabled") or img_d.get("path"):
-        raise NotImplementedError("image")
     aux_guidance = _build_aux_guidance(dict(cfg.get("auxiliary") or {}),
                                        device)
 
-    init_points = init_colors = None
-    if init_cfg.type == "point_e":
+    init_points = init_colors = init_raw = None
+    if init_cfg.type == "ckpt":
+        # a fresh run from a trained scene's raw fields (reference
+        # from_ckpt, utils/initialize.py:335-356), not a resume
+        from .io.checkpoint import scene_arrays_from_checkpoint
+        init_raw = scene_arrays_from_checkpoint(init_extra["ckpt_path"])
+    elif init_cfg.type == "point_e_image":
+        # image-conditioned Point-E (reference point_e_image_initialize,
+        # utils/initialize.py:410-439); facex is applied to the arrays
+        from .priors import point_e_image_init_arrays
+        image = init_extra.get("image") or (cfg.get("image") or {}).get(
+            "path")
+        if not image:
+            raise ValueError("init.type=point_e_image needs init.image (or "
+                             "image.path)")
+        init_points, init_colors = point_e_image_init_arrays(
+            image, num_points=init_cfg.num_points,
+            mean_std=init_cfg.mean_std, facex=init_cfg.facex,
+            seed=init_extra.get("seed", 0),
+            base_weights=init_extra.get("point_e_image_base"),
+            upsample_weights=init_extra.get("point_e_upsample"),
+            clip_model_dir=init_extra.get("clip_vision_dir"),
+            karras_steps=tuple(init_extra.get("karras_steps", (64, 64))),
+            device=device)
+        init_cfg = dataclasses.replace(init_cfg, type="point_cloud",
+                                       facex=False)
+    elif init_cfg.type == "point_e":
         # the generative prior at trainer init (reference
         # utils/initialize.py:110-167): the asset cache or the in-process
         # two-stage sampler, then a point_cloud init on those arrays
@@ -289,12 +316,86 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
     elif init_cfg.type == "point_cloud":
         raise NotImplementedError("init.type point_cloud: the init_asset "
                                   "loader is not ported yet")
-    return Trainer(cfg=tcfg, rcfg=rcfg, init_cfg=init_cfg, bg_cfg=bg_cfg,
-                   data_cfg=data_cfg, guidance=guidance, dcfg=dcfg,
-                   pcfg=pcfg, init_points=init_points,
-                   init_colors=init_colors,
-                   prompt_processor=prompt_processor,
-                   aux_guidance=aux_guidance, device=device, logger=logger)
+
+    # image-to-3D; a block without a path (the data/sit3d.yaml preset's
+    # original_view_prob) configures but does not switch it on
+    img_d = cfg.get("image") or {}
+    image = _image_mode(img_d, tcfg, init_cfg, rcfg, device) \
+        if img_d.get("path") else {}
+    trainer = Trainer(cfg=tcfg, rcfg=rcfg, init_cfg=init_cfg, bg_cfg=bg_cfg,
+                      data_cfg=data_cfg, guidance=guidance, dcfg=dcfg,
+                      pcfg=pcfg, init_points=init_points,
+                      init_colors=init_colors, init_raw=init_raw,
+                      prompt_processor=prompt_processor,
+                      aux_guidance=aux_guidance, device=device,
+                      logger=logger, **image.get("trainer_kw", {}))
+    if image:
+        from .data.cameras import SingleViewCameraPoseProvider
+        from .training.optimizer import adam_init
+        from .training.trainer import _opt_params
+        scene = image["scene"]
+        st = trainer.state
+        trainer.state = dataclasses.replace(
+            st, scene=scene,
+            opt=adam_init(_opt_params(scene.params, st.bg, st.gp)))
+        trainer.data = SingleViewCameraPoseProvider(
+            data_cfg, seed=tcfg.seed,
+            original_view_prob=float(img_d.get("original_view_prob", 0.5)))
+    return trainer
+
+
+def _image_mode(img_d: Dict, tcfg: TrainerConfig, init_cfg: InitConfig,
+                rcfg: RenderConfig, device) -> Dict:
+    """The ``image:`` block (reference sit3d mode, trainer.py:101-156):
+    read ``path`` (an 8-bit PNG; an RGB one is matted unless
+    ``auto_matte: false``), take its depth from ``depth`` (a ``.npy``),
+    from DPT (``dpt_checkpoint``: recentred on the foreground mean, times
+    ``depth_scale``, plus ``distance``) or ``default_depth``, and lift the
+    front points from the front view (camera at +x, ``distance`` away).
+    Returns the image init's ``scene`` and the Trainer's image keywords."""
+    import numpy as np
+    import torch
+
+    from .io.logging import read_png
+    from .ops.camera import CameraIntrinsics
+    from .training.sit3d import ImageTarget, image_initialize
+
+    rgba = read_png(img_d["path"]).astype(np.float32) / 255.0
+    if rgba.shape[-1] != 4 and img_d.get("auto_matte", True):
+        from .utils.matting import ensure_rgba
+        rgba = ensure_rgba(rgba)
+    rgb = np.ascontiguousarray(rgba[..., :3])
+    mask = (rgba[..., 3] > 0.5 if rgba.shape[-1] == 4
+            else np.ones(rgba.shape[:2], bool))
+    distance = float(img_d.get("distance", 2.5))
+    if img_d.get("depth"):
+        depth = np.load(img_d["depth"]).astype(np.float32)
+    elif img_d.get("dpt_checkpoint"):
+        from .priors.dpt import DPTEstimator
+        est = DPTEstimator.from_checkpoint(img_d["dpt_checkpoint"],
+                                           mode="depth", device=device)
+        with torch.no_grad():
+            d = est(torch.as_tensor(rgb, device=device)[None])[0, ..., 0]
+        d = d.cpu().numpy()
+        depth = ((d - d[mask].mean()) * float(img_d.get("depth_scale", 100.0))
+                 + distance).astype(np.float32)
+        del est
+    else:
+        depth = np.full(rgb.shape[:2], float(img_d.get("default_depth", 2.5)),
+                        np.float32)
+    target = ImageTarget(image=torch.as_tensor(rgb, device=device),
+                         depth=torch.as_tensor(depth, device=device),
+                         mask=torch.as_tensor(mask, device=device))
+    # the front view: camera at (distance, 0, 0) looking down -x
+    c2w = torch.tensor([[0, 0, -1, distance], [1, 0, 0, 0], [0, -1, 0, 0]],
+                       dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(tcfg.seed)
+    scene, gmask = image_initialize(
+        init_cfg, rcfg, target, CameraIntrinsics.from_reso(rgb.shape[0]),
+        c2w, gen, grad_mask=img_d.get("grad_mask", True))
+    return dict(scene=scene, trainer_kw=dict(
+        image_target=target, grad_mask=gmask,
+        mask_steps=tuple(img_d.get("mask_steps", (0, 1000)))))
 
 
 def _build_aux_guidance(aux_d: Dict, device):
@@ -308,8 +409,9 @@ def _build_aux_guidance(aux_d: Dict, device):
     clip_dir = aux_d.pop("clip_model_id", None)
     if clip_dir:
         raise NotImplementedError(
-            f"auxiliary.clip_model_id {clip_dir!r}: the CLIP text tower is "
-            "not ported yet (ROADMAP Queue 1 item 7)")
+            f"auxiliary.clip_model_id {clip_dir!r}: the CLIP tokenizer and "
+            "model-directory loader (prompt/encoders.py) are not ported yet "
+            "(ROADMAP Queue 1 item 7)")
     from .guidance.point_e_aux import PointEAuxConfig, PointEAuxGuidance
     return PointEAuxGuidance(_from_dict(PointEAuxConfig, aux_d),
                              device=device)

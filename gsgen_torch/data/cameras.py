@@ -1,10 +1,10 @@
-"""Camera pose sampling for text-to-3D training.
+"""Camera pose sampling for training.
 
 Host-side numpy port of the reference ``CameraPoseProvider``
-(data/__init__.py:32-307 in gsgen3d/gsgen), copied verbatim from
-the JAX package's ``data/cameras.py``: the same seed gives the same cameras in
-both packages.  The single-view (image-to-3D) sampler waits for a later
-slice.
+(data/__init__.py:32-307 in gsgen3d/gsgen) and of the image-to-3D
+``SingleViewCameraPoseProvider`` (data/sit3d.py:8-41), copied verbatim
+from the JAX package's ``data/cameras.py``: the same seed gives the same
+cameras in both packages.
 """
 
 from __future__ import annotations
@@ -170,3 +170,40 @@ class CameraPoseProvider:
         samples = [self.sample_one() for _ in range(bs)]
         return {k: np.stack([np.asarray(s[k], np.float32) for s in samples])
                 for k in samples[0]}
+
+
+class SingleViewCameraPoseProvider(CameraPoseProvider):
+    """Image-to-3D sampler: the canonical front view with probability
+    ``original_view_prob`` (at the mean focal, no centre jitter), else a
+    random view; every sample carries ``is_original`` (1.0 or 0.0)."""
+
+    def __init__(self, cfg: CameraSamplerConfig, seed: int = 0,
+                 original_view_prob: float = 0.5,
+                 original_elevation: float = 0.0,
+                 original_azimuth: float = 0.0,
+                 original_distance: float = 2.5):
+        super().__init__(cfg, seed)
+        self.original_view_prob = original_view_prob
+        self.original = (original_elevation, original_azimuth,
+                         original_distance)
+
+    def sample_one(self) -> dict:
+        if self.rng.random() < self.original_view_prob:
+            elevation, azimuth, dist = self.original
+            reso = self.reso
+            er, ar = np.deg2rad(elevation), np.deg2rad(azimuth)
+            pos = np.array([dist * np.cos(er) * np.cos(ar),
+                            dist * np.cos(er) * np.sin(ar),
+                            dist * np.sin(er)])
+            c2w = c2w_from_up_and_look_at(
+                self.up, np.asarray(self.cfg.center, dtype=np.float64), pos)
+            focal = float(np.mean(self.focal_bound)) * reso
+            return dict(c2w=c2w, fx=focal, fy=focal, cx=reso / 2.0,
+                        cy=reso / 2.0, elevation=elevation, azimuth=azimuth,
+                        camera_distance=dist,
+                        light_pos=(pos.astype(np.float32)
+                                   / np.linalg.norm(pos) * 3.0),
+                        light_color=np.ones(3, np.float32), is_original=1.0)
+        out = super().sample_one()
+        out["is_original"] = 0.0
+        return out

@@ -15,14 +15,18 @@ parameters (as numpy arrays) without importing it:
 
 :func:`read_state_dict` reads a state dict from a ``.pt`` file (torch's own
 reader, tensors only).  Reading safetensors is not ported: that package
-is not a dependency of the port.
+is not a dependency of the port.  :func:`load_state` fills a module whose
+names are the torch state dict's (the Point-E models, DPT, the CLIP
+towers) from such a dict of tensors or numpy arrays; :func:`as_tensors`
+brings a flat dict of arrays (e.g. the JAX ``MockImageEncoder``'s ``w``
+and ``pool``) across as tensors.
 """
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -141,3 +145,25 @@ def read_state_dict(path_or_state) -> Mapping:
             "which the port does not depend on; save the state dict with "
             "torch.save as a .pt file")
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def as_tensors(arrays: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """A flat dict of tensors or arrays as tensors (copies of numpy
+    arrays), on ``device`` if given."""
+    out = {}
+    for k, v in arrays.items():
+        v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+        out[k] = v if device is None else v.to(device)
+    return out
+
+
+def load_state(module: torch.nn.Module, path_or_state,
+               drop: Optional[Callable[[str], bool]] = None
+               ) -> torch.nn.Module:
+    """Fill ``module`` from a torch-layout state dict (or a file of one,
+    :func:`read_state_dict`) without the keys ``drop(key)`` selects; every
+    other key must match a parameter or buffer by name and shape."""
+    state = {k: v for k, v in read_state_dict(path_or_state).items()
+             if drop is None or not drop(k)}
+    module.load_state_dict(as_tensors(state), strict=True)
+    return module

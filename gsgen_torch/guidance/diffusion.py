@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.resize import resize
+
 
 class NoiseSchedule(NamedTuple):
     """DDPM/DDIM alphas (diffusers DDIMScheduler equivalents)."""
@@ -72,14 +74,8 @@ def scaled_linear_schedule(num_train_timesteps: int = 1000,
 
 def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
     """Square bilinear resize of NHWC ``x``, as ``jax.image.resize(...,
-    "bilinear")``: half-pixel centres, antialiased when shrinking, the
-    identity at the same size."""
-    if x.shape[1] == size and x.shape[2] == size:
-        return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
-                      mode="bilinear", align_corners=False,
-                      antialias=size < x.shape[1])
-    return y.permute(0, 2, 3, 1)
+    "bilinear")`` (:func:`..utils.resize.resize`)."""
+    return resize(x, (size, size))
 
 
 def _conv_same(x, w):

@@ -1,9 +1,9 @@
-"""Point-E point-cloud diffusion transformers: the text-vec base model and
-the upsampler.
+"""Point-E point-cloud diffusion transformers: the text-vec base model, the
+image-grid base models and the upsampler.
 
-Port of the text-vec and upsample halves of the JAX package's
-``guidance/point_e.py`` (point_e ``base40M-textvec`` and ``upsample``,
-point_e/models/configs.py); the image-grid base family waits.  Module
+Port of the JAX package's ``guidance/point_e.py`` (point_e
+``base40M-textvec``, ``base40M`` / ``base300M`` / ``base1B`` and
+``upsample``, point_e/models/configs.py).  Module
 and parameter names are the upstream state dict's (``backbone.
 resblocks.N.attn.c_qkv``, ``clip_embed.0`` / ``.1`` of the upsampler, ...),
 so upstream checkpoints and the JAX package's parameters (through
@@ -18,9 +18,12 @@ so upstream checkpoints and the JAX package's parameters (through
   plain ``torch.matmul`` + softmax, as the JAX package's is plain einsum
   outside any Pallas kernel;
 * GELU (tanh) MLPs of 4x width;
-* tokens ``[clip, time, points]`` (base) or ``[time, clip grid,
-  low-res points, points]`` (upsampler), the extra tokens dropped after
-  ``ln_post``; ``output_proj`` zero-initialised, so a fresh model
+* tokens ``[clip, time, points]`` (text-vec base), ``[time, clip grid,
+  points]`` (image-grid base: the CLIP ViT-L/14 patch tokens through
+  ``clip_embed`` = LayerNorm + Linear, no sqrt(width) rescale) or
+  ``[time, clip grid, low-res points, points]`` (upsampler), the extra
+  tokens dropped after ``ln_post``; an all-zero grid is the
+  unconditional branch; ``output_proj`` zero-initialised, so a fresh model
   predicts exactly 0.
 
 The models are frozen (no parameter needs a gradient); a fresh model's
@@ -32,12 +35,11 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .convert import read_state_dict
+from .convert import load_state
 
 LN_EPS = 1e-6   # flax nn.LayerNorm's default; upstream point-e: 1e-5
 
@@ -78,6 +80,16 @@ class PointEConfig:
 BASE40M_TEXTVEC = PointEConfig()
 TINY_POINT_E = PointEConfig(n_ctx=32, width=32, layers=2, heads=2,
                             clip_feature_dim=16)
+# the image-grid base family (CLIPImageGridPointDiffusionTransformer,
+# configs.py:53-88): clip_feature_dim is the grid token width (ViT-L/14:
+# 1024 wide, 16 x 16 = 256 patch tokens)
+BASE40M_IMAGE = PointEConfig(clip_feature_dim=1024)
+BASE300M = PointEConfig(width=1024, layers=24, heads=16,
+                        clip_feature_dim=1024)
+BASE1B = PointEConfig(width=2048, layers=24, heads=32,
+                      clip_feature_dim=1024)
+TINY_POINT_E_GRID = PointEConfig(n_ctx=32, width=32, layers=2, heads=2,
+                                 clip_feature_dim=16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,12 +211,40 @@ class PointDiffusionTransformer(nn.Module):
         return self.output_proj(h[:, 2:]).transpose(1, 2)
 
 
+class PointDiffusionTransformerGrid(nn.Module):
+    """CLIPImageGridPointDiffusionTransformer (image-grid conditioning)."""
+
+    def __init__(self, cfg: PointEConfig):
+        super().__init__()
+        c = self.cfg = cfg
+        self.time_embed = PointEMLP(c.width)
+        self.clip_embed = nn.Sequential(_layer_norm(c.clip_feature_dim),
+                                        nn.Linear(c.clip_feature_dim,
+                                                  c.width))
+        self.ln_pre = _layer_norm(c.width)
+        self.backbone = PointEBackbone(c.width, c.heads, c.layers)
+        self.ln_post = _layer_norm(c.width)
+        self.input_proj = nn.Linear(c.input_channels, c.width)
+        self.output_proj = _zero_output_proj(c.width, c.output_channels)
+
+    def forward(self, x, t, embeddings):
+        """x [B, C, N]; t [B]; embeddings [B, L, D] grid tokens (zeros:
+        the unconditional branch)."""
+        c = self.cfg
+        t_embed = self.time_embed(point_e_timestep_embedding(t, c.width))
+        clip_tok = self.clip_embed(embeddings)
+        h = self.input_proj(x.transpose(1, 2))
+        h = torch.cat([t_embed[:, None], clip_tok, h], dim=1)
+        h = self.ln_post(self.backbone(self.ln_pre(h)))
+        return self.output_proj(h[:, 1 + clip_tok.shape[1]:]).transpose(1, 2)
+
+
 class PointEUpsampleTransformer(nn.Module):
     """CLIPImageGridUpsamplePointDiffusionTransformer: the base transformer
     plus a projection of the low-resolution points and a CLIP image-grid
-    token path.  The text pipeline's upsampler is unconditional, so the
-    grid is zeros here; its layers exist for the checkpoint's keys.
-    Tokens ``[t, clip grid (gs²), low_res (cond_ctx), x (n_ctx)]``."""
+    token path.  The text pipeline's upsampler is unconditional (the grid
+    is zeros); the image pipeline passes the grid.  Tokens ``[t, clip grid
+    (gs²), low_res (cond_ctx), x (n_ctx)]``."""
 
     def __init__(self, cfg: PointEUpsampleConfig):
         super().__init__()
@@ -220,9 +260,10 @@ class PointEUpsampleTransformer(nn.Module):
         self.input_proj = nn.Linear(c.input_channels, c.width)
         self.output_proj = _zero_output_proj(c.width, c.output_channels)
 
-    def forward(self, x, t, low_res):
+    def forward(self, x, t, low_res, embeddings=None):
         """x [B, C, n_ctx]; t [B]; low_res [B, C, cond_ctx] in raw
-        (unscaled) space, scaled here."""
+        (unscaled) space, scaled here; embeddings [B, grid_feature_dim,
+        gs²] channels first, as upstream (None: zeros)."""
         c = self.cfg
         B = x.shape[0]
         t_embed = self.time_embed(point_e_timestep_embedding(t, c.width))
@@ -231,8 +272,11 @@ class PointEUpsampleTransformer(nn.Module):
         biases = low_res.new_tensor(POINT_E_CHANNEL_BIASES[:C])
         lr = low_res * scales[None, :, None] + biases[None, :, None]
         lr_tok = self.cond_point_proj(lr.transpose(1, 2))
-        grid = torch.zeros(B, c.grid_size ** 2, c.grid_feature_dim,
-                           dtype=x.dtype, device=x.device)
+        if embeddings is None:
+            grid = torch.zeros(B, c.grid_size ** 2, c.grid_feature_dim,
+                               dtype=x.dtype, device=x.device)
+        else:
+            grid = embeddings.transpose(1, 2)
         clip_tok = self.clip_embed(grid)
         h = self.input_proj(x.transpose(1, 2))
         n_extra = 1 + clip_tok.shape[1] + lr_tok.shape[1]
@@ -255,15 +299,6 @@ def _init_frozen(module: nn.Module, seed: int, device) -> nn.Module:
     return module.requires_grad_(False).eval().to(device)
 
 
-def _load(module: nn.Module, path_or_state, drop) -> None:
-    """Fill ``module`` from an upstream state dict (or a file of one),
-    without the keys ``drop(key)`` selects; every other key must match."""
-    state = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
-             for k, v in read_state_dict(path_or_state).items()
-             if not drop(k)}
-    module.load_state_dict(state, strict=True)
-
-
 class PointEModel:
     """The text-vec base model with the sampler's ``apply`` and the
     auxiliary guidance's ``predict_noise``; its tensors live on
@@ -279,7 +314,8 @@ class PointEModel:
         """Fill from a point-e state dict (a dict, or a ``.pt`` file).  The
         frozen CLIP tower inside the upstream module (``clip.*`` keys) is
         not part of the model here: the text vector arrives computed."""
-        _load(self.module, path_or_state, lambda k: k.startswith("clip."))
+        load_state(self.module, path_or_state,
+                   lambda k: k.startswith("clip."))
         return self
 
     def apply(self, x, t, cond=None):
@@ -297,6 +333,34 @@ class PointEModel:
         return self.module(x, t, cond)
 
 
+class PointEImageGridModel:
+    """An image-grid base model (base40M / base300M / base1B) with the
+    sampler's ``apply``; ``cond`` is the [B, L, D] CLIP grid of
+    :meth:`..prompt.clip_vision.CLIPImageEncoder.encode_grid`."""
+
+    def __init__(self, cfg: PointEConfig = TINY_POINT_E_GRID, device="cuda",
+                 seed: int = 0, grid_tokens: int = 256):
+        self.cfg = cfg
+        self.grid_tokens = grid_tokens
+        self.module = _init_frozen(PointDiffusionTransformerGrid(cfg), seed,
+                                   device)
+
+    def load_weights(self, path_or_state) -> "PointEImageGridModel":
+        """As :meth:`PointEModel.load_weights` (the ``clip.*`` tower keys
+        are dropped: the grid arrives computed)."""
+        load_state(self.module, path_or_state,
+                   lambda k: k.startswith("clip."))
+        return self
+
+    def apply(self, x, t, cond=None):
+        """[B, C, N] x, [B] t, [B, L, D] cond (None: zeros) -> [B, 2C, N]."""
+        if cond is None:
+            cond = torch.zeros(x.shape[0], self.grid_tokens,
+                               self.cfg.clip_feature_dim, dtype=x.dtype,
+                               device=x.device)
+        return self.module(x, t, cond)
+
+
 class PointEUpsamplerModel:
     """The upsample stage, beside :class:`PointEModel`."""
 
@@ -309,10 +373,10 @@ class PointEUpsamplerModel:
     def load_weights(self, path_or_state) -> "PointEUpsamplerModel":
         """As :meth:`PointEModel.load_weights`; the channel scale and bias
         buffers of the upstream module are constants here."""
-        _load(self.module, path_or_state,
-              lambda k: k.startswith("clip.") or k in ("channel_scales",
-                                                       "channel_biases"))
+        load_state(self.module, path_or_state,
+                   lambda k: k.startswith("clip.") or k in (
+                       "channel_scales", "channel_biases"))
         return self
 
-    def apply(self, x, t, low_res):
-        return self.module(x, t, low_res)
+    def apply(self, x, t, low_res, embeddings=None):
+        return self.module(x, t, low_res, embeddings)

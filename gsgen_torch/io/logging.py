@@ -7,7 +7,8 @@ code snapshot (``code_snapshot.tar.gz`` of the git-tracked files).
 
 Images are written by the port's own PNG writer (:func:`write_png`,
 ``zlib`` and ``struct`` of the standard library), so eval images exist on
-every machine.  TensorBoard event files go to ``logs/`` where
+every machine; :func:`read_png` reads the image-to-3D input the same way
+(8-bit grey, grey + alpha, RGB or RGBA, any of the five row filters).  TensorBoard event files go to ``logs/`` where
 ``torch.utils.tensorboard`` imports, as in the JAX package.  Orbit videos
 need ``imageio``: where it is missing, the frames are written as PNGs under
 ``eval/<name>_<step>/`` instead, and one printed line says which form was
@@ -54,6 +55,91 @@ def write_png(path, img: np.ndarray) -> str:
            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
     Path(path).write_bytes(png)
     return str(path)
+
+
+# magic numbers of the image files read_png refuses by name
+_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"RIFF", "RIFF (WebP?)"))
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # colour type -> samples
+_PNG_COLOUR_NAMES = {3: "palette"}
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth) of ``h`` rows of ``stride`` bytes -> [h, stride] uint8."""
+    rows = np.frombuffer(data, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ft, line = int(rows[y, 0]), rows[y, 1:]
+        if ft == 0:
+            cur = line.copy()
+        elif ft == 1:
+            # Sub: a running sum mod 256 along each byte lane of the pixel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint64).astype(np.uint8).reshape(-1)
+        elif ft == 2:
+            cur = line + prev
+        elif ft in (3, 4):
+            cur = bytearray(line.tobytes())
+            up = prev.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ft == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                    continue
+                c = up[i - bpp] if i >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ft}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def read_png(path) -> np.ndarray:
+    """An 8-bit non-interlaced PNG -> uint8 [H, W] (grey), [H, W, 2] (grey
+    + alpha), [H, W, 3] (RGB) or [H, W, 4] (RGBA), as ``imageio`` gives
+    them.  Another file type, a palette image, another bit depth or an
+    interlaced PNG raises a ``ValueError`` that names it."""
+    blob = Path(path).read_bytes()
+    if blob[:8] != b"\x89PNG\r\n\x1a\n":
+        kind = next((name for magic, name in _OTHER_FORMATS
+                     if blob.startswith(magic)), "not an image file we know")
+        raise ValueError(f"{path}: {kind}; read_png reads PNG only")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(blob):
+        (n,) = struct.unpack(">I", blob[pos:pos + 4])
+        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: PNG without an IHDR chunk")
+    w, h, depth, colour, _, _, interlace = ihdr
+    if colour not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {colour} ("
+                         f"{_PNG_COLOUR_NAMES.get(colour, 'unknown')}); "
+                         "read_png reads grey, grey + alpha, RGB and RGBA")
+    if depth != 8:
+        raise ValueError(f"{path}: PNG of bit depth {depth}; read_png "
+                         "reads 8-bit samples")
+    if interlace:
+        raise ValueError(f"{path}: an interlaced (Adam7) PNG; read_png "
+                         "reads non-interlaced ones")
+    c = _PNG_CHANNELS[colour]
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
+    return img.reshape(h, w) if c == 1 else img.reshape(h, w, c)
 
 
 class RunLogger:

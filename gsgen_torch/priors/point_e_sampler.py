@@ -1,4 +1,4 @@
-"""Point-E text -> point-cloud diffusion sampler (two stages, Karras sigmas,
+"""Point-E point-cloud diffusion sampler (two stages, Karras sigmas,
 Heun steps with churn, classifier-free guidance on the x0 prediction).
 
 Port of the JAX package's ``priors/point_e_sampler.py`` (reference
@@ -182,14 +182,19 @@ class PointESamplerConfig:
     sigma_max: Tuple[float, float] = (120.0, 160.0)
     s_churn: Tuple[float, float] = (3.0, 0.0)
     schedules: Tuple[str, str] = ("cosine", "linear")
+    # the image pipeline (utils/point_e_helper.py:85-92): the upsampler
+    # also takes the CLIP grid and runs CFG 3.0; the text pipeline leaves
+    # it unconditional and unguided
+    up_guidance_scale: float = 0.0
+    up_cond: bool = False
 
 
 class PointESampler:
-    """Two-stage text -> coloured point cloud sampler: ``base_model`` a
-    :class:`..guidance.point_e.PointEModel`, ``upsampler`` a
-    :class:`..guidance.point_e.PointEUpsamplerModel` or None (the base
-    stage only).  The text pipeline's upsampler is unconditional and
-    unguided."""
+    """Two-stage point-cloud sampler: ``base_model`` a
+    :class:`..guidance.point_e.PointEModel` (text vector) or
+    :class:`..guidance.point_e.PointEImageGridModel` (CLIP grid),
+    ``upsampler`` a :class:`..guidance.point_e.PointEUpsamplerModel` or
+    None (the base stage only)."""
 
     def __init__(self, base_model, upsampler=None,
                  cfg: PointESamplerConfig = PointESamplerConfig()):
@@ -202,19 +207,24 @@ class PointESampler:
             cfg.karras_steps[0], cfg.sigma_min[0], cfg.sigma_max[0],
             cfg.s_churn[0], cfg.guidance_scale, cfg.schedules[0])
         if upsampler is not None:
+            # the sampler's grid is [B, L, D]; the upsampler takes it
+            # channels first, as upstream (transformer.py:493)
             self._sample_up, self._smax1 = make_stage_sampler(
-                lambda x, t, cond=None, low_res=None:
-                    upsampler.apply(x, t, low_res),
+                lambda x, t, cond=None, low_res=None: upsampler.apply(
+                    x, t, low_res, None if cond is None
+                    else cond.transpose(1, 2)),
                 cfg.karras_steps[1], cfg.sigma_min[1], cfg.sigma_max[1],
-                cfg.s_churn[1], 0.0, cfg.schedules[1])
+                cfg.s_churn[1], cfg.up_guidance_scale, cfg.schedules[1])
 
     @torch.no_grad()
     def sample(self, textvec: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """-> [B, C, N] in raw space (xyz, RGB in [0, 255]): the base
-        cloud, then the upsampled points.  ``textvec`` [B, F] (None: one
-        cloud on a zero vector); every draw comes from ``generator``, which
-        lives on the models' device."""
+        cloud, then the upsampled points.  ``textvec`` [B, F] text vectors
+        or [B, L, D] CLIP grids (None: one cloud on a zero text vector);
+        under CFG the unconditional rows are zeros of the same shape.  The
+        upsampler gets the grids too where ``cfg.up_cond``.  Every draw
+        comes from ``generator``, which lives on the models' device."""
         dev = next(self.base.module.parameters()).device
         C = self.base.cfg.input_channels
         if textvec is None:
@@ -231,7 +241,9 @@ class PointESampler:
             return base
         x_T = torch.randn(B, C, self.up.cfg.n_ctx,
                           generator=generator, device=dev) * self._smax1
-        up = _unscale(self._sample_up(x_T, None, base, generator=generator))
+        up = _unscale(self._sample_up(
+            x_T, cond2 if self.cfg.up_cond else None, base,
+            generator=generator))
         return torch.cat([base, up], dim=-1)
 
     def sample_to_cloud(self, textvec=None,

@@ -2,9 +2,10 @@
 
 Port of the JAX package's ``training/losses.py``: the seven penalties over
 the masked fixed-capacity scene (``alpha``, ``mean``, ``scale``, ``NN``,
-``compat``, ``move``, ``specular``; ``trainer.penalty.<name>``), and the
-SSIM + L1/L2 image loss of the upsample fine-tune (``ssim`` and
-``image_loss``).  :func:`penalty` passes each penalty its keywords.
+``compat``, ``move``, ``specular``; ``trainer.penalty.<name>``), the
+SSIM + L1/L2 image loss of the upsample fine-tune and of image-to-3D's
+original view (``ssim``, ``image_loss``), and the Pearson depth loss of
+image-to-3D and the depth estimator (``pearson_depth_loss``).  :func:`penalty` passes each penalty its keywords.
 """
 
 from __future__ import annotations
@@ -169,3 +170,15 @@ def image_loss(pred: torch.Tensor, target: torch.Tensor,
         photo = torch.mean((pred - target) ** 2)
     return (ssim_weight * (1.0 - ssim(pred, target))
             + (1.0 - ssim_weight) * photo)
+
+
+def pearson_depth_loss(pred: torch.Tensor, target: torch.Tensor
+                       ) -> torch.Tensor:
+    """``1 - corr(pred, target)`` of two depth maps (utils/loss.py:61-67),
+    with 1e-8 added to the product of the centred norms."""
+    p = pred.reshape(-1)
+    t = target.reshape(-1)
+    p = p - p.mean()
+    t = t - t.mean()
+    denom = torch.linalg.norm(p) * torch.linalg.norm(t) + 1e-8
+    return 1.0 - torch.dot(p, t) / denom

@@ -34,7 +34,21 @@ the guidance at a fixed pose (``eval/guidance_sample``,
 ``torch.profiler`` trace of steps a to b - 1 under the run directory's
 ``profile/`` (:func:`..utils.profiling.trace`).
 
-Not ported yet (``NotImplementedError``): estimators, image-to-3D.
+Image-to-3D (:mod:`.sit3d`): with an ``image_target``, a batch that
+carries ``is_original`` adds ``w_image · loss_image + w_depth ·
+loss_depth`` of its original views; a ``grad_mask`` [capacity] zeroes the
+gradient of its rows before Adam while ``mask_steps`` (start, end)
+holds the step, so those rows' moments stay 0 and their parameters stay
+bitwise as they were.  The mask is indexed by scene row, through density
+events too, as the JAX package indexes it.  The ``estimators`` (only the
+``enabled`` ones; ``depth`` and ``normal``, each a DPT checkpoint,
+:mod:`..priors.dpt`) run on every render: ``depth`` adds ``w_est_depth``
+x (1 - Pearson) of DPT's depth against the rendered depth, ``normal`` the
+MSE of DPT's normal against the rendered normal (it turns
+``render_normal`` on: 8 composited features).  The gradient flows back
+through DPT into the render.
+
+Not ported: tile-sharded rendering (``tile_mesh``).
 """
 
 from __future__ import annotations
@@ -58,8 +72,9 @@ from ..models.scene import (FIELDS, OPTIONAL_FIELDS, RenderConfig,
                             render_batch, scene_from_numpy)
 from ..ops.camera import get_rays_d
 from ..utils.schedule import C, make_lr_schedule
-from .losses import PENALTIES, penalty
+from .losses import PENALTIES, pearson_depth_loss, penalty
 from .optimizer import AdamState, adam_init, adam_update
+from .sit3d import ImageTarget, sit3d_losses
 
 
 @dataclasses.dataclass
@@ -197,9 +212,13 @@ class Trainer:
                  init_raw: Optional[Dict[str, np.ndarray]] = None,
                  prompt_processor: Optional[Any] = None,
                  aux_guidance: Optional[Any] = None,
+                 image_target: Optional[ImageTarget] = None,
+                 grad_mask: Optional[torch.Tensor] = None,
+                 mask_steps: tuple = (-1, -1),
+                 estimators: Optional[Dict[str, Any]] = None,
                  device="cuda", logger: Optional[Any] = None):
-        if cfg.estimators:
-            raise NotImplementedError("estimators")
+        """``estimators`` (name -> :class:`..priors.dpt.DPTEstimator`)
+        replace the ones ``cfg.estimators`` would load."""
         for name in cfg.penalty:
             if name not in PENALTIES:
                 raise NotImplementedError(f"penalty {name}")
@@ -212,7 +231,17 @@ class Trainer:
         self.guidance = guidance or MockGuidance()
         self.prompt_processor = prompt_processor
         self.aux_guidance = aux_guidance
+        self.image_target = image_target
+        self.grad_mask = grad_mask
+        self.mask_steps = tuple(mask_steps)
         self.logger = logger
+        if estimators is None:
+            estimators = {name: self._load_estimator(name, d)
+                          for name, d in cfg.estimators.items()
+                          if d.get("enabled", False)}
+        self.estimators = estimators
+        if "normal" in estimators and not rcfg.render_normal:
+            self.rcfg = rcfg = dataclasses.replace(rcfg, render_normal=True)
         self.data = CameraPoseProvider(data_cfg, seed=cfg.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
@@ -231,6 +260,16 @@ class Trainer:
         self.dup_bucket = rcfg.dup_cap
         self._shrink_streak = 0
         self._prev_mean = None
+
+    def _load_estimator(self, name: str, d: Dict):
+        from ..priors.dpt import DPTEstimator
+        if name not in ("depth", "normal"):
+            raise ValueError(f"estimators.{name}: depth or normal")
+        if not d.get("checkpoint"):
+            raise ValueError(f"estimators.{name}.checkpoint required (an "
+                             "omnidata .ckpt, priors/dpt.py)")
+        return DPTEstimator.from_checkpoint(d["checkpoint"], mode=name,
+                                            device=self.device)
 
     def load(self, ckpt_path) -> int:
         """Resume from a checkpoint of either package (a ``step_N`` dir, or
@@ -257,8 +296,17 @@ class Trainer:
             s[f"w_pen_{name}"] = c(p["value"])
         if hasattr(self.guidance, "sched_scalars"):
             s.update(self.guidance.sched_scalars(step, self.cfg.max_steps))
+        if self.image_target is not None:
+            s["w_image"] = c(self.cfg.loss.image)
+            s["w_depth"] = c(self.cfg.loss.depth)
         if self.aux_guidance is not None:
             s["w_aux"] = c(self.cfg.loss.aux_guidance)
+        for name in self.estimators:
+            s[f"w_est_{name}"] = c(
+                self.cfg.estimators.get(name, {}).get("value", 1.0))
+        ms, me = self.mask_steps
+        s["grad_mask_on"] = 1.0 if (self.grad_mask is not None
+                                    and ms <= step <= me) else 0.0
         return s
 
     def _effective_rcfg(self) -> RenderConfig:
@@ -300,6 +348,11 @@ class Trainer:
         if "loss_lora" in g:
             loss = loss + sched["w_lora"] * g["loss_lora"]
         metrics = dict(g)
+        if self.image_target is not None and "is_original" in batch:
+            sl = sit3d_losses(outs, batch, self.image_target)
+            loss = (loss + sched["w_image"] * sl["loss_image"]
+                    + sched["w_depth"] * sl["loss_depth"])
+            metrics.update(sl)
         if self.aux_guidance is not None:
             col = activate(params, rcfg)[3]
             ag = self.aux_guidance.loss(
@@ -308,6 +361,20 @@ class Trainer:
                 generator=self.generator)
             loss = loss + sched["w_aux"] * ag["loss_aux"]
             metrics.update(ag)
+        for name, est in self.estimators.items():
+            # reference estimator_loss_step (trainer.py:424-456)
+            pred = est.estimate(outs["rgb"])
+            if name == "depth":
+                depth = outs["depth"].reshape(pred.shape[:3])
+                est_loss = torch.mean(torch.stack([
+                    pearson_depth_loss(p, d)
+                    for p, d in zip(pred[..., 0], depth)]))
+            else:
+                nrm = outs["normal"].reshape(pred.shape)
+                est_loss = torch.mean((nrm - torch.clamp(pred, 0.0, 1.0))
+                                      ** 2)
+            loss = loss + sched[f"w_est_{name}"] * est_loss
+            metrics[f"loss_est_{name}"] = est_loss
         if not cfg.rgb_only:
             opacity = outs["opacity"]
             sparsity = torch.mean(torch.sqrt(opacity ** 2 + 0.01))
@@ -362,6 +429,14 @@ class Trainer:
                 vis_list.append(outs["visible"])
                 radii_list.append(outs["radii2d"].detach())
         grads = {k: v / A for k, v in gsum.items()}
+        if self.grad_mask is not None:
+            # freeze the masked rows while the window is on
+            # (register_mask, gs/gaussian_splatting.py:341-366)
+            keep = 1.0 - sched["grad_mask_on"] * self.grad_mask.to(
+                torch.float32)
+            for k in scene.params:
+                grads[k] = grads[k] * keep.reshape(
+                    (-1,) + (1,) * (grads[k].dim() - 1))
         lrs = {k: sched.get(f"lr_{k}", sched["lr_color"])
                if k in OPTIONAL_FIELDS else sched[f"lr_{k}"]
                for k in scene.params}

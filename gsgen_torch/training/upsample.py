@@ -25,6 +25,7 @@ import torch
 
 from ..models.scene import render_batch
 from ..ops.camera import CameraIntrinsics
+from ..utils.resize import resize
 from .losses import image_loss
 from .optimizer import adam_init, adam_update
 
@@ -45,35 +46,10 @@ class UpsampleTuneConfig:
     densify_compactness: bool = False
 
 
-def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """[n_in, n_out] float32 weights of ``jax.image.resize(..., "cubic")``
-    along one axis: the Keys kernel with a = -0.5 at half-pixel centres,
-    each output's weights renormalised to sum to 1 (taps outside the image
-    drop out, so the border is not clamped), 0 for an output centre
-    outside the input."""
-    f32 = dict(dtype=torch.float32, device=device)
-    inv_scale = 1.0 / torch.tensor(n_out / n_in, **f32)
-    sample = (torch.arange(n_out, **f32) + 0.5) * inv_scale - 0.5
-    x = torch.abs(sample[None, :] - torch.arange(n_in, **f32)[:, None])
-    w = ((1.5 * x - 2.5) * x) * x + 1.0
-    w = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
-    w = torch.where(x >= 2.0, torch.zeros_like(w), w)
-    total = torch.sum(w, dim=0, keepdim=True)
-    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
-
-
 def bicubic_upsample(rgb: torch.Tensor, reso: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, reso, reso, C] as ``jax.image.resize(rgb, (B,
-    reso, reso, C), "cubic")``: a separable product with
-    :func:`_cubic_weights` along H and W (``interpolate(mode="bicubic")``
-    uses a = -0.75 and clamps at the border, so it is not used)."""
-    wh = _cubic_weights(rgb.shape[1], reso, rgb.device)
-    ww = _cubic_weights(rgb.shape[2], reso, rgb.device)
-    return torch.einsum("bhwc,hy,wx->byxc", rgb, wh, ww)
+    reso, reso, C), "cubic")`` (:func:`..utils.resize.resize`)."""
+    return resize(rgb, (reso, reso), "cubic")
 
 
 def make_diffusion_upsampler(trainer, reso: int,

@@ -2,7 +2,7 @@
 estimation and the Gaussian surface distance.
 
 Port of the JAX package's ``utils/ops.py`` (``pairwise_sqdist``, ``knn``,
-``knn_self``, ``farthest_point_sampling``, ``estimate_pointcloud_normals``,
+``knn_self``, ``mean_knn_sqdist``, ``farthest_point_sampling``, ``estimate_pointcloud_normals``,
 ``distance_to_gaussian_surface``), what the compactness densify, the
 penalties, the normals and the Point-E auxiliary guidance need.  Three
 differences of form, none of result:
@@ -95,6 +95,15 @@ def knn_self(points: torch.Tensor, k: int,
     """KNN without the first match (the point itself, or its tie)."""
     d, i = knn(points, points, k + 1, mask)
     return d[:, 1:], i[:, 1:]
+
+
+def mean_knn_sqdist(points: torch.Tensor, k: int = 3,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean squared distance to the ``k`` nearest neighbours [N] (the
+    reference's ``cov_init``, gs/initialize.py:5-22, which feeds faiss's
+    squared distances in as scales)."""
+    d, _ = knn_self(points, k, mask)
+    return torch.mean(d, dim=-1)
 
 
 def farthest_point_sampling(points: torch.Tensor, n_samples: int,

@@ -686,3 +686,76 @@ def test_point_e_aux_loss_on_card_matches_cpu(cuda):
     assert float(g_c.abs().max()) > 0
     np.testing.assert_allclose(g_d.numpy(), g_c.numpy(), rtol=0,
                                atol=1e-4 * float(g_c.abs().max()))
+
+
+def _seeded_state(module, seed):
+    """A state dict of ``module``'s names: weights ~ N(0, 1/fan_in), norm
+    scales 1 + N(0, 0.1²), biases and embeddings N(0, 0.1²) (transformers'
+    ``position_ids`` buffers left out)."""
+    import math
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in module.state_dict().items():
+        if "position_ids" in k:
+            continue
+        n = torch.randn(v.shape, generator=g)
+        if v.dim() >= 2 and "embedding" not in k and \
+                not k.endswith(("cls_token", "pos_embed")):
+            sd[k] = n / math.sqrt(v[0].numel())
+        elif "norm" in k and k.endswith("weight"):
+            sd[k] = 1.0 + 0.1 * n
+        else:
+            sd[k] = 0.1 * n
+    return sd
+
+
+def test_dpt_full_width_forward_on_card(cuda):
+    """DPT-hybrid (vitb_rn50_384) at 384², the card against the CPU from
+    one state dict: within 1e-3 of the output's largest value (a 50-layer
+    ResNet stem and 12 ViT blocks of fp32 sums in another order)."""
+    from gsgen_torch.priors.dpt import DPTConfig, DPTHybrid, load_dpt
+    sd = _seeded_state(DPTHybrid(DPTConfig()), 11)
+    sd["scratch.output_conv.4.weight"] *= 0.1
+    sd["scratch.output_conv.4.bias"] += 0.8
+    x = torch.rand(1, 384, 384, 3, generator=torch.Generator().manual_seed(
+        1)) * 2.0 - 1.0
+    with torch.no_grad():
+        want = load_dpt(sd, device="cpu")(x)
+        got = load_dpt(sd, device=cuda)(x.to(cuda)).cpu()
+    assert got.shape == (1, 384, 384, 1)
+    assert float((want > 0).float().mean()) > 0.5
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+def test_vit_l14_grid_on_card(cuda):
+    """CLIP ViT-L/14's patch grid (Point-E's image conditioning) of a 378²
+    image, the card against the CPU: within 1e-4 of the largest value."""
+    from gsgen_torch.prompt.clip_vision import (VIT_L14, CLIPImageEncoder,
+                                                CLIPVisionModelWithProjection)
+    sd = _seeded_state(CLIPVisionModelWithProjection(VIT_L14, 768), 12)
+    img = torch.rand(1, 378, 378, 3, generator=torch.Generator().manual_seed(
+        2))
+    with torch.no_grad():
+        want = CLIPImageEncoder.from_state_dict(
+            sd, VIT_L14, 768, device="cpu").encode_grid(img)
+        got = CLIPImageEncoder.from_state_dict(
+            sd, VIT_L14, 768, device=cuda).encode_grid(img.to(cuda)).cpu()
+    assert got.shape == (1, 256, 1024)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("method", ["cubic", "bilinear"])
+def test_jax_style_resize_on_card(cuda, method):
+    """utils/resize.py (jax.image.resize's antialiased weights) on the
+    card against the CPU: 378² -> 224² and 24x30 -> 50x17, within 1e-6."""
+    from gsgen_torch.utils.resize import resize
+    g = torch.Generator().manual_seed(3)
+    for src, dst in (((2, 378, 378, 3), (2, 224, 224, 3)),
+                     ((2, 24, 30, 3), (2, 50, 17, 3))):
+        x = torch.rand(src, generator=g)
+        want = resize(x, dst[1:3], method)
+        got = resize(x.to(cuda), dst[1:3], method).cpu()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6)

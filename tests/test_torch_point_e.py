@@ -463,12 +463,13 @@ def test_config_auxiliary_block(asset_dir):
     assert tr.aux_guidance.cfg.guidance_scale == 100.0
     assert tr.sched_scalars(0)["w_aux"] == 0.01
     for bad in (["auxiliary.clip_model_id=/nowhere/clip"],
-                ["auxiliary.type=shap_e"], ["image.path=/nowhere/a.png"]):
+                ["auxiliary.type=shap_e"]):
         with pytest.raises(NotImplementedError):
             build_trainer(load_config(CORGI, SMALL + bad), device="cpu")
-    with pytest.raises(FileNotFoundError):
-        build_trainer(load_config(CORGI, SMALL + ["init.type=point_e"]),
-                      device="cpu")
+    # the image-to-3D block is ported: a missing image file raises
+    for bad in (["init.type=point_e"], ["image.path=/nowhere/a.png"]):
+        with pytest.raises(FileNotFoundError):
+            build_trainer(load_config(CORGI, SMALL + bad), device="cpu")
     with pytest.raises(NotImplementedError, match="init_asset"):
         build_trainer(load_config(CORGI, SMALL + ["init.type=point_cloud"]),
                       device="cpu")
