@@ -165,6 +165,30 @@ Phases, each reported on its own line:
    (64 + 64 Karras steps at CFG 3), then a cache hit; (e) Make-It-3D at
    full width (random ViT-B/16 on the SD 2.1 bf16 backbone, 4 views at
    378^2, 2 original): loss_sds + loss_clip, the rgb gradient, ms;
+16. weights from model directories (random weights written by the script
+   as safetensors with a writer of its own, read back by the port's
+   reader; token ids made by the script, no tokenizer): (a) a random SD
+   1.5 diffusers directory (unet/ fp16, vae/ fp32, text_encoder/ the
+   ViT-L/14 text tower fp32), every tensor read back bitwise, and
+   base.yaml + guidance/sd.yaml + prompt/sd.yaml through
+   guidance.weights_path (512^2, batch 4, bf16, padded, fused attention
+   "auto") for 3 steps on that tower's prompt embeddings, the backbone's
+   weights bitwise the file's in bf16, K5 5 a step; its first view
+   through K1-K4 and the step's own K5 q, k, v [8, 4096, 8, 40] against
+   their plain versions; one step profiled (render, vae, unet, other);
+   K5 timed at that shape and at the two shapes fused_attention "on"
+   sends to it ([8, 1024, 8, 80], [8, 256, 8, 160]), each against the
+   plain version and SDPA; (b) the T5 v1.1 XXL encoder (4096 wide, 24
+   layers, random fp32 weights made on the card) on [10, 77] ids with a
+   padding mask as the prompt encoder of guidance/if.yaml (IF_PIXEL) for
+   2 steps, its encode ms and peak memory; (c) BERT-base from a written
+   safetensors directory as the fill-mask probe of the prompt
+   processor's debiasing, the per-view prompts and the probe's ms; (d)
+   init.type point_cloud (a .ply), mesh (an .obj icosphere) and shap_e
+   (a full-width random text300M: 64 Karras steps at CFG 15 on the
+   projected text vector of (a)'s tower, decoded at grid 128 by a random
+   vector decoder), each with its init seconds, then 2 mock steps at
+   capacity 65,536;
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -1471,6 +1495,14 @@ def run(torch) -> int:
                          card, check_recorded)
     torch.cuda.empty_cache()
 
+    # ---- phase 16: weights from model directories ----
+    weights = weights_phases(torch, dev, build_trainer, load_config,
+                             wrappers, card, check_recorded, graph_ms,
+                             time_ms)
+    sampling["k5_launches"]["16 a sd15 sds steps"] = \
+        weights["a"]["launches"]["flash_attn_fwd"]
+    torch.cuda.empty_cache()
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1531,6 +1563,7 @@ def run(torch) -> int:
         fp32_b4_library_ms=sdpa_fp32["b4"],
         fp32_bound_ms=1e3 * flash_ops / PEAK_3XTF32_FLOPS,
         if2_fp32=if2_times, path_launches=sampling["k5_launches"],
+        sd15=weights["k5"],
         design="bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
                "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
                "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double buffer"))
@@ -1567,6 +1600,8 @@ def run(torch) -> int:
                       "vsd_profile": vsd_profile, "outputs": outputs,
                       "point_e": point_e, "render_extras": extras,
                       "sampling": sampling, "image": image,
+                      "weights": {k: v for k, v in weights.items()
+                                  if k != "k5"},
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -3685,6 +3720,581 @@ def image_phases(torch, dev, build_trainer, load_config, wrappers, card,
               f"{d2['ms'] / 1e3:.3f} s", flush=True)
         del tr
         torch.cuda.empty_cache()
+    finally:
+        if old_assets is None:
+            os.environ.pop("GSGEN_ASSET_DIR", None)
+        else:
+            os.environ["GSGEN_ASSET_DIR"] = old_assets
+        shutil.rmtree(folder, ignore_errors=True)
+    return res
+
+
+# phase 16: weights from model directories
+SD15_CONFIGS = ["base.yaml", "guidance/sd.yaml", "prompt/sd.yaml"]
+SD15_ATTN = (8, 4096, 8, 40)    # SD 1.5 level 0 under "auto" (CFG batch 8)
+# the self-attention levels fused_attention "on" also sends to K5 (L % 128
+# == 0); the mid block's [8, 64, 8, 160] is not eligible in either package
+SD15_ON_ATTN = {"level 1": (8, 1024, 8, 80), "level 2": (8, 256, 8, 160)}
+SAFETENSORS_CODES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16",
+                     "int64": "I64", "int32": "I32"}
+T5_PAD, T5_EOS = 0, 1
+BERT_CLS, BERT_SEP, BERT_MASK = 101, 102, 103
+BERT_VIEW_IDS = (2217, 2392, 2067, 8964)   # the script's side/front/back/
+SHAP_E_PROMPT = "a shap-e corgi"           # overhead word ids
+
+
+def write_safetensors(torch, path, tensors):
+    """A ``.safetensors`` file (the card's machine has no safetensors
+    package): an 8-byte header length, the JSON header padded to 8 bytes,
+    then each tensor's bytes in order."""
+    header, at = {}, 0
+    for name, v in tensors.items():
+        n = v.numel() * v.element_size()
+        header[name] = {"dtype": SAFETENSORS_CODES[str(v.dtype)[6:]],
+                        "shape": list(v.shape), "data_offsets": [at, at + n]}
+        at += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for v in tensors.values():
+            f.write(v.detach().cpu().contiguous().view(torch.uint8)
+                    .numpy().tobytes())
+
+
+def word_ids(texts, lo, hi, length, start=None, end=None, pad=0,
+             middle=None):
+    """Token ids without a tokenizer: ``start``, one id a word (from the
+    word's md5, in [lo, hi)), ``end``, then ``pad`` up to ``length``; each
+    text may be wrapped as ``middle(words) -> ids``.  Returns (ids,
+    mask) numpy arrays; the mask marks every id before the padding."""
+    import hashlib
+
+    import numpy as np
+    ids = np.full((len(texts), length), pad, np.int64)
+    mask = np.zeros((len(texts), length), bool)
+    for i, t in enumerate(texts):
+        words = [lo + int(hashlib.md5(w.encode()).hexdigest()[:8], 16)
+                 % (hi - lo) for w in t.split()]
+        body = middle(words) if middle else words
+        head = [] if start is None else [start]
+        tail = [] if end is None else [end]
+        row = (head + body)[:length - len(tail)] + tail
+        ids[i, :len(row)] = row
+        mask[i, :len(row)] = True
+    return ids, mask
+
+
+def sd15_directory(torch, folder, dev):
+    """A random SD 1.5 diffusers directory: unet/ in fp16, vae/ in fp32,
+    text_encoder/ the ViT-L/14 text tower in fp32 (config.json beside),
+    and clip_textvec/: the same tower with a text_projection (Point-E's
+    and Shap-E's text vector).  Returns the tensors written."""
+    from gsgen_torch.guidance.sd_unet import SD15, SDUNetBackbone
+    from gsgen_torch.prompt import clip
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    bb = SDUNetBackbone(SD15, latent_size=64, device=dev, generator=gen)
+    written = {}
+    for name, dt in (("unet", torch.float16), ("vae", torch.float32)):
+        written[name] = {k: v.to(dt).cpu() for k, v in
+                         getattr(bb, name).state_dict().items()}
+        write_safetensors(torch, folder / name /
+                          "diffusion_pytorch_model.safetensors",
+                          written[name])
+    del bb
+    c = clip.SD15_TEXT
+    hf = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+              intermediate_size=c.intermediate_size,
+              num_hidden_layers=c.num_hidden_layers,
+              num_attention_heads=c.num_attention_heads,
+              max_position_embeddings=c.max_position_embeddings,
+              hidden_act=c.hidden_act)
+    text = seeded_state(torch, clip.CLIPTextModel(c), 41)
+    written["text_encoder"] = text
+    for sub, arch, extra in (
+            ("text_encoder", "CLIPTextModel", {}),
+            ("clip_textvec/text_encoder", "CLIPTextModelWithProjection",
+             {"text_projection.weight": torch.randn(
+                 768, 768, generator=torch.Generator().manual_seed(42))
+              / math.sqrt(768)})):
+        write_safetensors(torch, folder / sub / "model.safetensors",
+                          {**text, **extra})
+        (folder / sub / "config.json").write_text(json.dumps(dict(
+            hf, architectures=[arch], projection_dim=768)))
+    return written
+
+
+def k5_row(torch, q, k, v, graph_ms, time_ms):
+    """K5 on [B, L, H, D] bf16 inputs against its plain version (within
+    FLASH_TOL of the plain output's largest value), then its device time
+    (a CUDA graph of 50 calls), SDPA's the same way on [B, H, L, D] views,
+    the plain version's (host loop, 3 calls) and the bound: the larger of
+    4·B·H·L²·D operations at 989 TFLOP/s and q, k, v read and the output
+    written once at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from gsgen_torch.ops import flash_attention as fa
+    B, L, H, D = q.shape
+    scale = D ** -0.5
+    got = fa.flash_self_attention(q, k, v, scale).float()
+    want = fa.flash_self_attention_plain(q, k, v, scale).float()
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    del got, want
+    tol = FLASH_TOL["bfloat16"] * top
+    require(err <= tol, f"K5 {[B, L, H, D]}: max abs err "
+            f"{err:.3e} above {tol:.3e}")
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    ops = 4.0 * B * H * L * L * D
+    b_ms = 1e3 * 4 * B * L * H * D * q.element_size() / PEAK_BYTES
+    o_ms = 1e3 * ops / PEAK_BF16_FLOPS
+    ms = graph_ms(lambda: fa.flash_self_attention(q, k, v, scale))
+    bound = max(b_ms, o_ms)
+    return dict(shape=[B, L, H, D], dtype="bfloat16", max_abs_err=err,
+                tol=tol, ms=ms, bound_ms=bound,
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                pct_of_bound=100.0 * bound / ms,
+                plain_ms=time_ms(lambda: fa.flash_self_attention_plain(
+                    q, k, v, scale), 3),
+                library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, scale=scale)))
+
+
+def k5_note(r):
+    return (f"{r['shape']}: {r['ms']:.4f} ms ({r['pct_of_bound']:.1f}% of "
+            f"its {r['bound_ms']:.4f} ms {r['bound_by']} bound), plain "
+            f"{r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} ms, max abs "
+            f"err {r['max_abs_err']:.2e} (tol {r['tol']:.2e})")
+
+
+def icosphere_obj(path, levels=3):
+    """A unit icosphere (``levels`` subdivisions) as an .obj; returns its
+    vertex count."""
+    import numpy as np
+    t = (1.0 + 5 ** 0.5) / 2
+    verts = [[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t],
+             [0, 1, t], [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1],
+             [-t, 0, -1], [-t, 0, 1]]
+    faces = [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+             [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+             [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+             [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]]
+    for _ in range(levels):
+        mid, out = {}, []
+
+        def half(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                mid[key] = len(verts)
+                verts.append([(x + y) / 2 for x, y in zip(verts[a],
+                                                          verts[b])])
+            return mid[key]
+        for a, b, c in faces:
+            ab, bc, ca = half(a, b), half(b, c), half(c, a)
+            out += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        faces = out
+    v = np.asarray(verts, np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    Path(path).write_text("".join(f"v {x} {y} {z}\n" for x, y, z in v)
+                          + "".join(f"f {a + 1} {b + 1} {c + 1}\n"
+                                    for a, b, c in faces))
+    return len(v)
+
+
+def shap_e_decoder_state(torch, seed, d_latent=1024, hidden=255,
+                         n_out=12):
+    """A random Shap-E vector decoder at the latent's full size: four meta
+    layers (NeRF-encoded positions -> 255 -> 255 -> 255 -> 255, each a
+    weight and a bias: 4 x 256 = 1,024 latent rows of 1,024) with
+    LayerNorm projections, and a plain last layer to 12 outputs.  The
+    first layer's LayerNorm and bias scale the encoding's frequency 2^k by
+    2^-k, so that the field is smooth, as a trained decoder's is."""
+    g = torch.Generator().manual_seed(seed)
+    # input channel -> its frequency k in posenc_nerf's layout [x (3) |
+    # sin(x 2^k) (45) | cos (45)], k-major within each half
+    freq = torch.tensor([0] * 3 + [(c % 45) // 3 for c in range(90)],
+                        dtype=torch.float32)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g)
+    dims = [(93, hidden)] + [(hidden, hidden)] * 3
+    state = {}
+    for i, (inn, out) in enumerate(dims):
+        for kind, (vec, c) in (("weight", (out, inn)), ("bias", (1, out))):
+            pre = f"params_proj.projections.nerstf__mlp__{i}__{kind}"
+            state[f"{pre}.proj.weight"] = rnd(vec * c, d_latent) / math.sqrt(
+                d_latent)
+            damp = 0.5 ** freq if (i, kind) == (0, "weight") else 1.0
+            state[f"{pre}.proj.bias"] = 0.1 * (rnd(vec, c) * damp).reshape(
+                -1) / math.sqrt(c)
+            state[f"{pre}.norm.weight"] = (1 + 0.1 * rnd(c)) * damp / \
+                math.sqrt(c)
+            state[f"{pre}.norm.bias"] = 0.1 * rnd(c) * damp / math.sqrt(c)
+    state["renderer.nerstf.mlp.4.weight"] = rnd(n_out, hidden) / math.sqrt(
+        hidden)
+    state["renderer.nerstf.mlp.4.bias"] = 0.1 * rnd(n_out)
+    return state
+
+
+def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
+                   check_view, graph_ms, time_ms):
+    """Phase 16: the port's loaders on random weights the script writes
+    (module docstring, item 16)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import gsgen_torch.guidance.unet2d as unet_mod
+    from gsgen_torch import priors
+    from gsgen_torch.guidance import convert
+    from gsgen_torch.guidance.point_e import PointEConfig, PointEModel
+    from gsgen_torch.guidance.sd_unet import SD15
+    from gsgen_torch.guidance.unet2d import IF_PIXEL
+    from gsgen_torch.priors.shap_e import ShapEDecoder, sample_shap_e_latent
+    from gsgen_torch.prompt import bert, debias, encoders, processors, t5
+
+    res = {}
+    folder = Path(tempfile.mkdtemp(prefix="gsgen_weights_"))
+    old_assets = os.environ.get("GSGEN_ASSET_DIR")
+    os.environ["GSGEN_ASSET_DIR"] = str(folder / "assets")
+
+    def clip_ids(texts):
+        return word_ids(texts, 0, 49406, 77, start=49406, end=49407,
+                        pad=49407)[0]
+
+    try:
+        # ---- a: SD 1.5 through guidance.weights_path ----
+        t0 = time.perf_counter()
+        sd_dir = folder / "sd15"
+        written = sd15_directory(torch, sd_dir, dev)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_read = 0
+        for name in ("unet", "vae", "text_encoder"):
+            back = convert.load_safetensors(sd_dir / name)
+            require(list(back) == sorted(written[name]),
+                    f"16 a: {name} keys read back differ")
+            for k, v in written[name].items():
+                require(back[k].dtype == v.dtype and torch.equal(back[k], v),
+                        f"16 a: {name} {k} not bitwise the one written")
+                n_read += 1
+        read_s = time.perf_counter() - t0
+        tower = encoders.load_clip_text_dir(str(sd_dir), device=dev)
+
+        def clip_encode(texts):
+            return encoders.encode_ids(tower, clip_ids(texts))
+
+        def prepare(tr):
+            bb = tr.guidance.backbone
+            require(bb.cfg == SD15 and all(
+                p.dtype == torch.bfloat16 for p in bb.parameters()),
+                "16 a: guidance/sd.yaml did not build SD 1.5 in bf16")
+            for name in ("unet", "vae"):
+                mine = getattr(bb, name).state_dict()
+                for k, v in written[name].items():
+                    require(torch.equal(mine[k].cpu(),
+                                        v.float().to(torch.bfloat16)),
+                            f"16 a: backbone {name} {k} is not the file's")
+            tr.prompt_processor = processors.PromptProcessor(
+                dataclasses.replace(tr.prompt_processor.cfg,
+                                    use_cache=False),
+                encode_fn=clip_encode, device=dev)
+
+        kept = {}
+        orig_k5 = unet_mod.flash_self_attention
+
+        def keep_qkv(q, k, v, scale):
+            if "qkv" not in kept:
+                kept["qkv"] = tuple(x.detach().clone() for x in (q, k, v))
+            return orig_k5(q, k, v, scale)
+
+        rec, restore = record_render_inputs(torch)
+        unet_mod.flash_self_attention = keep_qkv
+        try:
+            trainer, a = drive(
+                torch, build_trainer, load_config, wrappers, SD15_CONFIGS,
+                ["prompt.use_cache=false",
+                 f"guidance.weights_path={sd_dir}"], 3,
+                dict(flash_attn_fwd=5), prepare=prepare)
+        finally:
+            unet_mod.flash_self_attention = orig_k5
+            restore()
+        del written
+        emb = trainer.prompt_processor()
+        require(tuple(emb.text.shape) == (77, 768) and bool(
+            torch.isfinite(emb.text_vd).all()),
+            f"16 a: prompt embedding {tuple(emb.text.shape)}")
+        a["kernel_note"] = check_view("16 a step 0 view 0", rec, trainer)
+        q, k, v = kept.pop("qkv")
+        require(tuple(q.shape) == SD15_ATTN and q.dtype == torch.bfloat16,
+                f"16 a: K5 took {tuple(q.shape)} {q.dtype}")
+        a.update(write_s=write_s, read_s=read_s, tensors_read=n_read)
+        print(f"phase 16 a sd15: ok | card {card} | {a['config']}: "
+              f"{a['steps']} steps, batch {a['batch']}, {a['reso']}^2, "
+              f"bf16, padded | a random SD 1.5 diffusers directory written "
+              f"in {write_s:.1f} s (unet fp16, vae and text_encoder fp32), "
+              f"{n_read} tensors read back bitwise in {read_s:.1f} s, the "
+              "backbone's weights bitwise the file's in bf16 | prompt "
+              "embeddings from the ViT-L/14 text tower on script ids | "
+              f"losses {a['losses']} | ms/step "
+              f"{[round(x, 2) for x in a['ms_per_step']]} | peak "
+              f"{a['peak_gib']:.2f} GiB | launches {a['launches']} | first "
+              f"view through K1-K4 against plain: {a['kernel_note']}",
+              flush=True)
+        a["profile"] = profile_step(
+            torch, trainer, ROOT / "gsgen_torch" / "_build" /
+            "sd15_step_trace.json", vsd=False, phase="16 a")
+        del trainer, tower, rec
+        torch.cuda.empty_cache()
+        k5 = dict(path=k5_row(torch, q, k, v, graph_ms, time_ms),
+                  path_launches_per_step=a["launches"]["flash_attn_fwd"]
+                  // a["steps"])
+        del q, k, v
+        gen = torch.Generator(device=dev)
+        for label, shp in SD15_ON_ATTN.items():
+            gen.manual_seed(60 + shp[1])
+            q, k, v = (torch.randn(shp, generator=gen, device=dev).to(
+                torch.bfloat16) for _ in range(3))
+            k5[label] = k5_row(torch, q, k, v, graph_ms, time_ms)
+            del q, k, v
+        res["a"], res["k5"] = a, k5
+        print(f"phase 16 a k5: ok | card {card} | K5 bf16 at SD 1.5's "
+              f"shapes, {k5['path_launches_per_step']} launches a step "
+              f"under auto | the step's own q, k, v "
+              f"{k5_note(k5['path'])} | fused_attention on, random inputs: "
+              + " | ".join(f"{lb} {k5_note(k5[lb])}"
+                           for lb in SD15_ON_ATTN)
+              + " | the mid block's [8, 64, 8, 160] is not eligible (L % "
+              "128), in either package", flush=True)
+        torch.cuda.empty_cache()
+
+        # ---- b: T5-XXL as if.yaml's prompt encoder ----
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(70)
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            holder = {"t5": t5.T5EncoderModel(t5.T5_XXL)}
+        holder["t5"].requires_grad_(False).eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in holder["t5"].parameters())
+        enc = {}
+
+        def t5_encode(texts):
+            ids, mask = word_ids(texts, 3, 32000, 77, end=T5_EOS,
+                                 pad=T5_PAD)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = encoders.encode_ids(holder["t5"], ids, mask)
+            enc.update(ms=1e3 * (time.perf_counter() - t1), n=len(texts),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       pad_zero=bool(not out[~mask].any()),
+                       finite=bool(np.isfinite(out).all()))
+            return out
+
+        def t5_prompts(tr):
+            tr.prompt_processor = processors.PromptProcessor(
+                dataclasses.replace(tr.prompt_processor.cfg,
+                                    use_cache=False),
+                encode_fn=t5_encode, device=dev)
+            holder.clear()
+            torch.cuda.empty_cache()
+
+        tr, b = drive(torch, build_trainer, load_config, wrappers,
+                      IF_CONFIGS, ["prompt.use_cache=false"], 2, {},
+                      prepare=t5_prompts)
+        emb = tr.prompt_processor()
+        require(tr.guidance.backbone.cfg == IF_PIXEL
+                and tuple(emb.text.shape) == (77, 4096),
+                f"16 b: if.yaml on {tuple(emb.text.shape)} embeddings")
+        require(enc["pad_zero"] and enc["finite"],
+                f"16 b: T5 output {enc}")
+        b.update(t5_params=n_params, t5_build_s=build_s, encode=enc)
+        res["b"] = b
+        print(f"phase 16 b t5: ok | card {card} | T5 v1.1 XXL encoder "
+              f"({n_params / 1e9:.3f} B parameters, fp32, random on the "
+              f"card in {build_s:.1f} s): {enc['n']} prompts of 77 ids "
+              f"encoded in {enc['ms']:.1f} ms, peak {enc['peak_gib']:.2f} "
+              "GiB, zeros at padded rows | freed, then "
+              f"{b['config']}: {b['steps']} steps, batch {b['batch']} | "
+              f"losses {b['losses']} | ms/step "
+              f"{[round(x, 2) for x in b['ms_per_step']]} | peak "
+              f"{b['peak_gib']:.2f} GiB | launches {b['launches']}",
+              flush=True)
+        del tr, emb
+        torch.cuda.empty_cache()
+
+        # ---- c: BERT-base debiasing ----
+        bert_dir = folder / "bert"
+        c_ = bert.BERT_BASE
+        write_safetensors(torch, bert_dir / "model.safetensors",
+                          seeded_state(torch, bert.BertForMaskedLM(c_), 71))
+        (bert_dir / "config.json").write_text(json.dumps(
+            dataclasses.asdict(c_)))
+        mlm = bert.load_bert_mlm(convert.load_safetensors(bert_dir), c_,
+                                 device=dev)
+
+        # "[CLS] this image is depicting a [MASK] view of <text> [SEP]",
+        # 16 ids
+        head = word_ids(["this image is depicting a"], 1000, 30000, 5)[0]
+        tail = word_ids(["view of"], 1000, 30000, 2)[0]
+
+        def bert_ids(texts):
+            return word_ids(
+                texts, 1000, 30000, 16, start=BERT_CLS, end=BERT_SEP,
+                middle=lambda w: [*head[0], BERT_MASK, *tail[0], *w])
+
+        def fill_mask(texts):
+            ids, mask = bert_ids(texts)
+            return debias.view_probs(mlm, ids, mask, BERT_MASK,
+                                     BERT_VIEW_IDS)
+
+        prompt = load_config(ROOT / "configs" / "corgi.yaml")["prompt"][
+            "prompt"]
+        words = prompt.split(" ")
+        variants = [prompt] + [" ".join(words[:i] + words[i + 1:])
+                               for i in range(len(words))]
+        probe_ms = events_ms(torch, lambda: fill_mask(variants), 5)
+        views = debias.get_debiased_prompt(prompt, "", fill_mask=fill_mask)
+        pp = processors.PromptProcessor(processors.PromptProcessorConfig(
+            prompt=prompt, use_prompt_debiasing=True, use_cache=False),
+            device=dev, fill_mask=fill_mask)
+        require(bool(torch.isfinite(pp().text_vd).all()) and len(views) == 4,
+                f"16 c: debiased prompts {views}")
+        probs = fill_mask(variants)
+        require(np.allclose(probs.sum(-1), 1.0, atol=1e-5),
+                f"16 c: view probabilities {probs}")
+        res["c"] = dict(prompt=prompt, views=views, probe_ms=probe_ms,
+                        variants=len(variants))
+        print(f"phase 16 c debias: ok | card {card} | BERT-base MLM "
+              "(random, from a written safetensors directory) as the "
+              f"fill-mask probe of {len(variants)} variants of "
+              f"{prompt!r}: {probe_ms:.2f} ms a probe | per-view prompts "
+              f"(side, front, back, overhead): {views}", flush=True)
+        del mlm, pp
+        torch.cuda.empty_cache()
+
+        # ---- d: the asset inits ----
+        d = {}
+        build_s = {}
+
+        def timed_build(label):
+            def build(cfg, device):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tr = build_trainer(cfg, device=device)
+                torch.cuda.synchronize()
+                build_s[label] = time.perf_counter() - t1
+                return tr
+            return build
+
+        rng = np.random.default_rng(72)
+        xyz = rng.standard_normal((4096, 3))
+        xyz = (0.5 * xyz / np.linalg.norm(xyz, axis=1, keepdims=True)
+               ).astype(np.float32)
+        rec_dt = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                           ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+        cloud = np.zeros(4096, rec_dt)
+        for i, n in enumerate("xyz"):
+            cloud[n] = xyz[:, i]
+        for n in ("red", "green", "blue"):
+            cloud[n] = rng.integers(0, 256, 4096)
+        ply = folder / "cloud.ply"
+        ply.write_bytes(
+            b"ply\nformat binary_little_endian 1.0\nelement vertex 4096\n"
+            + b"".join(f"property float {n}\n".encode() for n in "xyz")
+            + b"".join(f"property uchar {n}\n".encode()
+                       for n in ("red", "green", "blue"))
+            + b"end_header\n" + cloud.tobytes())
+        n_ico = icosphere_obj(folder / "ico.obj")
+
+        # Shap-E: text300M at full width on (a)'s projected text vector
+        t300 = PointEConfig(input_channels=1024, output_channels=2048,
+                            n_ctx=1024, width=1024, layers=24, heads=16,
+                            clip_feature_dim=768)
+        state = PointEModel(t300, device="cpu", seed=73).module.state_dict()
+        g = torch.Generator().manual_seed(74)
+        for key in ("output_proj.weight", "output_proj.bias"):
+            state[key] = 0.02 * torch.randn(state[key].shape, generator=g)
+        write_safetensors(torch, folder / "text300m.safetensors", state)
+        del state
+        vec_tower = encoders.load_clip_textvec_dir(
+            str(sd_dir / "clip_textvec"), device=dev)
+        textvec = torch.as_tensor(encoders.encode_ids(
+            vec_tower, clip_ids([SHAP_E_PROMPT]))[0], device=dev)
+        del vec_tower
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latent = sample_shap_e_latent(
+            str(folder / "text300m.safetensors"), textvec,
+            torch.Generator(device=dev).manual_seed(75), karras_steps=64,
+            guidance_scale=15.0, device=dev)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        require(tuple(latent.shape) == (1024 * 1024,)
+                and bool(torch.isfinite(latent).all()),
+                f"16 d: text300M latent {tuple(latent.shape)}")
+        np.save(folder / "latent.npy", latent.cpu().numpy())
+        dec_state = shap_e_decoder_state(torch, 76)
+        dec = ShapEDecoder.from_state_dict(dec_state, device=dev)
+        require(dec.latent_ctx == 1024 and dec.d_latent == 1024,
+                f"16 d: decoder latent {dec.latent_ctx} x {dec.d_latent}")
+        field = dec.sdf_grid(dec.mlp_params(latent), 128)
+        shift = 0.0
+        if not (field.max() > 0.0 > field.min()):
+            # a random decoder whose level set misses the grid: move the
+            # SDF head's bias by the median pre-activation
+            pre = np.arctanh(np.clip(field, -1 + 1e-6, 1 - 1e-6))
+            shift = -float(np.median(pre))
+            dec_state["renderer.nerstf.mlp.4.bias"][0] += shift
+        del dec, field
+        write_safetensors(torch, folder / "decoder.safetensors", dec_state)
+        del dec_state
+        torch.cuda.empty_cache()
+
+        for label, over, note in (
+                ("point_cloud", ["init.type=point_cloud",
+                                 f"init_asset={ply}"], "4096 points"),
+                ("mesh", ["init.type=mesh", f"init.mesh={folder / 'ico.obj'}"],
+                 f"icosphere of {n_ico} vertices"),
+                ("shap_e", ["init.type=shap_e",
+                            f"init.shap_e_latent={folder / 'latent.npy'}",
+                            f"init.shap_e_decoder="
+                            f"{folder / 'decoder.safetensors'}",
+                            "init.grid_size=128",
+                            f"prompt.prompt={SHAP_E_PROMPT}"], "")):
+            tr, r = drive(torch, timed_build(label), load_config, wrappers,
+                          "base.yaml", ["guidance.type=mock", *over], 2, {})
+            sc = tr.state.scene
+            n_live = int(sc.active.sum())
+            require(sc.params["mean"].shape[0] == 65536 and n_live > 0,
+                    f"16 d {label}: capacity {sc.params['mean'].shape[0]}, "
+                    f"live {n_live}")
+            r.update(init_s=build_s[label], live=n_live)
+            if label == "shap_e":
+                z = np.load(priors._asset_path(SHAP_E_PROMPT, "shap_e"))
+                r.update(vertices=int(z["xyz"].shape[0]),
+                         text300m_sample_s=sample_s, sdf_bias_shift=shift)
+                note = (f"text300M (width 1024, 24 layers, 16 heads, n_ctx "
+                        f"1024) 64 Karras steps at CFG 15 in {sample_s:.2f} "
+                        f"s on the projected text vector of (a)'s tower, "
+                        f"decoded at grid 128: {r['vertices']} vertices"
+                        + (f" (SDF head bias moved by {shift:+.4f} so that "
+                           "the random decoder's level set crosses the grid)"
+                           if shift else ""))
+            d[label] = r
+            print(f"phase 16 d {label}: ok | card {card} | init "
+                  f"{build_s[label]:.3f} s, {note}, {n_live} live | "
+                  f"{r['steps']} mock steps at capacity 65,536: losses "
+                  f"{r['losses']} | ms/step "
+                  f"{[round(x, 2) for x in r['ms_per_step']]} | peak "
+                  f"{r['peak_gib']:.2f} GiB", flush=True)
+            del tr, sc
+            torch.cuda.empty_cache()
+        res["d"] = d
     finally:
         if old_assets is None:
             os.environ.pop("GSGEN_ASSET_DIR", None)

@@ -6,13 +6,16 @@ with YAML-typed values (``guidance.type=mock``); ``build_trainer`` wires
 the subsystems the port has from the same ``configs/`` tree: guidance
 ``mock``, ``sds``, ``vsd`` and ``deep_floyd`` / ``if`` (pixel-space SDS)
 on ``MockUNet`` or the UNet backbone (SD with its VAE, or ``if_pixel``
-without one), the Point-E ``auxiliary`` guidance, the DPT ``estimators``
-(top level or under ``trainer``), the inits ``base``, ``unisphere``,
-``semisphere``, ``box``, ``unbounded``, ``ckpt``, ``point_e`` and
-``point_e_image``, and image-to-3D: an ``image:`` block with a ``path``
-(an 8-bit PNG) swaps in the single-view camera sampler, the depth-lifted
-init with its gradient mask and the original-view losses; a block
-without a path only configures.
+without one; random, or from a diffusers directory at
+``guidance.weights_path``), text encoders of a local directory at
+``prompt.model_id``, the Point-E ``auxiliary`` guidance (text-conditioned
+by ``clip_model_id``), the DPT ``estimators`` (top level or under
+``trainer``), the inits ``base``, ``unisphere``, ``semisphere``, ``box``,
+``unbounded``, ``ckpt``, ``point_cloud`` (from ``init_asset``), ``mesh``,
+``point_e``, ``point_e_image`` and ``shap_e``, and image-to-3D: an
+``image:`` block with a ``path`` (an 8-bit PNG) swaps in the single-view
+camera sampler, the depth-lifted init with its gradient mask and the
+original-view losses; a block without a path only configures.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from .prompt.processors import PromptProcessor, PromptProcessorConfig
 from .training.trainer import LossConfig, Trainer, TrainerConfig
 from .utils.precision import exact_fp32
 
-# init keys that configure priors of later slices (checkpoint paths,
+# init keys that configure the priors (checkpoint paths, asset paths,
 # sampler knobs); they ride the same `init:` block
 _INIT_PASSTHROUGH = {
     "z_scale", "random_exceed", "seed", "point_e_base", "point_e_upsample",
@@ -154,11 +157,11 @@ def load_config(path, overrides: Optional[List[str]] = None) -> Dict:
 
 
 def _build_prompt_processor(prompt_d: Dict, device) -> PromptProcessor:
-    """PromptProcessor on ``device`` (mock embeddings until the CLIP/T5
-    encoders are ported)."""
+    """PromptProcessor on ``device``: the CLIP / T5 encoder of a local
+    ``prompt.model_id`` directory, or mock embeddings."""
     pcfg = _from_dict(PromptProcessorConfig, prompt_d)
-    return PromptProcessor(pcfg, encode_fn=build_encode_fn(pcfg.model_id),
-                           device=device)
+    return PromptProcessor(pcfg, encode_fn=build_encode_fn(
+        pcfg.model_id, device=device), device=device)
 
 
 def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
@@ -189,17 +192,16 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
                "if_pixel": IF_PIXEL}
     if preset not in presets:
         raise NotImplementedError(f"backbone preset {preset}")
-    if weights:
-        load_diffusers_weights(weights)
     cfg = presets[preset]
     if vsd:
         cfg = dataclasses.replace(
             cfg, lora_rank=int(vsd["lora_rank"]),
             class_embed_proj_dim=int(vsd["camera_condition_dim"]))
     # if_pixel: DeepFloyd's pixel space, no VAE
-    bb = SDUNetBackbone(cfg, latent_size=8 if preset == "tiny" else 64,
-                        compute_dtype=dtype, device=device,
-                        fp32_unet=bool(vsd), use_vae=preset != "if_pixel")
+    kw = dict(latent_size=8 if preset == "tiny" else 64, compute_dtype=dtype,
+              device=device, fp32_unet=bool(vsd), use_vae=preset != "if_pixel")
+    bb = (load_diffusers_weights(weights, cfg, **kw) if weights
+          else SDUNetBackbone(cfg, **kw))
     set_fused_attention(bb, fused_attn)
     return bb
 
@@ -265,8 +267,9 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
                                device=device)
     else:
         raise NotImplementedError(f"guidance type {g_type}")
-    aux_guidance = _build_aux_guidance(dict(cfg.get("auxiliary") or {}),
-                                       device)
+    aux_guidance = _build_aux_guidance(
+        dict(cfg.get("auxiliary") or {}), device,
+        cfg.get("prompt", {}).get("prompt", ""))
 
     init_points = init_colors = init_raw = None
     if init_cfg.type == "ckpt":
@@ -294,28 +297,54 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
             device=device)
         init_cfg = dataclasses.replace(init_cfg, type="point_cloud",
                                        facex=False)
-    elif init_cfg.type == "point_e":
-        # the generative prior at trainer init (reference
-        # utils/initialize.py:110-167): the asset cache or the in-process
-        # two-stage sampler, then a point_cloud init on those arrays
-        from .priors import point_e_init_arrays
-        init_points, init_colors = point_e_init_arrays(
-            cfg.get("prompt", {}).get("prompt", ""),
-            num_points=init_cfg.num_points, mean_std=init_cfg.mean_std,
-            z_scale=init_extra.get("z_scale", 1.0),
-            random_exceed=init_extra.get("random_exceed", False),
-            seed=init_extra.get("seed", 0),
-            base_weights=init_extra.get("point_e_base"),
-            upsample_weights=init_extra.get("point_e_upsample"),
-            clip_model_dir=init_extra.get("clip_model_dir"),
-            karras_steps=tuple(init_extra.get("karras_steps", (64, 64))),
-            device=device)
+    elif init_cfg.type in ("point_e", "shap_e"):
+        # the generative priors at trainer init (reference
+        # utils/initialize.py:110-228): the asset cache or the in-process
+        # samplers, then a point_cloud init on those arrays
+        prompt_text = cfg.get("prompt", {}).get("prompt", "")
+        if init_cfg.type == "point_e":
+            from .priors import point_e_init_arrays
+            init_points, init_colors = point_e_init_arrays(
+                prompt_text, num_points=init_cfg.num_points,
+                mean_std=init_cfg.mean_std,
+                z_scale=init_extra.get("z_scale", 1.0),
+                random_exceed=init_extra.get("random_exceed", False),
+                seed=init_extra.get("seed", 0),
+                base_weights=init_extra.get("point_e_base"),
+                upsample_weights=init_extra.get("point_e_upsample"),
+                clip_model_dir=init_extra.get("clip_model_dir"),
+                karras_steps=tuple(init_extra.get("karras_steps",
+                                                  (64, 64))),
+                device=device)
+        else:
+            from .priors import shap_e_init_arrays
+            init_points, init_colors = shap_e_init_arrays(
+                prompt_text, num_points=init_cfg.num_points,
+                mean_std=init_cfg.mean_std,
+                z_scale=init_extra.get("z_scale", 1.0),
+                seed=init_extra.get("seed", 0),
+                decoder_weights=init_extra.get("shap_e_decoder"),
+                text_model_weights=init_extra.get("shap_e_text300m"),
+                latent_path=init_extra.get("shap_e_latent"),
+                clip_model_dir=init_extra.get("clip_model_dir"),
+                grid_size=init_extra.get("grid_size", 128), device=device)
         if cfg.get("init", {}).get("random_color", False):
             init_colors = None       # random colours, only if set
         init_cfg = dataclasses.replace(init_cfg, type="point_cloud")
     elif init_cfg.type == "point_cloud":
-        raise NotImplementedError("init.type point_cloud: the init_asset "
-                                  "loader is not ported yet")
+        from .priors import load_point_cloud
+        init_points, init_colors = load_point_cloud(cfg["init_asset"])
+    elif init_cfg.type == "mesh":
+        # area-weighted even surface samples (reference
+        # mesh_initlization, utils/initialize.py:285-333)
+        from .priors import mesh_init_arrays
+        init_points, init_colors = mesh_init_arrays(
+            init_extra["mesh"], num_points=init_cfg.num_points,
+            mean_std=init_cfg.mean_std,
+            flip_yz=init_extra.get("flip_yz", False),
+            flip_xy=init_extra.get("flip_xy", False),
+            seed=init_extra.get("seed", 0))
+        init_cfg = dataclasses.replace(init_cfg, type="point_cloud")
 
     # image-to-3D; a block without a path (the data/sit3d.yaml preset's
     # original_view_prob) configures but does not switch it on
@@ -398,20 +427,24 @@ def _image_mode(img_d: Dict, tcfg: TrainerConfig, init_cfg: InitConfig,
         mask_steps=tuple(img_d.get("mask_steps", (0, 1000)))))
 
 
-def _build_aux_guidance(aux_d: Dict, device):
+def _build_aux_guidance(aux_d: Dict, device, prompt: str):
     """The ``auxiliary`` block (reference conf/base.yaml:176-190): Point-E
-    SDS on the Gaussian means, or None when it is not enabled."""
+    SDS on the Gaussian means, or None when it is not enabled.
+    ``clip_model_id`` (a local CLIP directory) conditions it on the
+    prompt's projected CLIP text vector."""
     if not aux_d.pop("enabled", False):
         return None
     aux_type = aux_d.pop("type", "point_e")
     if aux_type != "point_e":
         raise NotImplementedError(f"auxiliary type {aux_type}")
     clip_dir = aux_d.pop("clip_model_id", None)
-    if clip_dir:
-        raise NotImplementedError(
-            f"auxiliary.clip_model_id {clip_dir!r}: the CLIP tokenizer and "
-            "model-directory loader (prompt/encoders.py) are not ported yet "
-            "(ROADMAP Queue 1 item 7)")
     from .guidance.point_e_aux import PointEAuxConfig, PointEAuxGuidance
-    return PointEAuxGuidance(_from_dict(PointEAuxConfig, aux_d),
-                             device=device)
+    acfg = _from_dict(PointEAuxConfig, aux_d)
+    cond_vec = None
+    if clip_dir:
+        import torch
+
+        from .prompt.encoders import build_clip_textvec_fn
+        cond_vec = torch.as_tensor(build_clip_textvec_fn(
+            clip_dir, device=device)([prompt])[0])
+    return PointEAuxGuidance(acfg, device=device, cond_vec=cond_vec)

@@ -8,9 +8,9 @@ guidance/point_e.py:26-235 of gsgen):
   [0, 1] maps to [-1, 1];
 * repeat the cloud ``batch_size`` times with independent t and noise;
 * cosine schedule of 1024 steps; eps prediction with classifier-free
-  guidance (the prompt embedding / zeros), the variance half of a
-  12-channel output dropped; the JAX package's projected CLIP text vector
-  (``cond_vec``) waits for the CLIP text tower;
+  guidance (the projected CLIP text vector ``cond_vec`` where it is
+  given, else the prompt embedding, against zeros), the variance half of
+  a 12-channel output dropped;
 * w(t) weighting and the reparametrised SDS loss on the mean (and the
   colour unless ``mean_only``).
 
@@ -116,9 +116,13 @@ def build_point_e_model(cfg: PointEAuxConfig, device="cuda"):
 class PointEAuxGuidance:
     """The reference's ``aux_guidance_step`` model (trainer.py:458-466)."""
 
-    def __init__(self, cfg: PointEAuxConfig, model=None, device="cuda"):
+    def __init__(self, cfg: PointEAuxConfig, model=None, device="cuda",
+                 cond_vec: Optional[torch.Tensor] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        # [F] projected CLIP text vector (auxiliary.clip_model_id)
+        self.cond_vec = None if cond_vec is None else cond_vec.to(
+            self.device)
         self.model = model or build_point_e_model(cfg, device)
         self.schedule = cosine_schedule(1024).to(self.device)
         self._scales = torch.tensor(CHANNEL_SCALES, device=self.device)
@@ -158,8 +162,9 @@ class PointEAuxGuidance:
         with torch.no_grad():
             x_t = self.schedule.add_noise(x.detach(), noise, t)
             emb = None
-            if text_emb is not None:
-                cond = text_emb.expand(B, *text_emb.shape)
+            vec = self.cond_vec if self.cond_vec is not None else text_emb
+            if vec is not None:
+                cond = vec.expand(B, *vec.shape)
                 emb = torch.cat([cond, torch.zeros_like(cond)], dim=0)
             eps = self.model.predict_noise(torch.cat([x_t, x_t], dim=0),
                                            torch.cat([t, t], dim=0), emb)

@@ -25,15 +25,17 @@ family (variance-scaling 1/fan_in truncated normal kernels, zero biases,
 unit norm scales), so a rehearsal runs at the JAX package's activation
 scale; LoRA adapters take their own init (``down`` N(0, 1/rank), ``up``
 zero).  Every weight is frozen: VSD trains copies of the LoRA and
-class-embedding leaves (:mod:`.vsd`).  :func:`backbone_from_jax_params` carries the JAX package's own
-parameters across.  Loading a diffusers checkpoint
-(``guidance.weights_path``) waits until such weights are in the repo.
+class-embedding leaves (:mod:`.vsd`).  :func:`backbone_from_jax_params`
+carries the JAX package's own parameters across;
+:func:`load_diffusers_weights` fills the backbone from a local diffusers
+directory of safetensors (``guidance.weights_path``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Mapping, Optional
 
 import torch
@@ -185,10 +187,38 @@ def backbone_from_jax_params(params_np: Mapping, cfg: UNetConfig = TINY,
     return bb
 
 
-def load_diffusers_weights(path: str, *args, **kwargs):
-    """Loading a diffusers checkpoint: not ported yet."""
-    raise NotImplementedError(
-        f"guidance.weights_path {path!r}: loading diffusers safetensors "
-        "waits until Stable Diffusion weights are in the repository; "
-        "without weights_path the backbone runs random weights at real "
-        "shapes")
+def load_diffusers_weights(path: str, cfg: UNetConfig = SD21,
+                           latent_size: int = 64,
+                           vae_cfg: Optional[VAEConfig] = None,
+                           use_vae: bool = True,
+                           compute_dtype: Optional[str] = None,
+                           device="cuda",
+                           generator: Optional[torch.Generator] = None,
+                           fp32_unet: bool = False) -> SDUNetBackbone:
+    """A backbone filled from a local diffusers checkpoint.
+
+    ``path`` is a diffusers model directory (``unet/`` and ``vae/`` holding
+    ``*.safetensors``) or a directory that itself holds the UNet's
+    safetensors (and then the VAE's too).  The weights are read by
+    :func:`.convert.load_safetensors` and converted to fp32 as they are
+    copied in, then cast to ``compute_dtype`` as the random-weight backbone
+    is.  LoRA and class-embedding leaves, which pretrained checkpoints lack
+    by construction, keep their fresh initialisation from ``generator``;
+    any other missing, misshapen or unexpected key raises
+    (:func:`.convert.load_template`, the JAX loader's rule)."""
+    unet_dir = os.path.join(path, "unet")
+    state = convert.load_safetensors(unet_dir if os.path.isdir(unet_dir)
+                                     else path)
+    bb = SDUNetBackbone(cfg, latent_size=latent_size, vae_cfg=vae_cfg,
+                        device=device, generator=generator,
+                        fp32_unet=fp32_unet, use_vae=use_vae)
+    convert.load_template(bb.unet, state)
+    del state
+    if use_vae:
+        vae_dir = os.path.join(path, "vae")
+        convert.load_template(bb.vae, convert.load_safetensors(
+            vae_dir if os.path.isdir(vae_dir) else path))
+    if compute_dtype:
+        bb.compute_dtype = getattr(torch, compute_dtype)
+        bb._cast()
+    return bb

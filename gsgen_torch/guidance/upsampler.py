@@ -16,7 +16,7 @@ upsampler of the upsample fine-tune (:mod:`..training.upsample`):
 Its self-attention goes through K5 as the backbone's does ("auto": L >=
 2048 on the card).  Without weights the UNet runs random weights from the
 backbone's flax-default init; :meth:`DiffusionUpsampler.load_weights`
-raises until IF-II weights are in the repository.  Random draws come from
+fills it from IF-II safetensors.  Random draws come from
 the caller's ``torch.Generator``; tests hand in ``aug_noise`` and ``x``.
 """
 
@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import convert
 from .diffusion import NoiseSchedule, resize_bilinear, scaled_linear_schedule
 from .sd_unet import flax_default_init_
 from .unet2d import UNet2DConditionModel, UNetConfig
@@ -94,12 +95,11 @@ class DiffusionUpsampler:
         self.unet.requires_grad_(False).eval()
 
     def load_weights(self, path: str):
-        """Filling the UNet from IF-II safetensors: not ported."""
-        raise NotImplementedError(
-            f"{path}: loading IF-II weights waits until such weights are in "
-            "the repository (reading safetensors needs the safetensors "
-            "package, which the port does not depend on); without "
-            "weights_path the upsampler runs TINY_SR on random weights")
+        """Fill the UNet from local IF-II safetensors (a file or a
+        directory of them), under the JAX loader's template rule
+        (:func:`.convert.load_template`)."""
+        convert.load_template(self.unet, convert.load_safetensors(path))
+        return self
 
     @torch.no_grad()
     def upsample_images(self, rgb: torch.Tensor, text2: torch.Tensor,

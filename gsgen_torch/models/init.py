@@ -5,7 +5,9 @@ Port of the JAX package's ``models/init.py``: ``base`` (a Gaussian blob),
 ``mean_std``), ``semisphere`` (its x <= 0 half: the image-to-3D back
 points, behind the object from the front camera at +x), ``box`` (on a
 box's faces), ``point_cloud`` (given ``points``, e.g. a Point-E cloud;
-``facex`` turns it from Point-E's +x-facing convention) and ``ckpt`` (``raw_values``: a trained scene's raw
+``facex`` turns it from Point-E's +x-facing convention; the config turns
+``mesh``, ``point_e``, ``point_e_image`` and ``shap_e`` into it) and
+``ckpt`` (``raw_values``: a trained scene's raw
 fields, :func:`..io.checkpoint.scene_arrays_from_checkpoint`).  Draws
 come from a ``torch.Generator``; :func:`sphere_points` and
 :func:`box_points` are pure functions of their uniform draws, so the

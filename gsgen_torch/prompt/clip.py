@@ -12,8 +12,8 @@ kernel: the JAX module reaches none).  The encoder trunk
 
 SD 1.x uses openai/clip-vit-large-patch14 (768 wide, 12 layers,
 quick_gelu); SD 2.x the OpenCLIP ViT-H text tower (1024 wide, 23 layers,
-gelu).  The loaders take a state dict (or a ``.pt`` file of one); reading
-a model directory of safetensors (``prompt/encoders.py``) is not ported.
+gelu).  The loaders take a state dict (or a ``.pt`` or ``.safetensors``
+file of one); :mod:`.encoders` builds them from a model directory.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ Port of the JAX package's ``prompt/processors.py``.  A text encoder is a
 callable ``encode_fn(list[str]) -> [N, L, D]`` numpy array; without one
 the deterministic :func:`mock_encode` stands in (bit-identical to the
 JAX package's).  Embeddings are cached on disk keyed by
-md5(model_id:prompt), in the JAX package's file format.
+md5(model_id:prompt), in the JAX package's file format.  With
+``use_prompt_debiasing`` the four view prompts come from the BERT
+fill-mask debiasing of :mod:`.debias` (``fill_mask`` replaces its probe).
 """
 
 from __future__ import annotations
@@ -166,16 +168,28 @@ class PromptProcessor:
     """Builds a PromptEmbedding bank on ``device`` from a text encoder."""
 
     def __init__(self, cfg: PromptProcessorConfig,
-                 encode_fn: Optional[Callable] = None, device="cuda"):
-        if cfg.use_prompt_debiasing:
-            raise NotImplementedError("prompt debiasing (BERT fill-mask) "
-                                      "waits for the prompt-encoder slice")
+                 encode_fn: Optional[Callable] = None, device="cuda",
+                 fill_mask: Optional[Callable] = None):
         self.cfg = cfg
         self.encode_fn = encode_fn or mock_encode
-        overrides = {"side": cfg.prompt_side, "back": cfg.prompt_back,
-                     "overhead": cfg.prompt_overhead}
-        vd_prompts = direction_templates(cfg.prompt, cfg.front_style,
-                                         overrides)
+        if cfg.use_prompt_debiasing:
+            # reference :274-281: per-view debiased base prompts; manual
+            # per-view overrides are mutually exclusive with them
+            if cfg.prompt_side or cfg.prompt_back or cfg.prompt_overhead:
+                raise AssertionError("Do not assign prompt_side/back/"
+                                     "overhead with debiasing")
+            from .debias import get_debiased_prompt
+            base = get_debiased_prompt(
+                cfg.prompt, cfg.debiasing_model_id,
+                mask_ids=cfg.prompt_debiasing_mask_ids,
+                fill_mask=fill_mask, device=device)
+            vd_prompts = [direction_templates(p, cfg.front_style)[i]
+                          for i, p in enumerate(base)]
+        else:
+            overrides = {"side": cfg.prompt_side, "back": cfg.prompt_back,
+                         "overhead": cfg.prompt_overhead}
+            vd_prompts = direction_templates(cfg.prompt, cfg.front_style,
+                                             overrides)
         texts = [cfg.prompt, cfg.negative_prompt] + vd_prompts \
             + [cfg.negative_prompt] * 4
         embs = torch.as_tensor(self._encode_cached(texts), device=device)

@@ -61,8 +61,8 @@ def make_diffusion_upsampler(trainer, reso: int,
     """IF-II-style ``upsample_fn(rgb, batch)`` on the trainer's device,
     conditioned on the trainer's prompt embedding at each batch's poses
     (view-dependent), drawing from ``generator`` (default: seeded 0):
-    ``IF2_PIXEL`` filled from ``weights_path`` (which raises until IF-II
-    weights are in the repository), or ``TINY_SR`` on random weights."""
+    ``IF2_PIXEL`` filled from ``weights_path`` (IF-II safetensors), or
+    ``TINY_SR`` on random weights."""
     from ..guidance.upsampler import (IF2_PIXEL, TINY_SR, DiffusionUpsampler,
                                       UpsamplerConfig)
     up = DiffusionUpsampler(

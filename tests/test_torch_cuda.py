@@ -759,3 +759,79 @@ def test_jax_style_resize_on_card(cuda, method):
         got = resize(x.to(cuda), dst[1:3], method).cpu()
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=1e-6)
+
+
+def _write_safetensors(path, tensors):
+    """A ``.safetensors`` file without the safetensors package (the card's
+    machine lacks it): the header, padded to 8 bytes, then the bytes."""
+    import json
+    import struct
+    codes = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32"}
+    header, blobs, at = {}, [], 0
+    for name, v in tensors.items():
+        raw = v.detach().cpu().contiguous().view(torch.uint8).numpy()
+        header[name] = {"dtype": codes[v.dtype], "shape": list(v.shape),
+                        "data_offsets": [at, at + raw.nbytes]}
+        blobs.append(raw)
+        at += raw.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for raw in blobs:
+            f.write(raw.tobytes())
+
+
+def test_safetensors_bf16_onto_card(cuda, tmp_path):
+    """The port's reader: a bf16 / fp16 / fp32 file read and moved onto
+    the card bitwise, and a bf16 module on the card filled from it."""
+    from gsgen_torch.guidance import convert
+    g = torch.Generator().manual_seed(0)
+    want = {"lin.weight": torch.randn(48, 40, generator=g).bfloat16(),
+            "lin.bias": torch.randn(48, generator=g).bfloat16(),
+            "half": torch.randn(7, 3, generator=g).half(),
+            "full": torch.randn(5, generator=g)}
+    _write_safetensors(tmp_path / "w.safetensors", want)
+    got = convert.load_safetensors(tmp_path / "w.safetensors")
+    for k, v in want.items():
+        on_card = got[k].to(cuda)
+        assert on_card.dtype == v.dtype
+        assert torch.equal(on_card.cpu().view(torch.int16 if v.itemsize == 2
+                                              else torch.int32),
+                           v.view(torch.int16 if v.itemsize == 2
+                                  else torch.int32)), k
+    mod = torch.nn.Module()
+    mod.lin = torch.nn.Linear(40, 48, device=cuda, dtype=torch.bfloat16)
+    convert.load_state(mod, {k: v for k, v in got.items() if "lin" in k})
+    assert torch.equal(mod.lin.weight.cpu(), want["lin.weight"])
+
+
+def test_t5_and_bert_on_card_match_cpu(cuda):
+    """TINY_T5 (masked) and TINY_BERT on the card against the CPU, from one
+    seeded state dict: within 1e-5 of the largest value (fp32, TF32 off)."""
+    import math
+    from gsgen_torch.prompt import bert, t5
+
+    def seeded(module, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return {k: (torch.randn(v.shape, generator=gen)
+                    / math.sqrt(v[0].numel() if v.dim() > 1 else 10.0))
+                for k, v in module.state_dict().items()}
+
+    sd_t5 = seeded(t5.T5EncoderModel(t5.TINY_T5), 1)
+    sd_bert = seeded(bert.BertForMaskedLM(bert.TINY_BERT), 2)
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, 128, (3, 20), generator=gen)
+    mask = torch.arange(20)[None] < torch.tensor([[20], [11], [4]])
+    out = {}
+    for d in (torch.device("cpu"), cuda):
+        m5 = t5.load_t5_encoder(sd_t5, t5.TINY_T5, device=d)
+        mb = bert.load_bert_mlm(sd_bert, bert.TINY_BERT, device=d)
+        with torch.no_grad():
+            out[d.type] = (m5(ids.to(d), attention_mask=mask.to(d)).cpu(),
+                           mb(ids.to(d), mask.to(d)).cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err

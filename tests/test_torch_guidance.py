@@ -118,11 +118,17 @@ def test_mock_encode_and_prompt_bank(tmp_path):
                                       np.asarray(getattr(e_j, f)), f)
     assert encoders.build_encode_fn("mock") is None
     assert encoders.build_encode_fn("") is None
-    with pytest.raises(NotImplementedError):
-        encoders.build_encode_fn(str(tmp_path))
-    with pytest.raises(NotImplementedError):
+    # a directory without a text encoder's safetensors, a path that is no
+    # directory, and debiasing beside a per-view prompt raise as in the
+    # JAX package
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
+        encoders.build_encode_fn(str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="not a local model"):
+        encoders.build_encode_fn(str(tmp_path / "nowhere"), device="cpu")
+    with pytest.raises(AssertionError, match="debiasing"):
         processors.PromptProcessor(processors.PromptProcessorConfig(
-            use_prompt_debiasing=True, use_cache=False), device="cpu")
+            use_prompt_debiasing=True, prompt_side="a cat's side",
+            use_cache=False), device="cpu")
 
 
 def test_view_dependent_and_perp_neg_selection():

@@ -261,7 +261,7 @@ def test_upsample_images_matches_jax(tiny_sr):
             t(rgb), emb.get_text_embedding(*map(t, POSE)),
             generator=torch.Generator().manual_seed(1)).numpy(),
         rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="IF-II weights"):
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
         up_t.load_weights("/nonexistent/if2.safetensors")
 
 

@@ -296,7 +296,7 @@ def test_bicubic_upsample_matches_jax_resize():
     up = fn(t(x), batch)
     assert up.shape == (2, 16, 16, 3)
     assert float(up.min()) >= 0.0 and float(up.max()) <= 1.0
-    with pytest.raises(NotImplementedError, match="IF-II weights"):
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
         upsample_t.make_diffusion_upsampler(stand_in, 256,
                                             weights_path="/nonexistent/if2")
 

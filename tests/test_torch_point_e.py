@@ -206,7 +206,7 @@ def test_upstream_pt_state_dict_loads_in_both(tmp_path, stage):
                                   jnp.asarray(tt), low_res=jnp.asarray(low))
         got = m_t.apply(t(x), t(tt), t(low))
     _close(got.numpy(), np.asarray(want), 2e-5, stage)
-    with pytest.raises(NotImplementedError, match="safetensors"):
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
         m_t.load_weights(str(tmp_path / "w.safetensors"))
 
 
@@ -425,7 +425,7 @@ def test_point_e_generate_resolution(asset_dir, tmp_path):
               upsample_weights=str(paths["up"]), karras_steps=(3, 3),
               base_cfg=pe.TINY_POINT_E, up_cfg=pe.TINY_UPSAMPLE,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="CLIP"):
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
         priors.point_e_generate("a fox", clip_model_dir="/nowhere", **kw)
     xyz, rgb = priors.point_e_generate("a fox", **kw)
     assert xyz.shape == (32 + 64, 3) and rgb.shape == xyz.shape
@@ -462,15 +462,16 @@ def test_config_auxiliary_block(asset_dir):
     assert isinstance(tr.aux_guidance.model, pe.PointEModel)
     assert tr.aux_guidance.cfg.guidance_scale == 100.0
     assert tr.sched_scalars(0)["w_aux"] == 0.01
-    for bad in (["auxiliary.clip_model_id=/nowhere/clip"],
-                ["auxiliary.type=shap_e"]):
-        with pytest.raises(NotImplementedError):
-            build_trainer(load_config(CORGI, SMALL + bad), device="cpu")
-    # the image-to-3D block is ported: a missing image file raises
-    for bad in (["init.type=point_e"], ["image.path=/nowhere/a.png"]):
+    with pytest.raises(NotImplementedError):
+        build_trainer(load_config(CORGI, SMALL + ["auxiliary.type=shap_e"]),
+                      device="cpu")
+    # the image-to-3D block and the CLIP text vector are ported: a missing
+    # image file or CLIP directory raises
+    for bad in (["init.type=point_e"], ["image.path=/nowhere/a.png"],
+                ["auxiliary.clip_model_id=/nowhere/clip"]):
         with pytest.raises(FileNotFoundError):
             build_trainer(load_config(CORGI, SMALL + bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="init_asset"):
+    with pytest.raises(KeyError, match="init_asset"):
         build_trainer(load_config(CORGI, SMALL + ["init.type=point_cloud"]),
                       device="cpu")
 

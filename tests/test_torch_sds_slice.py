@@ -173,7 +173,7 @@ def test_config_guidance_selection(tmp_path, monkeypatch):
         assert g.cfg.rgb_as_latents and g.cfg.guidance_scale == 20.0
     for bad in (TINY_SD + ["guidance.weights_path=/nonexistent/sd21"],
                 ["prompt.model_id=/nonexistent/clip"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(FileNotFoundError):
             build_trainer(load_config(base, SMALL + bad), device="cpu")
     with pytest.raises(ValueError):
         build_trainer(load_config(base, SMALL + [

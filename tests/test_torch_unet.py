@@ -306,8 +306,8 @@ def test_backbone_from_jax_params_matches_jax(tiny_j):
     lat = rng.standard_normal((1, 8, 8, 4)).astype(np.float32) * 0.2
     _close(bb.decode_latents(t(lat)).numpy(),
            tiny_j.decode_latents(tiny_j.params, jnp.asarray(lat)))
-    with pytest.raises(NotImplementedError):
-        load_diffusers_weights("/nonexistent/sd21")
+    with pytest.raises(FileNotFoundError, match="no .safetensors"):
+        load_diffusers_weights("/nonexistent/sd21", device="cpu")
 
 
 def test_bf16_compute_dtype_tracks_fp32():
