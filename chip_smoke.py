@@ -190,6 +190,27 @@ Phases, each reported on its own line:
    vector decoder), each with its init seconds, then 2 mock steps at
    capacity 65,536;
 
+17. the tools around a trained scene, each at its own full size: (a)
+   tools/demo_recon.py's 400-step recipe (64^2, batch 4, capacity
+   16,384, densify and prune at 100 / 200 / 300) with K1-K4's counters
+   read around it and its first view through K1-K4 against plain; the
+   orbit PSNR must reach 29.0 dB (the JAX package's chip bar); (b) a
+   base.yaml checkpoint (capacity 65,536, mock, 3 steps) written through
+   gsgen_torch.main, then the snapshot CLI (photos at 1024^2, a 90-frame
+   spiral at 512^2) as subprocesses, and in process the stills, the
+   spiral and 30 relit frames at 512^2 with the counters read, every
+   render's n_dup within dup_cap, the first still through K1-K4 against
+   plain, the normals' time; (c) the viewer on port 0: /, /render at
+   256 / 512 / 1024^2, four at once, /stats, each image decoded; (d) the
+   rehearsal on a random SD 2.1 diffusers directory (512^2, batch 4,
+   bf16, 10 steps, eval every 5; K5 5 a step); (e) make_init_asset
+   point_e on seeded random checkpoints into a temporary
+   GSGEN_ASSET_DIR, then init.type=point_e from that file; (f) PSNR /
+   SSIM / LPIPS at 512^2 on random .pth files, (g) undistort on 2^20
+   points, (h) one Adan step over base.yaml's fields at capacity 65,536,
+   each card against the CPU; (i) a two-config sweep of smoke.yaml
+   through run_sweep_scheduled on one slot;
+
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
 """
@@ -260,6 +281,13 @@ class SmokeFailure(Exception):
     pass
 
 
+def fail(msg):
+    """Report a failed check on both streams: a caller that keeps only
+    the end of one of them still reads why."""
+    print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+
+
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
@@ -291,17 +319,16 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("FAIL: torch.cuda.is_available() is false", flush=True)
+        fail("torch.cuda.is_available() is false")
         return 1
     if not (ROOT / "gsgen_torch" / "csrc").is_dir():
-        print("FAIL: the gsgen_torch package is not beside chip_smoke.py",
-              flush=True)
+        fail("the gsgen_torch package is not beside chip_smoke.py")
         return 1
     sys.path.insert(0, str(ROOT))
     try:
         return run(torch)
     except SmokeFailure as e:
-        print(f"FAIL: {e}", flush=True)
+        fail(str(e))
         return 1
 
 
@@ -1503,6 +1530,13 @@ def run(torch) -> int:
         weights["a"]["launches"]["flash_attn_fwd"]
     torch.cuda.empty_cache()
 
+    # ---- phase 17: the tools around a trained scene ----
+    tools = tools_phases(torch, dev, build_trainer, load_config, wrappers,
+                         card, check_recorded)
+    sampling["k5_launches"]["17 d rehearsal, 10 steps"] = \
+        tools["d"]["launches"]["flash_attn_fwd"]
+    torch.cuda.empty_cache()
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1602,6 +1636,7 @@ def run(torch) -> int:
                       "sampling": sampling, "image": image,
                       "weights": {k: v for k, v in weights.items()
                                   if k != "k5"},
+                      "tools": tools,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -3786,16 +3821,18 @@ def word_ids(texts, lo, hi, length, start=None, end=None, pad=0,
     return ids, mask
 
 
-def sd15_directory(torch, folder, dev):
-    """A random SD 1.5 diffusers directory: unet/ in fp16, vae/ in fp32,
-    text_encoder/ the ViT-L/14 text tower in fp32 (config.json beside),
-    and clip_textvec/: the same tower with a text_projection (Point-E's
-    and Shap-E's text vector).  Returns the tensors written."""
-    from gsgen_torch.guidance.sd_unet import SD15, SDUNetBackbone
+def sd_directory(torch, folder, dev, preset="sd15"):
+    """A random diffusers directory of ``preset`` (sd15 | sd21): unet/ in
+    fp16, vae/ in fp32; for SD 1.5 also text_encoder/, the ViT-L/14 text
+    tower in fp32 (config.json beside), and clip_textvec/: the same tower
+    with a text_projection (Point-E's and Shap-E's text vector).  Returns
+    the tensors written."""
+    from gsgen_torch.guidance.sd_unet import SD15, SD21, SDUNetBackbone
     from gsgen_torch.prompt import clip
 
     gen = torch.Generator(device=dev).manual_seed(40)
-    bb = SDUNetBackbone(SD15, latent_size=64, device=dev, generator=gen)
+    bb = SDUNetBackbone(dict(sd15=SD15, sd21=SD21)[preset], latent_size=64,
+                        device=dev, generator=gen)
     written = {}
     for name, dt in (("unet", torch.float16), ("vae", torch.float32)):
         written[name] = {k: v.to(dt).cpu() for k, v in
@@ -3804,6 +3841,8 @@ def sd15_directory(torch, folder, dev):
                           "diffusion_pytorch_model.safetensors",
                           written[name])
     del bb
+    if preset != "sd15":
+        return written
     c = clip.SD15_TEXT
     hf = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
               intermediate_size=c.intermediate_size,
@@ -3969,7 +4008,7 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         # ---- a: SD 1.5 through guidance.weights_path ----
         t0 = time.perf_counter()
         sd_dir = folder / "sd15"
-        written = sd15_directory(torch, sd_dir, dev)
+        written = sd_directory(torch, sd_dir, dev)
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         n_read = 0
@@ -4302,6 +4341,576 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
             os.environ["GSGEN_ASSET_DIR"] = old_assets
         shutil.rmtree(folder, ignore_errors=True)
     return res
+
+
+# phase 17: the tools around a trained scene
+DEMO_STEPS = 400
+DEMO_GATE_DB = 29.0      # the JAX package's chip bar (test_quality_gate.py)
+TOOLS_PROMPT = "a corgi"    # base.yaml's prompt: the checkpoint's run name
+SWEEP_SPEC = {"init.num_points": [128, 256]}
+
+
+def lpips_files(torch, folder, seed):
+    """Random-weight LPIPS files: a torchvision-AlexNet-shaped state dict
+    and an lpips ``alex.pth``.  Returns their paths."""
+    from gsgen_torch.utils.metrics import _ALEX, _ALEX_FEATURES
+    g = torch.Generator().manual_seed(seed)
+    alex, lin, in_ch = {}, {}, 3
+    for i, (fidx, (out_ch, k, _, _, _)) in enumerate(zip(_ALEX_FEATURES,
+                                                         _ALEX)):
+        fan = in_ch * k * k
+        alex[f"features.{fidx}.weight"] = torch.randn(
+            out_ch, in_ch, k, k, generator=g) * math.sqrt(2.0 / fan)
+        alex[f"features.{fidx}.bias"] = torch.randn(out_ch, generator=g) * 0.01
+        lin[f"lin{i}.model.1.weight"] = torch.rand(1, out_ch, 1, 1,
+                                                   generator=g) * 0.1
+        in_ch = out_ch
+    paths = folder / "alexnet.pth", folder / "alex.pth"
+    torch.save(alex, paths[0])
+    torch.save(lin, paths[1])
+    return [str(p) for p in paths]
+
+
+def tools_phases(torch, dev, build_trainer, load_config, wrappers, card,
+                 check_view):
+    """Phase 17: the tools around a trained scene, each at its own full
+    size (module docstring, item 17)."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import types
+    import urllib.request
+
+    import numpy as np
+
+    import gsgen_torch.io.viewer as viewer_mod
+    import gsgen_torch.tools.relight as relight_mod
+    import gsgen_torch.tools.snapshot as snapshot_mod
+    from gsgen_torch import main as main_mod
+    from gsgen_torch.io.logging import read_png
+    from gsgen_torch.models.scene import scene_normals
+    from gsgen_torch.ops.camera import CameraIntrinsics
+    from gsgen_torch.tools import demo_recon, rehearsal, undistort
+    from gsgen_torch.training import adan
+    from gsgen_torch.utils import metrics, sweep
+
+    res = {}
+    folder = Path(tempfile.mkdtemp(prefix="gsgen_tools_"))
+    procs = []
+
+    def zero():
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    def render_launches(n_fwd, n_bwd=0, k5=0):
+        """K1, K3, K4 once a render, K2 once a backward, K5 as given."""
+        want = dict(raster_fwd=n_fwd, expansion_rank=n_fwd, gid_repack=n_fwd,
+                    raster_bwd=n_bwd, flash_attn_fwd=k5)
+        return {k: v for k, v in want.items() if v}
+
+    def shim(intr, rcfg):
+        """What check_view reads of a trainer, for a render outside one."""
+        return types.SimpleNamespace(
+            data=types.SimpleNamespace(intrinsics=lambda: intr), rcfg=rcfg)
+
+    n_dups = []
+
+    def dup_checked(mod):
+        """Wrap ``mod.render_view``: every render's n_dup <= dup_cap."""
+        orig = mod.render_view
+
+        def call(params, active, c2w, intr, cfg, *a, **kw):
+            out = orig(params, active, c2w, intr, cfg, *a, **kw)
+            n = int(out["n_dup"])
+            n_dups.append(n)
+            require(n <= cfg.dup_cap, f"phase 17: a {intr.w}^2 render needs "
+                    f"{n} duplicates, over dup_cap {cfg.dup_cap}")
+            return out
+        mod.render_view = call
+        return lambda: setattr(mod, "render_view", orig)
+
+    def spawn(label, args, env=None):
+        log = open(folder / f"{label}.log", "w")
+        p = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=log,
+                             stderr=subprocess.STDOUT,
+                             env={**os.environ, **(env or {})})
+        procs.append((label, p, log, time.perf_counter()))
+
+    def reap():
+        out = {}
+        for label, p, log, t0 in procs:
+            rc = p.wait(timeout=600)
+            out[label] = dict(rc=rc, s=time.perf_counter() - t0)
+            log.close()
+            text = (folder / f"{label}.log").read_text()
+            require(rc == 0, f"phase 17 {label}: exit code {rc}: "
+                    + text[-1500:])
+            out[label]["log"] = text
+        procs.clear()
+        return out
+
+    try:
+        # ---- a: demo_recon, the full recipe, against the 29 dB gate ----
+        held = {}
+        demo_trainer = demo_recon.Trainer
+
+        class Recorded(demo_trainer):
+            """The demo's Trainer, recording step 0's first view."""
+
+            def train_step(self, step):
+                if step:
+                    return super().train_step(step)
+                rec, restore = record_render_inputs(torch)
+                try:
+                    return super().train_step(step)
+                finally:
+                    restore()
+                    held.update(rec=rec, trainer=self)
+
+        demo_recon.Trainer = Recorded
+        try:
+            zero()
+            t0 = time.perf_counter()
+            psnr = demo_recon.main(str(folder / "demo_recon.png"),
+                                   steps=DEMO_STEPS, device="cuda")
+            torch.cuda.synchronize()
+            demo_s = time.perf_counter() - t0
+        finally:
+            demo_recon.Trainer = demo_trainer
+        launches = counts()
+        renders = 3 * 6 + 2 * 4 * DEMO_STEPS   # strips; views + targets
+        want = render_launches(renders, 4 * DEMO_STEPS)
+        require(launches == want, f"17 a: launches {launches}, expected "
+                f"{want}")
+        tr = held["trainer"]
+        live = int(tr.state.scene.active.sum())
+        note = check_view("17 a demo step 0 view 0", held["rec"], tr)
+        require(math.isfinite(psnr) and psnr >= DEMO_GATE_DB,
+                f"17 a: orbit PSNR {psnr:.2f} dB < {DEMO_GATE_DB} dB")
+        strip = read_png(folder / "demo_recon.png")
+        require(strip.shape == (3 * 96, 6 * 96, 3),
+                f"17 a: strip {strip.shape}")
+        res["a"] = dict(psnr_db=psnr, s=demo_s, steps=DEMO_STEPS,
+                        ms_per_step=1e3 * demo_s / DEMO_STEPS, live=live,
+                        launches=launches, kernel_note=note)
+        print(f"phase 17 a demo_recon: ok | card {card} | {DEMO_STEPS} "
+              f"steps at 64^2, batch 4, capacity 16,384, densify and prune "
+              f"at 100/200/300: orbit PSNR {psnr:.2f} dB (gate "
+              f"{DEMO_GATE_DB}) in {demo_s:.2f} s "
+              f"({res['a']['ms_per_step']:.2f} ms/step, strips included), "
+              f"{live} live | launches {launches} | first view through "
+              f"K1-K4 against plain: {note}", flush=True)
+        del held, tr
+        torch.cuda.empty_cache()
+
+        # ---- b: a base.yaml checkpoint through gsgen_torch.main ----
+        t0 = time.perf_counter()
+        rc = main_mod.main(["--config", str(ROOT / "configs" / "base.yaml"),
+                            "--steps", "3", "--log-root", str(folder / "runs"),
+                            "guidance.type=mock"])
+        ckpt_s = time.perf_counter() - t0
+        require(rc == 0, f"17 b: gsgen_torch.main returned {rc}")
+        ckpts = sorted(folder.glob("runs/*/*/*/ckpts/step_3"))
+        require(len(ckpts) == 1, f"17 b: checkpoints {ckpts}")
+        ckpt = str(ckpts[0])
+
+        # the CLIs as subprocesses, side by side: stills, the spiral, a
+        # Point-E asset, a sweep (they overlap the CPU work below)
+        tool = ["-m", "gsgen_torch.tools.snapshot"]
+        spawn("photos", [*tool, "photos", ckpt, "--reso", "1024", "--out",
+                         str(folder / "stills")])
+        spawn("spiral", [*tool, "spiral", ckpt, "--frames", "90", "--reso",
+                         "512", "--out", str(folder / "spiral.mp4")])
+        pe = point_e_checkpoints(torch, folder)
+        assets = folder / "assets"
+        spawn("make_init_asset", [
+            "-m", "gsgen_torch.tools.make_init_asset", "point_e",
+            POINT_E_PROMPT, "--base", str(pe["base40M-textvec"]),
+            "--upsample", str(pe["upsample"])],
+            env={"GSGEN_ASSET_DIR": str(assets)})
+        cfg_paths = sweep.generate_sweep_configs(
+            str(ROOT / "configs" / "smoke.yaml"), SWEEP_SPEC,
+            out_dir=str(folder / "sweep"))
+        sweep_out = {}
+
+        def run_sweep():
+            t = time.perf_counter()
+            sweep_out["results"] = sweep.run_sweep_scheduled(
+                cfg_paths, slots=[{"CUDA_VISIBLE_DEVICES": "0",
+                                   "PYTHONPATH": str(ROOT)}],
+                steps=2, log_root=str(folder / "sweep_runs"), poll_s=0.25)
+            sweep_out["s"] = time.perf_counter() - t
+
+        sweep_thread = threading.Thread(target=run_sweep)
+        sweep_thread.start()
+
+        # CPU references while the subprocesses run: f, g, h
+        gen = torch.Generator().manual_seed(17)
+        lp = lpips_files(torch, folder, 17)
+        pred = torch.rand(512, 512, 3, generator=gen)
+        target = torch.clamp(pred + 0.1 * torch.randn(512, 512, 3,
+                                                      generator=gen), 0, 1)
+        m_cpu = metrics.Metrics(lpips_weights_path=":".join(lp))(pred, target)
+        uv = (torch.rand(1 << 20, 2, generator=gen) - 0.5) * 1.2
+        rt = torch.tensor([0.1, -0.05, 0.01, -0.02, 0.01, 0.02, -0.01,
+                           0.005])
+        fish = torch.tensor([0.05, -0.01, 0.004, -0.001])
+        und_fns = dict(
+            rt=(undistort.opencv_lens_distortion,
+                undistort.opencv_lens_undistortion, rt),
+            fisheye=(undistort.opencv_lens_distortion_fisheye,
+                     undistort.opencv_lens_undistortion_fisheye, fish))
+        und_cpu = {}
+        for k, (dist, inv, p) in und_fns.items():
+            d = dist(uv, p)
+            und_cpu[k] = (d, inv(d, p))
+
+        trainer = build_trainer(load_config(ROOT / "configs" / "base.yaml",
+                                            ["guidance.type=mock"]),
+                                device="cuda")
+        step = trainer.load(ckpt)
+        require(step == 3, f"17 b: the checkpoint is step {step}")
+        scene, rcfg = trainer.state.scene, trainer.rcfg
+        cap = scene.params["mean"].shape[0]
+        require(cap == 65536, f"17 b: capacity {cap}")
+        fields = {k: v.detach().cpu() for k, v in scene.params.items()}
+        grads = {k: torch.randn(v.shape, generator=gen)
+                 for k, v in fields.items()}
+        adan_cpu = adan.adan_update(grads, adan.adan_init(fields), fields,
+                                    1e-3, weight_decay=0.01)
+        runs = reap()
+        sweep_thread.join(timeout=600)
+        require(not sweep_thread.is_alive(), "17 i: the sweep did not end")
+
+        # the CLIs' outputs
+        stills = sorted(p.name for p in (folder / "stills").iterdir())
+        require(stills == sorted(f"{n}_{k}.png" for n in
+                                 ("front", "left", "right")
+                                 for k in ("rgb", "depth")),
+                f"17 b: stills {stills}")
+        front_cli = read_png(folder / "stills" / "front_rgb.png")
+        require(front_cli.shape == (1024, 1024, 4),
+                f"17 b: front still {front_cli.shape}")
+        spiral = folder / "spiral"
+        frames = sorted(spiral.iterdir()) if spiral.is_dir() else []
+        if frames:       # no imageio: PNG frames
+            require(len(frames) == 90 and read_png(frames[0]).shape ==
+                    (512, 1024, 3), f"17 b: spiral {len(frames)} frames")
+        else:
+            require((folder / "spiral.mp4").exists()
+                    or (folder / "spiral.gif").exists(),
+                    "17 b: no spiral written")
+
+        # in process: launches, n_dup, K1 against plain, times
+        restores = [dup_checked(m) for m in (snapshot_mod, relight_mod,
+                                             viewer_mod)]
+        try:
+            zero()
+            rec, restore = record_render_inputs(torch)
+            try:
+                t0 = time.perf_counter()
+                shots = snapshot_mod.take_photos(scene, rcfg, reso=1024)
+                torch.cuda.synchronize()
+                photos_s = time.perf_counter() - t0
+            finally:
+                restore()
+            t0 = time.perf_counter()
+            frames = snapshot_mod.take_spiral(scene, rcfg, n_frames=90,
+                                              reso=512)
+            spiral_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            relit = relight_mod.relight_frames(scene, rcfg, n_frames=30,
+                                               reso=512)
+            relight_s = time.perf_counter() - t0
+            launches = counts()
+            want = render_launches(3 + 90 + 30)
+            require(launches == want, f"17 b: launches {launches}, expected "
+                    f"{want}")
+            normals_ms = events_ms(torch, lambda: scene_normals(
+                scene.params, scene.active, rcfg), iters=3)
+            note = check_view("17 b front still 1024^2", rec,
+                              shim(CameraIntrinsics.from_reso(1024), rcfg))
+            front = np.clip(shots["front"]["rgb"], 0, 1)
+            diff = int(np.abs((front * 255).astype(np.uint8).astype(int)
+                              - front_cli).max())
+            require(diff <= 1, f"17 b: the CLI's front still differs by "
+                    f"{diff} of 255 from the in-process one")
+            require(frames.shape == (90, 512, 1024, 3) and relit.shape ==
+                    (30, 512, 512, 3) and np.isfinite(relit).all(),
+                    f"17 b: spiral {frames.shape}, relit {relit.shape}")
+            require(float(np.abs(relit[0] - relit[7]).max()) > 1e-3,
+                    "17 b: the relit frames do not change with the light")
+            b_dups = list(n_dups)
+            res["b"] = dict(
+                ckpt_s=ckpt_s, photos_s=photos_s,
+                s_per_still=photos_s / 3, spiral_s=spiral_s,
+                spiral_fps=90 / spiral_s, relight_s=relight_s,
+                relight_fps=30 / relight_s, normals_ms=normals_ms,
+                n_dup_max=max(b_dups), dup_cap=rcfg.dup_cap,
+                launches=launches, kernel_note=note, cli_s={
+                    k: round(v["s"], 2) for k, v in runs.items()})
+            print(f"phase 17 b snapshot relight: ok | card {card} | base.yaml "
+                  f"checkpoint (capacity 65,536, mock, 3 steps) through "
+                  f"gsgen_torch.main in {ckpt_s:.2f} s | CLIs photos 1024^2 / "
+                  f"spiral 90 frames 512^2 rc 0 in {runs['photos']['s']:.1f} "
+                  f"/ {runs['spiral']['s']:.1f} s (side by side, process "
+                  f"start included); the CLI's front still within "
+                  f"{diff}/255 of the in-process one | in process: "
+                  f"{res['b']['s_per_still']:.3f} s a 1024^2 still, spiral "
+                  f"{res['b']['spiral_fps']:.1f} frames/s, relight 30 frames "
+                  f"{res['b']['relight_fps']:.1f} frames/s, normals "
+                  f"{normals_ms:.1f} ms once a call | n_dup max "
+                  f"{max(b_dups)} of dup_cap {rcfg.dup_cap} | launches "
+                  f"{launches} | first still through K1-K4 against plain: "
+                  f"{note}", flush=True)
+
+            # ---- c: the viewer ----
+            n_dups.clear()
+            viewer = viewer_mod.SceneViewer(scene, rcfg, port=0)
+            viewer.update_state(scene, step=step)
+            viewer.serve(blocking=False)
+            base = f"http://localhost:{viewer.port}"
+            # straight to the local server, whatever proxy the environment
+            # names
+            opener = urllib.request.build_opener(
+                urllib.request.ProxyHandler({}))
+
+            def get(path):
+                t = time.perf_counter()
+                with opener.open(base + path, timeout=120) as r:
+                    body, ctype = r.read(), r.headers["Content-Type"]
+                return body, ctype, 1e3 * (time.perf_counter() - t)
+
+            def decode(body, ctype, reso):
+                if ctype == "image/png":
+                    p = folder / "view.png"
+                    p.write_bytes(body)
+                    img = read_png(p)
+                else:
+                    require(ctype == "image/jpeg" and body[:2] == b"\xff\xd8",
+                            f"17 c: {ctype}")
+                    import io
+
+                    from PIL import Image
+                    img = np.array(Image.open(io.BytesIO(body)))
+                require(img.shape == (reso, reso, 3) and img.max() > 0,
+                        f"17 c: image {img.shape}")
+
+            try:
+                zero()
+                page, _, page_ms = get("/")
+                require(b"gsgen-torch viewer" in page, "17 c: the page")
+                req_ms = {}
+                for reso in (256, 512, 1024):
+                    body, ctype, ms = get(f"/render?azimuth=30&elevation=20"
+                                          f"&distance=2.5&reso={reso}")
+                    decode(body, ctype, reso)
+                    req_ms[reso] = ms
+                t0 = time.perf_counter()
+                with concurrent.futures.ThreadPoolExecutor(4) as ex:
+                    outs = list(ex.map(lambda az: get(
+                        f"/render?azimuth={az}&elevation=10&distance=2.5"
+                        "&reso=512"), (0, 45, 90, 135)))
+                conc_s = time.perf_counter() - t0
+                for body, ctype, _ in outs:
+                    decode(body, ctype, 512)
+                stats = json.loads(get("/stats")[0])
+                require(stats == {"num_gaussians": int(scene.active.sum()),
+                                  "step": 3}, f"17 c: stats {stats}")
+                launches = counts()
+                want = render_launches(7)
+                require(launches == want, f"17 c: launches {launches}, "
+                        f"expected {want}")
+            finally:
+                viewer.httpd.shutdown()
+                viewer.httpd.server_close()
+            res["c"] = dict(content_type=ctype, page_ms=page_ms,
+                            render_ms=req_ms,
+                            concurrent_ms=[o[2] for o in outs],
+                            concurrent_wall_s=conc_s,
+                            n_dup_max=max(n_dups), launches=launches)
+            print(f"phase 17 c viewer: ok | card {card} | port "
+                  f"{viewer.port}, {ctype} | / {page_ms:.1f} ms | /render "
+                  + ", ".join(f"{r}^2 {ms:.1f} ms" for r, ms in req_ms.items())
+                  + f" | 4 concurrent at 512^2: "
+                  f"{[round(o[2], 1) for o in outs]} ms, {conc_s:.3f} s "
+                  f"wall | /stats {stats} | n_dup max {max(n_dups)} | "
+                  f"launches {launches}", flush=True)
+        finally:
+            for r in restores:
+                r()
+
+        # ---- f, g, h: card against the CPU ----
+        m_card = metrics.Metrics(lpips_weights_path=":".join(lp))(
+            pred.to(dev), target.to(dev))
+        m_err = {k: abs(float(m_card[k]) - float(m_cpu[k])) for k in m_cpu}
+        require(m_err["psnr"] <= 1e-4 and m_err["ssim"] <= 1e-5 and
+                m_err["lpips"] <= 1e-4 * abs(float(m_cpu["lpips"])),
+                f"17 f: card vs CPU {m_err}")
+        params = metrics.load_lpips_params(*lp)
+        lpips_ms = events_ms(torch, lambda: metrics.lpips(
+            pred.to(dev), target.to(dev), params))
+        res["f"] = dict(cpu={k: float(v) for k, v in m_cpu.items()},
+                        err=m_err, lpips_ms=lpips_ms)
+        print(f"phase 17 f metrics: ok | card {card} | 512^2, random "
+              f"LPIPS .pth files: psnr {float(m_cpu['psnr']):.4f}, ssim "
+              f"{float(m_cpu['ssim']):.6f}, lpips "
+              f"{float(m_cpu['lpips']):.6f} on the CPU; card errors "
+              f"{ {k: f'{v:.2e}' for k, v in m_err.items()} } (limits 1e-4 "
+              f"dB, 1e-5, rel 1e-4) | LPIPS {lpips_ms:.3f} ms on the card",
+              flush=True)
+
+        und = {}
+        uv_d = uv.to(dev)
+        for k, (dist, inv, p) in und_fns.items():
+            d_cpu, u_cpu = und_cpu[k]
+            d = dist(uv_d, p.to(dev))
+            u = inv(d, p.to(dev))
+            e_d = float((d.cpu() - d_cpu).abs().max())
+            e_u = float((u.cpu() - u_cpu).abs().max())
+            r_t = float((u.cpu() - uv).abs().max())
+            require(e_d <= 1e-6 and e_u <= 1e-5 and r_t <= 1e-4,
+                    f"17 g {k}: card vs CPU {e_d:.2e} / {e_u:.2e}, round "
+                    f"trip {r_t:.2e}")
+            ms = events_ms(torch, lambda: inv(dist(uv_d, p.to(dev)),
+                                              p.to(dev)))
+            und[k] = dict(err_distort=e_d, err_undistort=e_u,
+                          round_trip=r_t, ms=ms)
+        res["g"] = und
+        print(f"phase 17 g undistort: ok | card {card} | 2^20 points: "
+              + " | ".join(f"{k}: card vs CPU {v['err_distort']:.1e} / "
+                           f"{v['err_undistort']:.1e}, round trip "
+                           f"{v['round_trip']:.1e}, distort + 10 Newton "
+                           f"steps {v['ms']:.3f} ms" for k, v in und.items()),
+              flush=True)
+
+        fields_d = {k: v.to(dev) for k, v in fields.items()}
+        grads_d = {k: v.to(dev) for k, v in grads.items()}
+        new_d, st_d = adan.adan_update(grads_d, adan.adan_init(fields_d),
+                                       fields_d, 1e-3, weight_decay=0.01)
+        a_err = max(float(((new_d[k].cpu() - adan_cpu[0][k]).abs()
+                           / (1.0 + adan_cpu[0][k].abs())).max())
+                    for k in fields)
+        require(a_err <= 1e-6, f"17 h: Adan card vs CPU {a_err:.2e} "
+                "(relative to 1 + |p|)")
+        st0 = adan.adan_init(fields_d)
+        adan_ms = events_ms(torch, lambda: adan.adan_update(
+            grads_d, st0, fields_d, 1e-3, weight_decay=0.01))
+        res["h"] = dict(err=a_err, ms=adan_ms, fields=sorted(fields))
+        print(f"phase 17 h adan: ok | card {card} | one step over "
+              f"{sorted(fields)} at capacity 65,536: card vs CPU "
+              f"{a_err:.1e} | {adan_ms:.3f} ms", flush=True)
+        del trainer, scene, fields_d, grads_d, new_d, st_d, st0
+        torch.cuda.empty_cache()
+
+        # ---- e: make_init_asset, then init.type=point_e from the asset --
+        import hashlib
+        name = ("point_e_" + hashlib.md5(POINT_E_PROMPT.encode()).hexdigest()
+                [:16] + ".npz")
+        require(sorted(p.name for p in assets.iterdir()) == [name],
+                f"17 e: assets {sorted(assets.iterdir())}")
+        require(f"wrote {assets / name}" in runs["make_init_asset"]["log"],
+                "17 e: the CLI named another file")
+        old_assets = os.environ.get("GSGEN_ASSET_DIR")
+        os.environ["GSGEN_ASSET_DIR"] = str(assets)
+        try:
+            t0 = time.perf_counter()
+            tr = build_trainer(load_config(
+                ROOT / "configs" / "base.yaml",
+                ["guidance.type=mock", "init.type=point_e",
+                 f"prompt.prompt={POINT_E_PROMPT}"]), device="cuda")
+            init_s = time.perf_counter() - t0
+        finally:
+            if old_assets is None:
+                os.environ.pop("GSGEN_ASSET_DIR", None)
+            else:
+                os.environ["GSGEN_ASSET_DIR"] = old_assets
+        live = int(tr.state.scene.active.sum())
+        require(live > 0, "17 e: the point_e init has no live Gaussian")
+        res["e"] = dict(cli_s=runs["make_init_asset"]["s"], file=name,
+                        init_s=init_s, live=live)
+        print(f"phase 17 e make_init_asset: ok | card {card} | point_e on "
+              f"seeded random base40M-textvec + upsample .pt (64 + 64 "
+              f"Karras steps) in {runs['make_init_asset']['s']:.1f} s "
+              f"(process start included) -> {name}; init.type=point_e "
+              f"from it with no checkpoint in {init_s:.2f} s, {live} live",
+              flush=True)
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- i: the sweep ----
+        got = sweep_out["results"]
+        require(sorted(r["config"] for r in got) == sorted(cfg_paths)
+                and all(r["returncode"] == 0 for r in got),
+                f"17 i: sweep results {got}")
+        runs_i = sorted((folder / "sweep_runs").glob("*/*/*/scalars.jsonl"))
+        require(len(runs_i) == 2 and all(math.isfinite(json.loads(
+            p.read_text().splitlines()[0])["loss_total"]) for p in runs_i),
+            f"17 i: sweep run logs {runs_i}")
+        res["i"] = dict(s=sweep_out["s"], returncodes=[r["returncode"]
+                                                       for r in got])
+        print(f"phase 17 i sweep: ok | card {card} | 2 configs of "
+              f"configs/smoke.yaml ({SWEEP_SPEC}), 2 steps each, one slot "
+              f"(CUDA_VISIBLE_DEVICES=0): return codes "
+              f"{res['i']['returncodes']} in {sweep_out['s']:.1f} s "
+              f"(side by side with b's CLIs)", flush=True)
+
+        # ---- d: the rehearsal on a random SD 2.1 directory ----
+        t0 = time.perf_counter()
+        sd_directory(torch, folder / "sd21", dev, preset="sd21")
+        write_s = time.perf_counter() - t0
+        cfg = rehearsal.build_rehearsal_config(
+            "a corgi", 10, sd_path=folder / "sd21", reso=512)
+        cfg["prompt"]["use_cache"] = False
+        out = folder / "rehearsal"
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = rehearsal.run(cfg, out, eval_every=5,
+                               log=lambda *a: None, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        want = render_launches(4 * 10 + 2, 4 * 10, k5=5 * 10)
+        require(launches == want, f"17 d: launches {launches}, expected "
+                f"{want}")
+        lines = [json.loads(x) for x in
+                 (out / "scalars.jsonl").read_text().splitlines()]
+        require(len(lines) == 10 and all(
+            math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+            and x["grad_norm"] > 0 for x in lines),
+            f"17 d: scalars {lines}")
+        evals = sorted(p.name for p in out.glob("eval_*.png"))
+        require(evals == ["eval_00005.png", "eval_00010.png"],
+                f"17 d: eval images {evals}")
+        res["d"] = dict(write_s=write_s, run_s=run_s, losses=losses,
+                        grad_norms=[x["grad_norm"] for x in lines],
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches=launches)
+        print(f"phase 17 d rehearsal: ok | card {card} | a random SD 2.1 "
+              f"diffusers directory written in {write_s:.1f} s; --sd on it, "
+              f"512^2, batch 4, bf16, 10 steps, eval every 5 in "
+              f"{run_s:.2f} s (build and weights included) | losses "
+              f"{[round(x, 5) for x in losses]} | grad norms "
+              f"{[round(x['grad_norm'], 4) for x in lines]} | peak "
+              f"{res['d']['peak_gib']:.2f} GiB | launches {launches} (K5 "
+              f"5 a step)", flush=True)
+    finally:
+        for _, p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(folder, ignore_errors=True)
+    return res
+
 
 
 if __name__ == "__main__":

@@ -5,14 +5,16 @@ layout: ``<root>/<prompt>/<date>/<time>/{ckpts,eval,logs}`` plus
 ``scalars.jsonl`` (one JSON object a logged step), ``config.json`` and the
 code snapshot (``code_snapshot.tar.gz`` of the git-tracked files).
 
-Images are written by the port's own PNG writer (:func:`write_png`,
-``zlib`` and ``struct`` of the standard library), so eval images exist on
-every machine; :func:`read_png` reads the image-to-3D input the same way
-(8-bit grey, grey + alpha, RGB or RGBA, any of the five row filters).  TensorBoard event files go to ``logs/`` where
-``torch.utils.tensorboard`` imports, as in the JAX package.  Orbit videos
-need ``imageio``: where it is missing, the frames are written as PNGs under
-``eval/<name>_<step>/`` instead, and one printed line says which form was
-written.
+Images are written by the port's own PNG encoder (:func:`encode_png`, RGB
+or RGBA; :func:`write_png` writes its bytes to a file; ``zlib`` and
+``struct`` of the standard library), so eval images exist on every
+machine; :func:`read_png` reads the image-to-3D input the same way (8-bit
+grey, grey + alpha, RGB or RGBA, any of the five row filters).
+TensorBoard event files go to ``logs/`` where
+``torch.utils.tensorboard`` imports, as in the JAX package.  Videos
+(:func:`write_video`) need ``imageio``: where it is missing, the frames are
+written as PNGs in a directory instead (orbits: ``eval/<name>_<step>/``),
+and the run's printed line says which form was written.
 """
 
 from __future__ import annotations
@@ -33,27 +35,35 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
-def write_png(path, img: np.ndarray) -> str:
-    """[H, W, 3] uint8 (or [H, W, 3] float in [0, 1]) -> an 8-bit RGB PNG,
-    every row with filter 0 (None)."""
+def encode_png(img: np.ndarray) -> bytes:
+    """[H, W, 3] or [H, W, 4] uint8 (or float in [0, 1]) -> the bytes of an
+    8-bit RGB or RGBA PNG (colour type 2 or 6), every row with filter 0
+    (None)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         img = _to_u8(img)
+    if img.ndim != 3 or img.shape[-1] not in (3, 4):
+        raise ValueError(f"encode_png takes [H, W, 3|4], got {img.shape}")
     h, w, c = img.shape
-    if c != 3:
-        raise ValueError(f"write_png takes [H, W, 3], got {img.shape}")
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          np.ascontiguousarray(img).reshape(h, w * 3)],
+                          np.ascontiguousarray(img).reshape(h, w * c)],
                          axis=1).tobytes()
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-    Path(path).write_bytes(png)
+    colour = 2 if c == 3 else 6
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0,
+                                         0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path, img: np.ndarray) -> str:
+    """[H, W, 3 | 4] uint8 (or float in [0, 1]) -> an 8-bit RGB or RGBA PNG
+    file (:func:`encode_png`)."""
+    Path(path).write_bytes(encode_png(img))
     return str(path)
 
 
@@ -142,6 +152,35 @@ def read_png(path) -> np.ndarray:
     return img.reshape(h, w) if c == 1 else img.reshape(h, w, c)
 
 
+def write_video(path, frames: np.ndarray, fps: int = 15,
+                frames_dir=None) -> str:
+    """frames [T, H, W, 3] uint8 (or float in [0, 1]) -> ``path`` (an
+    ``.mp4``, or a ``.gif``; an mp4 that imageio cannot write becomes a gif
+    beside it) with imageio; without imageio, PNG frames
+    ``frame_0000.png ...`` under ``frames_dir`` (default: ``path`` without
+    its suffix).  Returns what was written."""
+    frames = np.asarray(frames)
+    u8 = frames if frames.dtype == np.uint8 else _to_u8(frames)
+    path = Path(path)
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        d = Path(frames_dir) if frames_dir else path.with_suffix("")
+        d.mkdir(parents=True, exist_ok=True)
+        for i, frame in enumerate(u8):
+            write_png(d / f"frame_{i:04d}.png", frame)
+        return str(d)
+    try:
+        if path.suffix == ".gif":
+            imageio.mimwrite(path, u8, duration=1000.0 / fps, loop=0)
+        else:
+            imageio.mimwrite(path, u8, fps=fps)
+    except Exception:
+        path = path.with_suffix(".gif")
+        imageio.mimwrite(path, u8, duration=1000.0 / fps, loop=0)
+    return str(path)
+
+
 class RunLogger:
     def __init__(self, root="checkpoints", name: str = "run",
                  use_tensorboard: bool = True):
@@ -184,30 +223,17 @@ class RunLogger:
                   fps: int = 15, fmt: str = "mp4") -> str:
         """frames [T, H, W, 3] float in [0, 1] -> eval/<name>_<step>.mp4
         (a gif where ffmpeg is missing) with imageio, or PNG frames under
-        eval/<last part of name>_<step>/ without it."""
-        u8 = _to_u8(frames)
-        safe = name.replace("/", "_")
-        try:
-            import imageio.v2 as imageio
-        except ImportError:
-            d = self.eval_dir / f"{name.split('/')[-1]}_{step:06d}"
-            d.mkdir(parents=True, exist_ok=True)
-            for i, frame in enumerate(u8):
-                write_png(d / f"frame_{i:04d}.png", frame)
+        eval/<last part of name>_<step>/ without it (:func:`write_video`)."""
+        out = write_video(
+            self.eval_dir / f"{name.replace('/', '_')}_{step:06d}.{fmt}",
+            frames, fps,
+            frames_dir=self.eval_dir / f"{name.split('/')[-1]}_{step:06d}")
+        if Path(out).is_dir():
             print(f"eval video step {step}: imageio is not installed, "
-                  f"{len(u8)} PNG frames written to {d}", flush=True)
-            return str(d)
-        path = self.eval_dir / f"{safe}_{step:06d}.{fmt}"
-        try:
-            if fmt == "gif":
-                imageio.mimwrite(path, u8, duration=1000.0 / fps, loop=0)
-            else:
-                imageio.mimwrite(path, u8, fps=fps)
-        except Exception:
-            path = self.eval_dir / f"{safe}_{step:06d}.gif"
-            imageio.mimwrite(path, u8, duration=1000.0 / fps, loop=0)
-        print(f"eval video step {step}: {path}", flush=True)
-        return str(path)
+                  f"{len(frames)} PNG frames written to {out}", flush=True)
+        else:
+            print(f"eval video step {step}: {out}", flush=True)
+        return out
 
     def save_config(self, blob: Dict):
         (self.dir / "config.json").write_text(

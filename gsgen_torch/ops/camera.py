@@ -53,6 +53,17 @@ class CameraIntrinsics:
         return cls(fx=float(reso), fy=float(reso), cx=reso / 2.0,
                    cy=reso / 2.0, w=reso, h=reso, near=near, far=far)
 
+    @classmethod
+    def from_fov(cls, fov: float, aspect: float, resolution: int,
+                 near: float = 0.01, far: float = 1000.0):
+        """``fov`` (radians) is the horizontal field of view; W =
+        ``resolution``, H = ``int(resolution / aspect)``."""
+        w = resolution
+        h = int(resolution / aspect)
+        cx, cy = w / 2.0, h / 2.0
+        f = cx / math.tan(fov / 2.0)
+        return cls(fx=f, fy=f, cx=cx, cy=cy, w=w, h=h, near=near, far=far)
+
 
 def get_frustum(c2w: torch.Tensor, intr: CameraIntrinsics
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

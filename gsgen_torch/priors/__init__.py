@@ -278,7 +278,7 @@ def point_e_generate(prompt: str, num_points: int = 4096,
                      clip_model_dir: Optional[str] = None,
                      karras_steps: Tuple[int, int] = (64, 64),
                      base_cfg=None, up_cfg=None, device="cuda",
-                     ) -> Tuple[np.ndarray, np.ndarray]:
+                     seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Text -> coloured point cloud (xyz [N, 3], rgb [N, 3] in [0, 1]).
 
     Resolution order, as in the JAX package:
@@ -287,7 +287,8 @@ def point_e_generate(prompt: str, num_points: int = 4096,
     2. the in-process two-stage sampler on ``device``
        (:mod:`.point_e_sampler`) when a base checkpoint is given, here or
        by ``GSGEN_POINT_E_BASE`` (the upsampler's by
-       ``GSGEN_POINT_E_UPSAMPLE``); the cloud is written to the cache;
+       ``GSGEN_POINT_E_UPSAMPLE``), drawing from a generator seeded
+       ``seed``; the cloud is written to the cache;
     3. otherwise ``FileNotFoundError``.
 
     ``clip_model_dir`` (or ``GSGEN_CLIP_DIR``), a local CLIP directory,
@@ -307,7 +308,7 @@ def point_e_generate(prompt: str, num_points: int = 4096,
     if base_weights is not None:
         xyz, rgb = _point_e_sample_in_process(
             prompt, base_weights, upsample_weights, clip_model_dir,
-            karras_steps, base_cfg, up_cfg, device)
+            karras_steps, base_cfg, up_cfg, device, seed)
         p.parent.mkdir(parents=True, exist_ok=True)
         np.savez(p, xyz=xyz, rgb=rgb)
         return xyz[:num_points], rgb[:num_points]
@@ -324,10 +325,10 @@ def point_e_generate(prompt: str, num_points: int = 4096,
 
 def _point_e_sample_in_process(prompt, base_weights, upsample_weights,
                                clip_model_dir, karras_steps, base_cfg, up_cfg,
-                               device):
+                               device, seed=0):
     """The two-stage sampler on checkpoints, on the prompt's CLIP text
     vector (a zero one without ``clip_model_dir``), with its draws from a
-    generator seeded 0 (the JAX package's key)."""
+    generator seeded ``seed``."""
     import torch
 
     from ..guidance.point_e import (BASE40M_TEXTVEC, UPSAMPLE_CFG,
@@ -345,7 +346,7 @@ def _point_e_sample_in_process(prompt, base_weights, upsample_weights,
         textvec = _clip_textvec(clip_model_dir, prompt, device)[None]
     sampler = PointESampler(base, up, PointESamplerConfig(
         karras_steps=tuple(karras_steps)))
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(seed)
     return sampler.sample_to_cloud(textvec, generator=gen)
 
 

@@ -835,3 +835,75 @@ def test_t5_and_bert_on_card_match_cpu(cuda):
         assert torch.isfinite(got).all()
         err = float((got - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_demo_recon_gate_on_card(cuda, tmp_path):
+    """The reconstruction demo's 400-step recipe on the card must reach the
+    JAX package's chip bar, 29.0 dB orbit PSNR."""
+    from gsgen_torch.tools import demo_recon
+    psnr = demo_recon.main(str(tmp_path / "recon.png"), steps=400,
+                           device="cuda")
+    assert psnr >= 29.0, f"card recon gate: {psnr:.2f} dB < 29.0"
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    """Random LPIPS weights at 128^2, batch 2: the card within rel 1e-4 of
+    the CPU (fp32, TF32 off); PSNR within 1e-4 dB, SSIM within 1e-5."""
+    from gsgen_torch.utils import metrics
+    params = metrics.init_lpips_params(torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    a = torch.rand(2, 128, 128, 3, generator=gen)
+    b = torch.clamp(a + 0.1 * torch.randn(a.shape, generator=gen), 0, 1)
+    want = metrics.lpips(a, b, params)
+    got = metrics.lpips(a.to(cuda), b.to(cuda), params).cpu()
+    assert torch.allclose(got, want, rtol=1e-4, atol=0)
+    m_cpu = metrics.Metrics()(a[0], b[0])
+    m_card = metrics.Metrics()(a[0].to(cuda), b[0].to(cuda))
+    assert abs(float(m_card["psnr"]) - float(m_cpu["psnr"])) <= 1e-4
+    assert abs(float(m_card["ssim"]) - float(m_cpu["ssim"])) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["rt", "fisheye"])
+def test_undistort_on_card_matches_cpu(cuda, kind):
+    """2^16 points: distortion within 1e-6, the Newton inverse within 1e-5
+    of the CPU, and back to the input within 1e-4."""
+    from gsgen_torch.tools import undistort as und
+    uv = (torch.rand(1 << 16, 2, generator=torch.Generator().manual_seed(3))
+          - 0.5) * 1.2
+    if kind == "rt":
+        fns = und.opencv_lens_distortion, und.opencv_lens_undistortion
+        p = torch.tensor([0.1, -0.05, 0.01, -0.02, 0.01, 0.02, -0.01, 0.005])
+    else:
+        fns = (und.opencv_lens_distortion_fisheye,
+               und.opencv_lens_undistortion_fisheye)
+        p = torch.tensor([0.05, -0.01, 0.004, -0.001])
+    d_cpu = fns[0](uv, p)
+    u_cpu = fns[1](d_cpu, p)
+    d = fns[0](uv.to(cuda), p.to(cuda))
+    u = fns[1](d, p.to(cuda))
+    assert float((d.cpu() - d_cpu).abs().max()) <= 1e-6
+    assert float((u.cpu() - u_cpu).abs().max()) <= 1e-5
+    assert float((u.cpu() - uv).abs().max()) <= 1e-4
+
+
+def test_viewer_render_on_card(cuda, tmp_path, monkeypatch):
+    """A viewer render on the card, PNG-encoded (as where PIL is missing):
+    the bytes decode, and the pixels are within 1 of 255 of the CPU
+    viewer's."""
+    import sys
+    from gsgen_torch.io.logging import read_png
+    from gsgen_torch.io.viewer import SceneViewer
+    from gsgen_torch.models.scene import scene_from_numpy
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    s = scene3d(3000, seed=4, capacity=4096, mean_std=0.4, svec=0.03)
+    rcfg = RenderConfig(dup_cap=1 << 16, chunk=128)
+    imgs = {}
+    for d in ("cpu", "cuda"):
+        v = SceneViewer(scene_from_numpy(s, d), rcfg)
+        assert v.content_type == "image/png"
+        (tmp_path / f"{d}.png").write_bytes(v.render(
+            azimuth=40, elevation=25, distance=2.5, reso=256, fov=50.0))
+        imgs[d] = read_png(tmp_path / f"{d}.png")
+    assert imgs["cuda"].shape == (256, 256, 3) and imgs["cuda"].max() > 60
+    assert np.abs(imgs["cuda"].astype(int) - imgs["cpu"]).max() <= 1
