@@ -210,6 +210,22 @@ Phases, each reported on its own line:
    points, (h) one Adan step over base.yaml's fields at capacity 65,536,
    each card against the CPU; (i) a two-config sweep of smoke.yaml
    through run_sweep_scheduled on one slot;
+18. parallel (gsgen_torch.parallel), at base.yaml's render (512^2, tile
+   16, chunk 256, dup_cap 2^20) on base.yaml's initial scene (capacity
+   65,536) and on the bench scene (100K Gaussians, capacity 131,072):
+   (a) one process, NCCL at world size 1: the tile-sharded and the
+   Gaussian-sharded render and gradients of each scene's view against the
+   unsharded render (images exact, gradients within 1e-5 of each field's
+   largest), the data x tile render of 4 views, one Gaussian-sharded and
+   one gauss x tile Adam step against the unsharded step, 2 steps of
+   base.yaml (mock) with tile_mesh against 2 without; K1-K4's launches
+   read from the counters; (b) two ranks on the one card over gloo, each
+   rendering its 256-row slab of the bench view through K1-K4: the
+   gathered image, the all-reduced tile-sharded and the reduce-scattered
+   Gaussian-sharded gradients against the unsharded render, each slab's
+   forward and backward device time, 4 Gaussian-sharded steps (ms/step)
+   with a densify and a prune event; (c) dryrun_multichip over every card
+   (NCCL, one rank a card);
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -1537,6 +1553,11 @@ def run(torch) -> int:
         tools["d"]["launches"]["flash_attn_fwd"]
     torch.cuda.empty_cache()
 
+    # ---- phase 18: tile-, data- and Gaussian-sharded rendering ----
+    parallel = parallel_phases(torch, dev, build_trainer, load_config,
+                               wrappers, card)
+    torch.cuda.empty_cache()
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1578,6 +1599,8 @@ def run(torch) -> int:
                            shapes="13 d: base.yaml + PBR render_normal, "
                                   "first view of step 0")}
                if k in RASTER else {}),
+            **({"slab_launches": parallel["launches"][k]}
+               if k in parallel["launches"] else {}),
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
                    "2^20)",
             bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
@@ -1636,7 +1659,7 @@ def run(torch) -> int:
                       "sampling": sampling, "image": image,
                       "weights": {k: v for k, v in weights.items()
                                   if k != "k5"},
-                      "tools": tools,
+                      "tools": tools, "parallel": parallel,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
@@ -4911,6 +4934,376 @@ def tools_phases(torch, dev, build_trainer, load_config, wrappers, card,
         shutil.rmtree(folder, ignore_errors=True)
     return res
 
+
+
+def sharded_vs_one(torch, scene, c2w, intr, rcfg, tmesh, gmesh, wrappers):
+    """One view rendered tile-sharded over ``tmesh`` and Gaussian-sharded
+    over ``gmesh`` (the scene interleaved, then this rank's shard), each
+    with the gradients of mean(rgb^2) + mean(T), against the unsharded
+    render on this process: image errors, gradient errors over each
+    field's largest gradient, the kernels' launches of each sharded
+    render (forward and backward) and its duplicates."""
+    from gsgen_torch.models.scene import render_view
+    from gsgen_torch.parallel import gaussian_sharded as gs
+    from gsgen_torch.parallel import mesh as pm
+    from gsgen_torch.parallel import sharded_render as sr
+
+    bg = torch.ones(3, device=c2w.device)
+
+    def run(render, params):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        out = render(p)
+        loss = torch.mean(out["rgb"] ** 2) + torch.mean(out["T"])
+        g = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        return out, dict(zip(p, g))
+
+    def counted(render, params):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out, g = run(render, params)
+        return out, g, {k: w.launches for k, w in wrappers.items()}
+
+    def errors(out, g, ref_out, ref_g, keys):
+        e = {k: float((out[k] - ref_out[k]).detach().abs().max())
+             for k in keys}
+        e.update({f"grad_{k}": float((g[k] - ref_g[k]).abs().max()
+                                     / ref_g[k].abs().max().clamp_min(1e-30))
+                  for k in g})
+        return e
+
+    ref_out, ref_g = run(lambda p: render_view(p, scene.active, c2w, intr,
+                                               rcfg, bg), scene.params)
+    res = dict(n_dup=int(ref_out["n_dup"]))
+    out, g, n = counted(lambda p: sr.render_view_tile_sharded(
+        p, scene.active, c2w, intr, rcfg, bg, tmesh), scene.params)
+    res["tile"] = dict(errors(out, g, ref_out, ref_g,
+                              ("rgb", "T", "depth", "radii2d")),
+                       launches=n, n_dup=int(out["n_dup"]),
+                       visible_equal=bool(torch.equal(out["visible"],
+                                                      ref_out["visible"])))
+    D, d = pm.axis_size(gmesh, "gauss"), pm.axis_rank(gmesh, "gauss")
+    sh = gs.shard_scene(gs.interleave_shards(scene, D), gmesh)
+    own = {k: pm.shard_rows(v, D, d) for k, v in
+           gs.interleave_shards(ref_g, D).items()}
+    ref_rows = dict(ref_out, radii2d=pm.shard_rows(gs.interleave_shards(
+        ref_out["radii2d"], D), D, d))
+    out, g, n = counted(lambda p: gs.render_view_gaussian_sharded(
+        p, sh.active, c2w, intr, rcfg, bg, gmesh), sh.params)
+    res["gauss"] = dict(errors(out, g, ref_rows, own,
+                               ("rgb", "T", "depth", "radii2d")),
+                        launches=n, n_dup=int(out["n_dup"]))
+    return res
+
+
+def _slab_rank(rank, folder, device):
+    """Phase 18 b on one of two ranks sharing ``device`` (gloo): the bench
+    scene's 512^2 view, this rank's 256-row slab through K1-K4, checked
+    against the unsharded render; the slab's forward and backward device
+    time; 4 Gaussian-sharded steps with a densify and a prune event."""
+    import torch
+
+    from gsgen_torch.models.density import DensifyConfig, PruneConfig
+    from gsgen_torch.models.init import InitConfig, initialize
+    from gsgen_torch.models.scene import RenderConfig, render_view
+    from gsgen_torch.ops import cuda_raster, expansion_rank, gid_repack
+    from gsgen_torch.ops.camera import CameraIntrinsics
+    from gsgen_torch.parallel import collectives as col
+    from gsgen_torch.parallel import gaussian_sharded as gs
+    from gsgen_torch.parallel import mesh as pm
+    from gsgen_torch.parallel import sharded_render as sr
+    from gsgen_torch.training.optimizer import adam_init
+    from gsgen_torch.utils.precision import exact_fp32
+
+    exact_fp32()
+    dev = torch.device(device)
+    wrappers = dict(raster_fwd=cuda_raster.raster_fwd,
+                    raster_bwd=cuda_raster.raster_bwd,
+                    expansion_rank=expansion_rank.expansion_gid,
+                    gid_repack=gid_repack.repack_gid)
+    rcfg = RenderConfig(**PARALLEL_RENDER)
+    intr = CameraIntrinsics.from_reso(512)
+    c2w = torch.tensor(C2W_FRONT, device=dev)
+    scene = anisotropic(torch, initialize(
+        InitConfig(**PARALLEL_SCENE), rcfg,
+        torch.Generator(device=dev).manual_seed(0), dev), 1)
+    tmesh = pm.make_mesh(2, ("tile",))
+    gmesh = pm.make_mesh(2, ("gauss",))
+    res = sharded_vs_one(torch, scene, c2w, intr, rcfg, tmesh, gmesh,
+                         wrappers)
+    # broadcast (replicate): rank 0's values on both
+    res["replicated"] = pm.replicate(
+        torch.full((4,), float(rank), device=dev), tmesh).tolist()
+
+    # the slab alone, and the whole view, on this rank: forward and
+    # backward spans between events (the other rank shares the card)
+    slab_h, slab_intr = sr.slab_intrinsics(intr, rcfg, 2)
+    bg = torch.ones(3, device=dev)
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in scene.params.items()}
+
+    def spans(view_intr, **kw):
+        fwd_ms, bwd_ms = [], []
+        for i in range(6):
+            s0, s1, s2 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+            torch.cuda.synchronize()
+            s0.record()
+            out = render_view(p, scene.active, c2w, view_intr, rcfg, bg,
+                              **kw)
+            loss = torch.mean(out["rgb"] ** 2) + torch.mean(out["T"])
+            s1.record()
+            torch.autograd.grad(loss, list(p.values()))
+            s2.record()
+            torch.cuda.synchronize()
+            if i:                   # the first is a warm-up
+                fwd_ms.append(s0.elapsed_time(s1))
+                bwd_ms.append(s1.elapsed_time(s2))
+        return dict(n_dup=int(out["n_dup"]), fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+    res["slab"] = dict(spans(slab_intr, cull_intr=intr,
+                             pixel_offset_y=rank * slab_h),
+                       rows=[rank * slab_h, (rank + 1) * slab_h])
+    res["full_view"] = spans(intr)
+
+    # 4 Gaussian-sharded steps; a densify event after step 1 (every live
+    # Gaussian a clone candidate), a prune event after step 2
+    st = gs.shard_scene(gs.interleave_shards(scene, 2), gmesh)
+    opt = gs.shard_scene(gs.interleave_shards(adam_init(scene.params), 2),
+                         gmesh)
+    step = gs.gaussian_sharded_train_step(gmesh, intr, rcfg)
+    densify = gs.sharded_density_step(
+        gmesh, DensifyConfig(mean2d_thresh=1e-4, split_thresh=1e9,
+                             use_legacy=False), PruneConfig(), rcfg)
+    prune = gs.sharded_density_step(
+        gmesh, DensifyConfig(enabled=False),
+        PruneConfig(enabled=True, alpha_thresh=0.5, radii2d_thresh=0.0),
+        rcfg)
+    group = pm.axis_group(gmesh, "gauss")
+
+    def live():
+        return int(col.all_reduce(st.active.sum().reshape(1), group))
+
+    steps = dict(live=[live()], ms=[], losses=[], events={})
+    for s in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(st.params, st.active, opt, c2w, bg)
+        torch.cuda.synchronize()
+        steps["ms"].append(1e3 * (time.perf_counter() - t0))
+        st = dataclasses.replace(st, params=params)
+        steps["losses"].append(float(loss))
+        if s in (1, 2):
+            if s == 1:
+                st = dataclasses.replace(
+                    st, grad_accum=torch.full_like(st.grad_accum, 10.0),
+                    grad_cnt=torch.ones_like(st.grad_cnt))
+            st, opt, info = (densify if s == 1 else prune)(st, opt, 0.0,
+                                                           0.5)
+            steps["events"][s] = info
+            steps["live"].append(live())
+    steps["moments_rows"] = int(opt.mu["mean"].shape[0])
+    res["steps"] = steps
+    (Path(folder) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def anisotropic(torch, scene, seed):
+    """``scene`` with seeded random rotations, per-axis scales (times
+    U(0.5, 1.5)) and opacities (logit U(-1, 2)) on its live rows: an
+    isotropic scene's rotation gradient is rounding noise."""
+    dev = scene.active.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = scene.active.nonzero()[:, 0]
+    n = idx.shape[0]
+    p = {k: v.clone() for k, v in scene.params.items()}
+    p["qvec"][idx] = torch.randn(n, 4, generator=gen, device=dev)
+    p["svec"][idx] += torch.log(0.5 + torch.rand(n, 3, generator=gen,
+                                                 device=dev))
+    p["alpha"][idx] = 3.0 * torch.rand(n, generator=gen, device=dev) - 1.0
+    return dataclasses.replace(scene, params=p)
+
+
+C2W_FRONT = [[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, -2.5]]
+# PERF.md's bench scene (100K Gaussians at 512^2) with free capacity for
+# the density events, rendered as configs/base.yaml renders (tile 16,
+# chunk 256, dup_cap 2^20)
+PARALLEL_SCENE = dict(num_points=100_000, capacity=131_072, mean_std=0.6,
+                      svec_val=0.01, alpha_val=0.8)
+PARALLEL_RENDER = dict(tile_size=16, chunk=256, dup_cap=1 << 20)
+
+
+def parallel_phases(torch, dev, build_trainer, load_config, wrappers, card):
+    """Phase 18: the parallel layouts on the card (module docstring, item
+    18): (a) one process, NCCL at world size 1; (b) two ranks on the one
+    card over gloo; (c) dryrun_multichip on every card there is."""
+    import os
+    import tempfile
+
+    from gsgen_torch.models.init import InitConfig, initialize
+    from gsgen_torch.models.scene import RenderConfig, render_view
+    from gsgen_torch.ops.camera import CameraIntrinsics
+    from gsgen_torch.parallel import gaussian_sharded as gs
+    from gsgen_torch.parallel import mesh as pm
+    from gsgen_torch.parallel import sharded_render as sr
+    from gsgen_torch.parallel.dryrun import dryrun_multichip
+    from gsgen_torch.training.optimizer import adam_init, adam_update
+
+    res = {}
+    raster = {k: wrappers[k] for k in PER_VIEW["padded"]}
+    rcfg = RenderConfig(**PARALLEL_RENDER)
+    intr = CameraIntrinsics.from_reso(512)
+    c2w = torch.tensor(C2W_FRONT, device=dev)
+    bench = anisotropic(torch, initialize(
+        InitConfig(**PARALLEL_SCENE), rcfg,
+        torch.Generator(device=dev).manual_seed(0), dev), 1)
+    cfg = load_config(ROOT / "configs" / "base.yaml", ["guidance.type=mock"])
+    probe = build_trainer(cfg, device="cuda")
+    cam = probe.data.get_batch()
+    base = anisotropic(torch, probe.state.scene, 2)
+    base_c2w = torch.as_tensor(cam["c2w"][0], device=dev)
+
+    def within(r, img_tol, grad_tol, label):
+        for layout in ("tile", "gauss"):
+            e = {k: v for k, v in r[layout].items()
+                 if isinstance(v, float)}
+            require(all(v <= (grad_tol if k.startswith("grad") else img_tol)
+                        for k, v in e.items()),
+                    f"{label} {layout}: errors {e}")
+            require(r[layout]["n_dup"] == r["n_dup"],
+                    f"{label} {layout}: n_dup {r[layout]['n_dup']} against "
+                    f"{r['n_dup']}")
+            n = r[layout]["launches"]
+            require(all(n[k] >= 1 for k in PER_VIEW["padded"]),
+                    f"{label} {layout}: launches {n}")
+        require(r["tile"]["visible_equal"], f"{label} tile: visible")
+
+    # ---- a: one process, NCCL at world size 1 ----
+    tmp = tempfile.mkdtemp(prefix="gsgen_nccl1_")
+    t0 = time.perf_counter()
+    require(pm.init_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                                backend="nccl"), "18 a: no process group")
+    try:
+        tmesh = pm.make_mesh(1, ("tile",))
+        gmesh = pm.make_mesh(1, ("gauss",))
+        dtmesh = pm.make_mesh(1, ("data", "tile"), shape=(1, 1))
+        a = {}
+        for label, scene, view in (("base.yaml", base, base_c2w),
+                                   ("bench 100K", bench, c2w)):
+            r = sharded_vs_one(torch, scene, view, intr, rcfg, tmesh, gmesh,
+                               raster)
+            within(r, 1e-6, 1e-5, f"18 a {label}")
+            a[label] = r
+        # the 2-D data x tile render of the trainer's 4 views
+        c2ws = torch.as_tensor(cam["c2w"], device=dev)
+        bgs = torch.ones(len(c2ws), 3, device=dev)
+        with torch.no_grad():
+            rgb = sr.render_batch_data_tile_sharded(
+                base.params, base.active, c2ws, intr, rcfg, bgs, dtmesh)
+            want = torch.stack([render_view(base.params, base.active, c,
+                                            intr, rcfg, b, rgb_only=True)
+                                ["rgb"] for c, b in zip(c2ws, bgs)])
+        a["data x tile rgb err"] = float((rgb - want).abs().max())
+        require(a["data x tile rgb err"] == 0.0,
+                f"18 a data x tile: {a['data x tile rgb err']}")
+        # train steps: one Gaussian-sharded and one gauss x tile Adam step
+        # against the same step unsharded; the trainer with tile_mesh
+        bg = torch.ones(3, device=dev)
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in bench.params.items()}
+        out = render_view(p, bench.active, c2w, intr, rcfg, bg)
+        loss = torch.mean(out["rgb"] ** 2) + torch.mean(out["T"])
+        g = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        want, _ = adam_update(g, adam_init(bench.params), bench.params, 1e-2)
+        gtmesh = pm.make_mesh(1, ("gauss", "tile"), shape=(1, 1))
+        for name, step in (
+                ("gaussian-sharded", gs.gaussian_sharded_train_step(
+                    gmesh, intr, rcfg)),
+                ("gauss x tile", gs.gauss_tile_train_step(
+                    gtmesh, intr, rcfg))):
+            got, _, l_got = step(bench.params, bench.active,
+                                 adam_init(bench.params), c2w, bg)
+            moved = {k: float((got[k] - want[k]).abs().max()) for k in got}
+            a[f"{name} step"] = dict(loss=float(l_got),
+                                     loss_unsharded=float(loss.detach()),
+                                     param_max_diff=moved)
+            l_one = float(loss.detach())
+            require(abs(float(l_got) - l_one) <= 1e-6 * abs(l_one)
+                    and all(v <= 2e-2 for v in moved.values()),
+                    f"18 a {name} step: loss {float(l_got)} against "
+                    f"{l_one}, params {moved}")
+        one = build_trainer(cfg, device="cuda")
+        sharded = build_trainer(cfg, device="cuda")
+        sharded.tile_mesh = tmesh
+        for w in wrappers.values():
+            w.launches = 0
+        m_s = [sharded.train_step(s) for s in range(2)]
+        launches = {k: wrappers[k].launches for k in PER_VIEW["padded"]}
+        m_1 = [one.train_step(s) for s in range(2)]
+        l_s = [float(m["loss_total"]) for m in m_s]
+        l_1 = [float(m["loss_total"]) for m in m_1]
+        a["trainer with tile_mesh"] = dict(losses=l_s, unsharded=l_1,
+                                           launches=launches)
+        require(all(abs(x - y) <= 1e-5 * abs(y) for x, y in zip(l_s, l_1))
+                and launches["raster_fwd"] == 8
+                and launches["raster_bwd"] == 8,
+                f"18 a trainer with tile_mesh: {a['trainer with tile_mesh']}")
+    finally:
+        torch.distributed.destroy_process_group()
+    a["s"] = time.perf_counter() - t0
+    res["a"] = a
+    del probe, one, sharded
+    torch.cuda.empty_cache()
+    print(f"phase 18 a nccl world 1: ok | card {card} | "
+          + " | ".join(f"{k}: {v}" for k, v in a.items()), flush=True)
+
+    # ---- b: two ranks on the one card (gloo) ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gsgen_slabs_") as folder:
+        pm.spawn_ranks(_slab_rank, 2, folder, str(dev), device_type="cuda",
+                       backend="gloo")
+        ranks = [json.loads((Path(folder) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    b = dict(s=time.perf_counter() - t0, ranks=ranks)
+    for r, rr in enumerate(ranks):
+        within(rr, 1e-5, 1e-4, f"18 b rank {r}")
+        require(rr["replicated"] == [0.0] * 4,
+                f"18 b rank {r}: replicate gave {rr['replicated']}")
+        st = rr["steps"]
+        require(all(math.isfinite(x) for x in st["losses"])
+                and st["events"]["1"]["num_clone"] > 0
+                and st["live"][1] > st["live"][0] > st["live"][2] > 0
+                and st["moments_rows"] == PARALLEL_SCENE["capacity"] // 2,
+                f"18 b rank {r} steps: {st}")
+    res["b"] = b
+    print(f"phase 18 b two ranks on one card: ok | card {card} | "
+          + " | ".join(
+              f"rank {r}: rows {rr['slab']['rows']} n_dup "
+              f"{rr['slab']['n_dup']} slab fwd "
+              f"{min(rr['slab']['fwd_ms']):.3f} ms bwd "
+              f"{min(rr['slab']['bwd_ms']):.3f} ms, whole view fwd "
+              f"{min(rr['full_view']['fwd_ms']):.3f} ms bwd "
+              f"{min(rr['full_view']['bwd_ms']):.3f} ms (min of 5 spans) "
+              f"| tile "
+              f"{rr['tile']} | gauss {rr['gauss']} | steps {rr['steps']}"
+              for r, rr in enumerate(ranks)), flush=True)
+
+    # ---- c: the dry run on every card ----
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    dryrun_multichip(n, device_type="cuda")
+    res["c"] = dict(ranks=n, s=time.perf_counter() - t0)
+    res["launches"] = {k: {
+        **{f"a {lab} {lay}": a[lab][lay]["launches"][k]
+           for lab in ("base.yaml", "bench 100K") for lay in ("tile",
+                                                             "gauss")},
+        **{f"b rank {r} {lay}": rr[lay]["launches"][k]
+           for r, rr in enumerate(ranks) for lay in ("tile", "gauss")}}
+        for k in PER_VIEW["padded"]}
+    print(f"phase 18 c dryrun_multichip: ok | {n} rank(s), "
+          f"{res['c']['s']:.1f} s", flush=True)
+    return res
 
 
 if __name__ == "__main__":

@@ -18,13 +18,18 @@ the live means (``normal_type: estimated``) or learned; they do not depend
 on the view, so ``render_batch`` computes them once for its views.
 
 Both binning layouts are ported (``binning_layout``: padded | compact,
-chosen as the JAX package chooses them).  Tile-sharded rendering
-(``tile_mesh``) is not ported yet and raises ``NotImplementedError``.
+chosen as the JAX package chooses them).  A slab of rows renders as the
+full camera with a smaller height: ``cull_intr`` culls with the full
+camera and ``pixel_offset_y`` shifts the slab's first row, which is how
+:mod:`..parallel` splits a view.  ``render_batch(tile_mesh=...)`` renders
+each view tile-sharded over the mesh's ``tile`` axis
+(:func:`..parallel.sharded_render.render_view_tile_sharded`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -191,11 +196,25 @@ def make_scene(mean, qvec, svec, color, alpha, cfg: RenderConfig,
                       grad_accum=zeros.clone(), grad_cnt=zeros.clone())
 
 
-def scene_from_numpy(arrays: Dict[str, np.ndarray], device) -> SceneState:
+def scene_from_numpy(arrays: Dict[str, np.ndarray], device,
+                     shard: Optional[Tuple[int, int]] = None) -> SceneState:
     """SceneState from the JAX package's raw fields as numpy arrays
     (``mean qvec svec color alpha``, ``specular`` / ``normal`` where given,
     optional ``active`` and the densify statistics; missing ones default
-    to all-active and zeros)."""
+    to all-active and zeros).
+
+    ``shard=(rank, D)`` builds rank's part of a Gaussian-sharded state
+    from an unsharded scene: the rows are interleaved
+    (:func:`..parallel.gaussian_sharded.interleave_shards`), then the rank
+    keeps its contiguous 1/D of them."""
+    if shard is not None:
+        from ..parallel.gaussian_sharded import interleave_shards
+        from ..parallel.mesh import shard_rows
+        rank, D = shard
+        arrays = interleave_shards({k: np.asarray(v) for k, v in
+                                    arrays.items() if v is not None}, D)
+        arrays = {k: shard_rows(v, D, rank) for k, v in arrays.items()}
+
     def tens(x, dtype=torch.float32):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
@@ -240,7 +259,9 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
                 fx=None, fy=None, cx=None, cy=None, rgb_only: bool = False,
                 mean2d_tap: Optional[torch.Tensor] = None,
                 light_pos=None, light_color=None,
-                normals: Optional[torch.Tensor] = None
+                normals: Optional[torch.Tensor] = None,
+                cull_intr: Optional[CameraIntrinsics] = None,
+                pixel_offset_y: int = 0
                 ) -> Dict[str, torch.Tensor]:
     """Render one view on the device of ``params``.
 
@@ -251,6 +272,11 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
     are float32 arrays.  ``light_pos`` / ``light_color`` [3] turn on the
     PBR specular term; ``normals`` [M,3] passes in :func:`scene_normals`
     when the caller has them already.
+
+    A tile-sharded slab passes ``intr`` with the slab's height, the full
+    camera as ``cull_intr`` (a slab's own frustum would cull its content)
+    and its first row as ``pixel_offset_y``; the binning layout then
+    follows the slab's own tile count.
     """
     check_supported(cfg)
     dev = params["mean"].device
@@ -280,7 +306,7 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
             _f32(light_pos, dev), _f32(light_color, dev), normals,
             torch.sigmoid(params["specular"]), mean, c2w[:3, 3])
 
-    normals_f, pts = get_frustum(c2w, intr)
+    normals_f, pts = get_frustum(c2w, cull_intr or intr)
     radii = torch.amax(svec, dim=-1) * cfg.frustum_culling_radius
     cull = sphere_in_frustum(mean, radii, normals_f, pts)
     proj = project_gaussians(mean, qvec, svec, c2w,
@@ -300,7 +326,8 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
         mean2d.detach(), proj.cov2d.detach(), proj.depth.detach(), vis,
         fx, fy, cx, cy, intr.w, intr.h, cfg.tile_size, cfg.dup_cap,
         chunk=chunk, tile_culling_radius=cfg.tile_culling_radius,
-        alpha=alpha.detach(), pad_budget=pad_budget,
+        pixel_offset_y=pixel_offset_y, alpha=alpha.detach(),
+        pad_budget=pad_budget,
         layout=binning_layout(cfg, n_tiles_pad, rgb_only))
 
     if rgb_only:
@@ -313,7 +340,7 @@ def render_view(params: Dict[str, torch.Tensor], active: torch.Tensor,
             feats.append((normals + 1.0) * 0.5)
         feats = torch.cat(feats, dim=-1)
 
-    topleft = (-cx / fx, -cy / fy)
+    topleft = (-cx / fx, (_f32(pixel_offset_y, dev) - cy) / fy)
     psz = (1.0 / fx, 1.0 / fy)
     img, T = rasterize_tiles_cuda(
         mean2d, conic, alpha, feats, bins, topleft, psz, w=intr.w, h=intr.h,
@@ -342,18 +369,22 @@ def render_batch(params, active, c2ws, intr, cfg, bgs, fxs=None, fys=None,
     """:func:`render_view` over a batch of cameras, one view at a time
     (the JAX package's ``lax.map``); outputs stack along a leading [B].
     ``light_pos`` / ``light_color`` [B, 3] give each view's light.  The
-    normals, when a view needs them, are computed once for all views."""
+    normals, when a view needs them, are computed once for all views.
+    ``tile_mesh`` (a device mesh with a ``tile`` axis) renders each view
+    tile-sharded over it; every rank gets the whole images."""
+    view = render_view
     if tile_mesh is not None:
-        raise NotImplementedError("tile_mesh")
+        from ..parallel.sharded_render import render_view_tile_sharded
+        view = functools.partial(render_view_tile_sharded, mesh=tile_mesh)
     normals = (scene_normals(params, active, cfg)
                if _needs_normals(cfg, params, light_pos, rgb_only) else None)
     B = len(c2ws)
     outs = []
     for b in range(B):
         pick = lambda v: None if v is None else v[b]  # noqa: E731
-        outs.append(render_view(
-            params, active, c2ws[b], intr, cfg, bgs[b], pick(fxs),
-            pick(fys), pick(cxs), pick(cys), rgb_only=rgb_only,
+        outs.append(view(
+            params, active, c2ws[b], intr, cfg, bgs[b], fx=pick(fxs),
+            fy=pick(fys), cx=pick(cxs), cy=pick(cys), rgb_only=rgb_only,
             mean2d_tap=pick(mean2d_taps), light_pos=pick(light_pos),
             light_color=pick(light_color), normals=normals))
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

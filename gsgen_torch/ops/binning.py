@@ -86,9 +86,15 @@ def _drop_scatter_max(size: int, idx: torch.Tensor, val: torch.Tensor
 
 def tile_aabbs(mean2d, cov2d, fx, fy, cx, cy, w: int, h: int,
                tile_size: int, tile_culling_radius: float = 6.0,
-               alpha=None):
+               pixel_offset_y: int = 0, alpha=None):
     """Per-Gaussian inclusive tile-space AABB (tl_x, tl_y, br_x, br_y) and
     the overlap mask.
+
+    Pixel bounds are computed in the full image's coordinates and a slab's
+    row offset ``pixel_offset_y`` is subtracted after the int32 truncation
+    (rounding before the shift would move a Gaussian into another tile
+    row), so a Gaussian lands in the same tile row of a full render and of
+    its tile-sharded slab.
 
     Half extents bound the ellipse ``{radial <= D}`` of the CONIC the
     rasterizer evaluates; with ``alpha``, D tightens to the exact support
@@ -114,6 +120,13 @@ def tile_aabbs(mean2d, cov2d, fx, fy, cx, cy, w: int, h: int,
     tl_py = _f32_to_i32((mean2d[..., 1] - hy) * fy + cy)
     br_px = _f32_to_i32((mean2d[..., 0] + hx) * fx + cx)
     br_py = _f32_to_i32((mean2d[..., 1] + hy) * fy + cy)
+    if pixel_offset_y:
+        # saturating, as the casts are: a bound saturated at INT_MIN would
+        # wrap to a large positive row and drop the Gaussian from the slab
+        # (the JAX package wraps here)
+        tl_py, br_py = (torch.clamp(v.to(torch.int64) - pixel_offset_y,
+                                    _INT_MIN, _INT_MAX).to(_I32)
+                        for v in (tl_py, br_py))
     overlaps = ((br_px >= 0) & (tl_px <= w - 1)
                 & (br_py >= 0) & (tl_py <= h - 1))
     if dropped is not None:
@@ -128,11 +141,12 @@ def tile_aabbs(mean2d, cov2d, fx, fy, cx, cy, w: int, h: int,
 def bin_gaussians(mean2d, cov2d, depth, active, fx, fy, cx, cy,
                   w: int, h: int, tile_size: int, cap: int,
                   chunk: int = 256, tile_culling_radius: float = 6.0,
-                  alpha=None, pad_budget=None, layout: str = "padded"
-                  ) -> BinnedTiles:
+                  pixel_offset_y: int = 0, alpha=None, pad_budget=None,
+                  layout: str = "padded") -> BinnedTiles:
     """Bin Gaussians into depth-sorted per-tile segments: chunk-aligned
     copies (``layout="padded"``) or the sorted table as it is
-    (``layout="compact"``)."""
+    (``layout="compact"``).  ``h`` and ``pixel_offset_y`` select a slab of
+    rows ``[pixel_offset_y, pixel_offset_y + h)`` of the full camera."""
     if layout not in ("padded", "compact"):
         raise ValueError(f"binning layout {layout}")
     dev = mean2d.device
@@ -154,7 +168,7 @@ def bin_gaussians(mean2d, cov2d, depth, active, fx, fy, cx, cy,
 
     tl_x, tl_y, br_x, br_y, overlaps = tile_aabbs(
         mean2d, cov2d, fx, fy, cx, cy, w, h, tile_size, tile_culling_radius,
-        alpha=alpha)
+        pixel_offset_y, alpha=alpha)
     width = br_x - tl_x + 1
     height = br_y - tl_y + 1
     counts = torch.where(active & overlaps, width * height,

@@ -48,7 +48,21 @@ MSE of DPT's normal against the rendered normal (it turns
 ``render_normal`` on: 8 composited features).  The gradient flows back
 through DPT into the render.
 
-Not ported: tile-sharded rendering (``tile_mesh``).
+Scale-out (:mod:`..parallel`), every rank running this trainer:
+``tile_mesh`` (a device mesh with a ``tile`` axis) renders each view
+tile-sharded over it, every rank computing the same loss on the whole
+images (the generators, seeded alike, draw alike); the render's gradients
+and the densify statistics are summed (``radii2d`` and ``visible``: their
+maximum) over the slabs, and the bucket policy sees the duplicates summed
+over them, as in the JAX package.  ``data_mesh`` (a ``data`` axis) splits
+each batch's views over its ranks: every rank samples the whole batch and
+keeps its own views, its loss is scaled by 1/D so that the all-reduced
+gradients are those of the mean over all views, the statistics and the
+metrics are reduced over the ranks, and a data rank r > 0 re-seeds its
+generator (seed + r·2^32) after the init so that its views draw noise and
+backgrounds of their own; its density events are then replaced by data
+rank 0's.  The JAX package gets the data-parallel step from its sharded
+inputs; the two meshes may be the axes of one 2-D mesh.
 """
 
 from __future__ import annotations
@@ -71,6 +85,9 @@ from ..models.scene import (FIELDS, OPTIONAL_FIELDS, RenderConfig,
                             SceneState, activate, present_fields,
                             render_batch, scene_from_numpy)
 from ..ops.camera import get_rays_d
+from ..parallel import collectives as col
+from ..parallel.mesh import (axis_group, axis_rank, axis_size, replicate,
+                             shard_batch)
 from ..utils.schedule import C, make_lr_schedule
 from .losses import PENALTIES, pearson_depth_loss, penalty
 from .optimizer import AdamState, adam_init, adam_update
@@ -216,9 +233,12 @@ class Trainer:
                  grad_mask: Optional[torch.Tensor] = None,
                  mask_steps: tuple = (-1, -1),
                  estimators: Optional[Dict[str, Any]] = None,
-                 device="cuda", logger: Optional[Any] = None):
+                 device="cuda", logger: Optional[Any] = None,
+                 tile_mesh: Optional[Any] = None,
+                 data_mesh: Optional[Any] = None):
         """``estimators`` (name -> :class:`..priors.dpt.DPTEstimator`)
-        replace the ones ``cfg.estimators`` would load."""
+        replace the ones ``cfg.estimators`` would load; ``tile_mesh`` and
+        ``data_mesh`` as the module docstring says."""
         for name in cfg.penalty:
             if name not in PENALTIES:
                 raise NotImplementedError(f"penalty {name}")
@@ -250,6 +270,11 @@ class Trainer:
                            points=init_points, colors=init_colors,
                            raw_values=init_raw)
         bg = init_background(bg_cfg, self.generator, self.device)
+        self.tile_mesh = tile_mesh
+        self.data_mesh = data_mesh
+        if data_mesh is not None and axis_rank(data_mesh, "data") > 0:
+            self.generator.manual_seed(
+                cfg.seed + (axis_rank(data_mesh, "data") << 32))
         gp = {k: v.detach().clone() for k, v in getattr(
             self.guidance, "trainable_params", {}).items()}
         self.state = TrainState(
@@ -333,7 +358,8 @@ class Trainer:
         outs = render_batch(params, self.state.scene.active, batch["c2w"],
                             intr, rcfg, bgs, batch["fx"], batch["fy"],
                             batch["cx"], batch["cy"], rgb_only=cfg.rgb_only,
-                            mean2d_taps=taps, **lights)
+                            mean2d_taps=taps, tile_mesh=self.tile_mesh,
+                            **lights)
         embedding = (self.prompt_processor()
                      if self.prompt_processor is not None else None)
         g = self.guidance.loss(outs["rgb"], embedding, batch["elevation"],
@@ -410,6 +436,7 @@ class Trainer:
               for k, v in state.gp.items()}
         leaves = _opt_params(params, bg, gp)
         A = cfg.grad_accum
+        D = 1 if self.data_mesh is None else axis_size(self.data_mesh, "data")
         gsum = {k: torch.zeros_like(v) for k, v in leaves.items()}
         tap_grads, vis_list, radii_list = [], [], []
         for batch in batches:
@@ -420,7 +447,8 @@ class Trainer:
                                              sched, intr, rcfg, prev_mean)
             names = list(leaves)
             grads = torch.autograd.grad(
-                loss, [leaves[k] for k in names] + [taps], allow_unused=True)
+                loss / D, [leaves[k] for k in names] + [taps],
+                allow_unused=True)
             for k, gr in zip(names, grads[:-1]):
                 if gr is not None:
                     gsum[k] = gsum[k] + gr
@@ -429,6 +457,8 @@ class Trainer:
                 vis_list.append(outs["visible"])
                 radii_list.append(outs["radii2d"].detach())
         grads = {k: v / A for k, v in gsum.items()}
+        if D > 1:
+            grads = col.sum_tensors(grads, axis_group(self.data_mesh, "data"))
         if self.grad_mask is not None:
             # freeze the masked rows while the window is on
             # (register_mask, gs/gaussian_splatting.py:341-366)
@@ -450,15 +480,21 @@ class Trainer:
         with torch.no_grad():
             tg = torch.cat(tap_grads, dim=0)                 # [A*B, M, 2]
             gnorm = torch.linalg.norm(tg, dim=-1)
-            grad_accum = scene.grad_accum + torch.sum(gnorm, dim=0)
             if vis_list:
-                vis = torch.cat(vis_list, dim=0)
-                grad_cnt = scene.grad_cnt + torch.sum(vis, dim=0)
+                cnt = torch.sum(torch.cat(vis_list, dim=0), dim=0)
                 r = torch.amax(torch.cat(radii_list, dim=0), dim=0)
-                max_radii2d = torch.maximum(scene.max_radii2d, r)
             else:
-                grad_cnt = scene.grad_cnt + torch.sum(gnorm > 0, dim=0)
-                max_radii2d = scene.max_radii2d
+                cnt, r = torch.sum(gnorm > 0, dim=0), None
+            stats = dict(accum=torch.sum(gnorm, dim=0), cnt=cnt)
+            if D > 1:
+                group = axis_group(self.data_mesh, "data")
+                stats = col.sum_tensors(stats, group)
+                r = None if r is None else col.reduce_max(r, group)
+                metrics = self._reduce_metrics(metrics, group, D)
+            grad_accum = scene.grad_accum + stats["accum"]
+            grad_cnt = scene.grad_cnt + stats["cnt"]
+            max_radii2d = (scene.max_radii2d if r is None
+                           else torch.maximum(scene.max_radii2d, r))
         new_scene = SceneState(
             params={k: new[k] for k in scene.params}, active=scene.active,
             max_radii2d=max_radii2d, grad_accum=grad_accum,
@@ -468,6 +504,18 @@ class Trainer:
         self.state = TrainState(scene=new_scene, bg=new_bg, gp=new_gp,
                                 opt=opt, step=state.step + 1)
         return {k: v.detach() for k, v in metrics.items()}
+
+    @staticmethod
+    def _reduce_metrics(metrics, group, D: int):
+        """Scalar metrics averaged over the data ranks (each a mean over
+        its views, or the same on every rank); ``n_dup_max`` their max."""
+        keys = [k for k in metrics if k != "n_dup_max"]
+        vals = col.all_reduce(torch.stack([
+            torch.as_tensor(metrics[k], dtype=torch.float32).reshape(())
+            for k in keys]), group) / D
+        out = dict(zip(keys, vals.unbind()))
+        out["n_dup_max"] = col.reduce_max(metrics["n_dup_max"], group)
+        return out
 
     def _adjust_dup_bucket(self, n_dup_max: int):
         """Grow on (near-)overflow, shrink after 20 undersubscribed
@@ -496,6 +544,8 @@ class Trainer:
         intr = self.data.intrinsics()
         sched = self.sched_scalars(step)
         batches = [self.data.get_batch() for _ in range(self.cfg.grad_accum)]
+        if self.data_mesh is not None:
+            batches = [shard_batch(b, self.data_mesh) for b in batches]
         # the move penalty's reference: the means before the previous update
         mean = self.state.scene.params["mean"]
         prev_mean = self._prev_mean
@@ -536,6 +586,10 @@ class Trainer:
                 C(self.pcfg.radii2d_thresh, step),
                 C(self.pcfg.alpha_thresh, step))
             info.update(pinfo)
+        if self.data_mesh is not None:
+            # the ranks drew apart: data rank 0's event for all of them
+            scene, scene_opt = replicate((scene, scene_opt), self.data_mesh,
+                                         "data")
         opt = AdamState(mu={**opt.mu, **scene_opt.mu},
                         nu={**opt.nu, **scene_opt.nu}, count=opt.count)
         self.state = dataclasses.replace(self.state, scene=scene, opt=opt)

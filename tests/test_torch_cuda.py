@@ -907,3 +907,41 @@ def test_viewer_render_on_card(cuda, tmp_path, monkeypatch):
         imgs[d] = read_png(tmp_path / f"{d}.png")
     assert imgs["cuda"].shape == (256, 256, 3) and imgs["cuda"].max() > 60
     assert np.abs(imgs["cuda"].astype(int) - imgs["cpu"]).max() <= 1
+
+
+@pytest.mark.parametrize("y0", [0, 8, 16, 24])
+def test_slab_render_on_card_matches_full_rows(cuda, y0):
+    """A tile-sharded slab alone (rows [y0, y0 + 8) of the full camera:
+    cull_intr, pixel_offset_y) through K1-K4 on the card: its image, T
+    and depth are the full render's rows there, and its gradient is the
+    part of the full one its rows give (the four slabs' gradients sum to
+    the full render's)."""
+    import dataclasses
+
+    raw = scene3d(200, seed=4, capacity=256, mean_std=0.5)
+    fields = ("mean", "qvec", "svec", "color", "alpha")
+    rcfg = RenderConfig(tile_size=TILE, chunk=CHUNK, dup_cap=4096)
+    intr = CameraIntrinsics.from_reso(RES)
+    c2w = torch.tensor([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, -2.5]],
+                       device=cuda)
+    active = t(raw["active"]).to(cuda)
+    bg = torch.ones(3, device=cuda)
+
+    def grads(view_intr, rows, **kw):
+        p = {f: t(raw[f]).to(cuda).requires_grad_(True) for f in fields}
+        out = render_view(p, active, c2w, view_intr, rcfg, bg, **kw)
+        loss = (out["rgb"][rows] ** 2).sum() + out["T"][rows].sum()
+        return out, dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    slab = dataclasses.replace(intr, h=8)
+    n0 = cuda_raster.raster_fwd.launches
+    out, g = grads(slab, slice(None), cull_intr=intr, pixel_offset_y=y0)
+    assert cuda_raster.raster_fwd.launches == n0 + 1
+    full, g_full = grads(intr, slice(y0, y0 + 8))
+    for k in ("rgb", "T", "depth"):
+        torch.testing.assert_close(out[k], full[k][y0:y0 + 8], rtol=1e-4,
+                                   atol=1e-5)
+    for f in fields:
+        scale = float(g_full[f].abs().max())
+        torch.testing.assert_close(g[f], g_full[f], rtol=2e-3,
+                                   atol=2e-4 * scale + 1e-12)

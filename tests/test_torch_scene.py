@@ -162,7 +162,24 @@ def test_make_scene_padding_and_unported_features():
             render_view(sc.params, sc.active, np.eye(3, 4, dtype=np.float32),
                         CameraIntrinsics.from_reso(16),
                         dataclasses.replace(cfg, **bad), np.ones(3))
-    with pytest.raises(NotImplementedError):
+    # tile_mesh is ported (parallel/sharded_render.py): a view whose
+    # height does not divide into the mesh's slabs of whole tile rows is
+    # refused before any collective runs
+
+    class FourSlabs:
+        """What the tile-sharded render reads of a mesh before rendering."""
+        mesh_dim_names = ("tile",)
+
+        def size(self, dim):
+            return 4
+
+        def get_local_rank(self, axis):
+            return 0
+
+        def get_group(self, axis):
+            return None
+
+    with pytest.raises(ValueError, match="must divide by devices"):
         render_batch(sc.params, sc.active, np.eye(3, 4, dtype=np.float32)[None],
                      CameraIntrinsics.from_reso(16), cfg, np.ones((1, 3)),
-                     tile_mesh=object())
+                     tile_mesh=FourSlabs())
