@@ -25,8 +25,10 @@ Phases, each reported on its own line:
    version at SD 2.1's level 0 [8, 4096, 5, 64] in bf16 and fp32, SD
    1.5's level 0 [8, 4096, 8, 40] in bf16, a small [2, 256, 2, 64] in
    fp32, and in bf16 [1, 4096, 2, 64] (the whole TMA ring on few CTAs),
-   [2, 128, 3, 40] (one tile, TMA zero fill past D) and [2, 256, 2, 160]
-   (the mma.sync instance), at the IF-II upsampler's levels [2, 16384, 8,
+   [2, 128, 3, 40] (one tile, TMA zero fill past D) and, with its lse,
+   [2, L, 2, D] at L = 128, 256, 1024 and D = 16, 24, 40, 64, 72, 80, 136,
+   160 (every P V width the bf16 instance is built for, and widths that
+   round up to the next), at the IF-II upsampler's levels [2, 16384, 8,
    16] and [2, 4096, 8, 32] in fp32 and bf16 (bf16 there also each
    element within one bf16 step plus 5% of the output's RMS) and at phase
    14 d's TINY_SR level 0 [8, 65536, 2, 16] in fp32 (the plain version on
@@ -52,8 +54,9 @@ Phases, each reported on its own line:
    shapes, and the full render forward+backward in both layouts; one
    line gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
    SDPA's time, with the bound at the rate its design can reach (bf16
-   989 TFLOP/s; fp32 3xTF32 3 x ops / 495 TFLOP/s); K5 fp32 at the IF-II
-   upsampler's two levels with its plain version and SDPA in fp32;
+   989 TFLOP/s, K5 bf16 also its exp2 a score on the SFU at 4.18e12 a
+   second: gsgen_torch/tools/k5_bench.py::bound_ms; fp32 3xTF32 3 x ops / 495 TFLOP/s); K5 fp32 at the
+   IF-II upsampler's two levels with its plain version and SDPA in fp32;
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
@@ -175,10 +178,12 @@ Phases, each reported on its own line:
    "auto") for 3 steps on that tower's prompt embeddings, the backbone's
    weights bitwise the file's in bf16, K5 5 a step; its first view
    through K1-K4 and the step's own K5 q, k, v [8, 4096, 8, 40] against
-   their plain versions; one step profiled (render, vae, unet, other);
-   K5 timed at that shape and at the two shapes fused_attention "on"
-   sends to it ([8, 1024, 8, 80], [8, 256, 8, 160]), each against the
-   plain version and SDPA; (b) the T5 v1.1 XXL encoder (4096 wide, 24
+   their plain versions; one step profiled (render, vae, unet, other, K5's
+   device ms); then 2 steps of the same directory under fused_attention
+   "on" (K5 15 a step: also levels 1 and 2, [8, 1024, 8, 80] and [8, 256,
+   8, 160]), one of them profiled; the step's own q, k, v at each of the
+   three levels against the plain version, each timed beside SDPA and
+   the bound; (b) the T5 v1.1 XXL encoder (4096 wide, 24
    layers, random fp32 weights made on the card) on [10, 77] ids with a
    padding mask as the prompt encoder of guidance/if.yaml (IF_PIXEL) for
    2 steps, its encode ms and peak memory; (c) BERT-base from a written
@@ -243,16 +248,23 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
-PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
+# the H100 peaks, K5's bound (bf16: bytes, operations and one exp2 a score)
+# and the CUDA-graph timer, shared with the K5 bench
+from gsgen_torch.tools.k5_bench import (PEAK_BF16_FLOPS,  # noqa: E402
+                                        PEAK_BYTES, PEAK_FLOPS, graph_ms)
+from gsgen_torch.tools.k5_bench import bound_ms as k5_bound  # noqa: E402
+
 # K5-K7 in fp32 run 3xTF32: three TF32 tensor-core products per product,
 # so the rate that design can reach is 495 / 3 TFLOP/s of fp32 work
 PEAK_3XTF32_FLOPS = 495e12 / 3
-PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 # K5 (and its lse) against its plain version: max abs error over max
 # |plain output|; K6 / K7: the same over each gradient's max |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K5 bf16's lse at phase 3's widths: absolute, 2^-9 for the rounding of the
+# P that l sums and the rest for ex2.approx
+K5_BF16_LSE_TOL = 2.0 ** -8
 # K5 bf16 at the IF-II levels, where each output averages thousands of keys
 # (typical |out| ~ max/20, so a limit on max|out| is loose): each element
 # within one bf16 step of the plain value (2^-7 |plain|) plus this share of
@@ -271,6 +283,11 @@ IF2_ATTN = {"IF-II level 1": (2, 16384, 8, 16),
 # x 4 views); the plain version takes it one block of queries at a time
 TINY_SR_ATTN = (8, 65536, 2, 16)
 K5_QUERY_BLOCK = 2048
+# head widths of K5's bf16 card checks: every P V width it is built for
+# (40, 64, 80, 160) and widths below and between them, which round up to
+# the next; at 96 and 128 the third TMA box of the 160 instance lies wholly
+# past D (phase 3)
+K5_BF16_WIDTHS = (16, 24, 40, 64, 72, 80, 96, 128, 136, 160)
 SD21_K5_PER_FWD = 5   # SD 2.1's level 0: 2 down + 3 up transformer blocks
 IF_CONFIGS = ["base.yaml", "guidance/if.yaml", "prompt/if.yaml"]
 SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
@@ -337,10 +354,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
         return 1
-    if not (ROOT / "gsgen_torch" / "csrc").is_dir():
-        fail("the gsgen_torch package is not beside chip_smoke.py")
-        return 1
-    sys.path.insert(0, str(ROOT))
     try:
         return run(torch)
     except SmokeFailure as e:
@@ -766,7 +779,6 @@ def run(torch) -> int:
             ("small", (2, 256, 2, 64), "float32"),
             ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
             ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
-            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"),
             *((label, shape, dtn) for label, shape in IF2_ATTN.items()
               for dtn in ("float32", "bfloat16")),
             ("TINY_SR level 0 (fine-tune)", TINY_SR_ATTN, "float32"))):
@@ -814,6 +826,35 @@ def run(torch) -> int:
                      f"{err:.2e} (tol {tol:.2e}){bf16_rms}{blocks}")
         del q, k, v, got
         torch.cuda.empty_cache()
+
+    # K5 bf16 and its lse at every built width and between them (rounded up
+    # to the next instance), one tile of queries and keys to eight
+    w_errs = []
+    for D in K5_BF16_WIDTHS:
+        for L in (128, 256, 1024):
+            q, k, v = qkv((2, L, 2, D), torch.bfloat16, 3 * D + L)
+            scale = D ** -0.5
+            out, lse = flash_attention.flash_self_attention_lse(q, k, v,
+                                                                scale)
+            out_p, lse_p = flash_attention.flash_self_attention_plain_lse(
+                q, k, v, scale)
+            torch.cuda.synchronize()
+            err = float((out.float() - out_p.float()).abs().max())
+            e_lse = float((lse - lse_p).abs().max())
+            top = float(out_p.float().abs().max())
+            require(bool(torch.isfinite(out).all()) and err <= FLASH_TOL[
+                "bfloat16"] * top and e_lse <= K5_BF16_LSE_TOL,
+                f"K5 bf16 [2, {L}, 2, {D}] (instance "
+                f"{flash_attention.fwd_tiles(torch.bfloat16, D)}): max abs "
+                f"err {err:.3e} of max {top:.3e}, lse {e_lse:.3e}")
+            errs["flash_attn_fwd"] = max(errs["flash_attn_fwd"], err)
+            w_errs.append(f"D {D} L {L} {err:.1e}/{e_lse:.1e}")
+    notes.append("K5 bf16 and lse at [2, L, 2, D] against plain (out / lse "
+                 f"max abs err, tol {FLASH_TOL['bfloat16']} of max|out| / "
+                 f"{K5_BF16_LSE_TOL:.2e}): "
+                 + ", ".join(w_errs))
+    del q, k, v, out, lse, out_p, lse_p
+    torch.cuda.empty_cache()
 
     # K6 / K7 (flash backward) against the plain formulas from the same
     # lse and Di, and K5's lse against the plain lse
@@ -922,31 +963,6 @@ def run(torch) -> int:
         e.record()
         torch.cuda.synchronize()
         return s.elapsed_time(e) / iters
-
-    def graph_ms(fn, iters=50, reps=5):
-        """Device time of one call of ``fn`` without its host launch path:
-        a CUDA graph of ``iters`` calls replayed ``reps`` times between two
-        events, over iters x reps (the graph's own gaps between kernels
-        included)."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            graph.replay()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / (iters * reps)
 
     def needed_lanes(r):
         """(pixel, real duplicate row) pairs the forward has to composite:
@@ -1176,8 +1192,7 @@ def run(torch) -> int:
         qh, kh, vh, scale=scale).transpose(1, 2).float()
         - flash_attention.flash_self_attention_plain(
             q, k, v, scale).float()).abs().max())
-    b_ms = 1e3 * 4 * B * L * H * D * 2 / PEAK_BYTES
-    o_ms = 1e3 * flash_ops / PEAK_BF16_FLOPS
+    k5_bd = k5_bound(B, L, H, D)
     times_flash = dict(
         ms=time_ms(lambda: flash_attention.flash_self_attention(
             q, k, v, scale), 20),
@@ -1185,8 +1200,7 @@ def run(torch) -> int:
             q, k, v, scale), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, scale=scale), 20),
-        bound_ms=max(b_ms, o_ms),
-        bound_by="bytes" if b_ms >= o_ms else "operations")
+        bound_ms=k5_bd[0], bound_by=k5_bd[1])
     q32, k32, v32 = (x.float() for x in (q, k, v))
     flash_fp32_ms = time_ms(lambda: flash_attention.flash_self_attention(
         q32, k32, v32, scale), 5)
@@ -1282,7 +1296,7 @@ def run(torch) -> int:
          4.0 * units, 1e3 * 4.0 * units / PEAK_3XTF32_FLOPS,
          sdpa_fp32["b4"]),
         ("K5 bf16 wgmma+TMA +lse", list(VSD_ATTN), k5_b4["bfloat16"],
-         4.0 * units, 1e3 * 4.0 * units / PEAK_BF16_FLOPS, None)]
+         4.0 * units, k5_bound(*VSD_ATTN)[0], None)]
     flash_rows += [(f"K5 fp32 3xTF32 {label}", r["shape"], r["ms"],
                     r["ops"], r["bound_ms"], r["library_ms"])
                    for label, r in if2_times.items()]
@@ -1540,10 +1554,11 @@ def run(torch) -> int:
 
     # ---- phase 16: weights from model directories ----
     weights = weights_phases(torch, dev, build_trainer, load_config,
-                             wrappers, card, check_recorded, graph_ms,
-                             time_ms)
+                             wrappers, card, check_recorded, time_ms)
     sampling["k5_launches"]["16 a sd15 sds steps"] = \
         weights["a"]["launches"]["flash_attn_fwd"]
+    sampling["k5_launches"]["16 a sd15 sds steps, fused attention on"] = \
+        weights["a_on"]["launches"]["flash_attn_fwd"]
     torch.cuda.empty_cache()
 
     # ---- phase 17: the tools around a trained scene ----
@@ -1621,9 +1636,12 @@ def run(torch) -> int:
         fp32_bound_ms=1e3 * flash_ops / PEAK_3XTF32_FLOPS,
         if2_fp32=if2_times, path_launches=sampling["k5_launches"],
         sd15=weights["k5"],
-        design="bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
-               "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
-               "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double buffer"))
+        design="bf16, every D: wgmma + TMA (2 consumer warpgroups, 128 "
+               "queries a CTA, 3-stage K/V ring, P V as wide as D rounded "
+               "up to 40/64/80/160; the warpgroups take the tensor core in "
+               "turns, each issuing S of its next tile with P V of its "
+               "last); fp32: 3xTF32 on mma.sync m16n8k8, cp.async double "
+               "buffer"))
     for name, func, line in (
             ("flash_attn_bwd_dkv", "_flash_attention_dkv_kernel", 796),
             ("flash_attn_bwd_dq", "_flash_attention_dq_kernel", 1146)):
@@ -3311,6 +3329,8 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
     streams = {e.get("args", {}).get("stream") for e in dev_ev}
     info = dict(traced_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
                 device_idle_share=1.0 - busy_ms / wall_ms,
+                k5_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
+                                 if "flash_fwd" in e["name"]),
                 device_ops_per_step=len(dev_ev), device_streams=len(streams),
                 device_ms_by_part=by_group,
                 top_device_ms=[[g, k, v] for (g, k), v in top])
@@ -3888,13 +3908,12 @@ def sd_directory(torch, folder, dev, preset="sd15"):
     return written
 
 
-def k5_row(torch, q, k, v, graph_ms, time_ms):
+def k5_row(torch, q, k, v, time_ms):
     """K5 on [B, L, H, D] bf16 inputs against its plain version (within
     FLASH_TOL of the plain output's largest value), then its device time
     (a CUDA graph of 50 calls), SDPA's the same way on [B, H, L, D] views,
-    the plain version's (host loop, 3 calls) and the bound: the larger of
-    4·B·H·L²·D operations at 989 TFLOP/s and q, k, v read and the output
-    written once at 3.35 TB/s."""
+    the plain version's (host loop, 3 calls) and the bound (k5_bound,
+    k5_bench.bound_ms)."""
     import torch.nn.functional as F
 
     from gsgen_torch.ops import flash_attention as fa
@@ -3908,14 +3927,11 @@ def k5_row(torch, q, k, v, graph_ms, time_ms):
     require(err <= tol, f"K5 {[B, L, H, D]}: max abs err "
             f"{err:.3e} above {tol:.3e}")
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    ops = 4.0 * B * H * L * L * D
-    b_ms = 1e3 * 4 * B * L * H * D * q.element_size() / PEAK_BYTES
-    o_ms = 1e3 * ops / PEAK_BF16_FLOPS
     ms = graph_ms(lambda: fa.flash_self_attention(q, k, v, scale))
-    bound = max(b_ms, o_ms)
+    bound, by = k5_bound(B, L, H, D, q.element_size())
     return dict(shape=[B, L, H, D], dtype="bfloat16", max_abs_err=err,
-                tol=tol, ms=ms, bound_ms=bound,
-                bound_by="bytes" if b_ms >= o_ms else "operations",
+                tol=tol, ms=ms, bound_ms=bound, bound_by=by,
+                instance=list(fa.fwd_tiles(q.dtype, D)),
                 pct_of_bound=100.0 * bound / ms,
                 plain_ms=time_ms(lambda: fa.flash_self_attention_plain(
                     q, k, v, scale), 3),
@@ -4000,7 +4016,7 @@ def shap_e_decoder_state(torch, seed, d_latent=1024, hidden=255,
 
 
 def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
-                   check_view, graph_ms, time_ms):
+                   check_view, time_ms):
     """Phase 16: the port's loaders on random weights the script writes
     (module docstring, item 16)."""
     import os
@@ -4069,8 +4085,10 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         orig_k5 = unet_mod.flash_self_attention
 
         def keep_qkv(q, k, v, scale):
-            if "qkv" not in kept:
-                kept["qkv"] = tuple(x.detach().clone() for x in (q, k, v))
+            # the step's first q, k, v at each head width K5 sees
+            if q.shape[-1] not in kept:
+                kept[q.shape[-1]] = tuple(x.detach().clone()
+                                          for x in (q, k, v))
             return orig_k5(q, k, v, scale)
 
         rec, restore = record_render_inputs(torch)
@@ -4084,13 +4102,14 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         finally:
             unet_mod.flash_self_attention = orig_k5
             restore()
-        del written
         emb = trainer.prompt_processor()
         require(tuple(emb.text.shape) == (77, 768) and bool(
             torch.isfinite(emb.text_vd).all()),
             f"16 a: prompt embedding {tuple(emb.text.shape)}")
         a["kernel_note"] = check_view("16 a step 0 view 0", rec, trainer)
-        q, k, v = kept.pop("qkv")
+        require(list(kept) == [SD15_ATTN[-1]],
+                f"16 a: K5 saw head widths {list(kept)} under auto")
+        q, k, v = kept.pop(SD15_ATTN[-1])
         require(tuple(q.shape) == SD15_ATTN and q.dtype == torch.bfloat16,
                 f"16 a: K5 took {tuple(q.shape)} {q.dtype}")
         a.update(write_s=write_s, read_s=read_s, tensors_read=n_read)
@@ -4109,28 +4128,63 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         a["profile"] = profile_step(
             torch, trainer, ROOT / "gsgen_torch" / "_build" /
             "sd15_step_trace.json", vsd=False, phase="16 a")
-        del trainer, tower, rec
+        del trainer
         torch.cuda.empty_cache()
-        k5 = dict(path=k5_row(torch, q, k, v, graph_ms, time_ms),
+        k5 = dict(path=k5_row(torch, q, k, v, time_ms),
                   path_launches_per_step=a["launches"]["flash_attn_fwd"]
                   // a["steps"])
         del q, k, v
-        gen = torch.Generator(device=dev)
-        for label, shp in SD15_ON_ATTN.items():
-            gen.manual_seed(60 + shp[1])
-            q, k, v = (torch.randn(shp, generator=gen, device=dev).to(
-                torch.bfloat16) for _ in range(3))
-            k5[label] = k5_row(torch, q, k, v, graph_ms, time_ms)
+
+        # the same directory under fused_attention on: K5 also at levels 1
+        # and 2 (5 launches each a step), each level's own q, k, v held
+        # against the plain version and timed
+        unet_mod.flash_self_attention = keep_qkv
+        try:
+            trainer, a_on = drive(
+                torch, build_trainer, load_config, wrappers, SD15_CONFIGS,
+                ["prompt.use_cache=false", "guidance.fused_attention=on",
+                 f"guidance.weights_path={sd_dir}"], 2,
+                dict(flash_attn_fwd=15), prepare=prepare)
+        finally:
+            unet_mod.flash_self_attention = orig_k5
+        del written
+        widths = {shp[-1]: shp for shp in (SD15_ATTN,
+                                           *SD15_ON_ATTN.values())}
+        require(sorted(kept) == sorted(widths),
+                f"16 a on: K5 saw head widths {sorted(kept)}")
+        print(f"phase 16 a sd15 on: ok | card {card} | {a_on['config']}: "
+              f"{a_on['steps']} steps | losses {a_on['losses']} | ms/step "
+              f"{[round(x, 2) for x in a_on['ms_per_step']]} | peak "
+              f"{a_on['peak_gib']:.2f} GiB | launches {a_on['launches']}",
+              flush=True)
+        a_on["profile"] = profile_step(
+            torch, trainer, ROOT / "gsgen_torch" / "_build" /
+            "sd15_on_step_trace.json", vsd=False, phase="16 a on")
+        del trainer, tower, rec
+        torch.cuda.empty_cache()
+        k5["on_launches_per_step"] = (a_on["launches"]["flash_attn_fwd"]
+                                      // a_on["steps"])
+        for D, shp in widths.items():
+            q, k, v = kept.pop(D)
+            require(tuple(q.shape) == shp and q.dtype == torch.bfloat16,
+                    f"16 a on: K5 took {tuple(q.shape)} {q.dtype}")
+            label = next((lb for lb, s2 in SD15_ON_ATTN.items()
+                          if s2 == shp), "on level 0")
+            k5[label] = k5_row(torch, q, k, v, time_ms)
             del q, k, v
-        res["a"], res["k5"] = a, k5
+        res["a"], res["a_on"], res["k5"] = a, a_on, k5
         print(f"phase 16 a k5: ok | card {card} | K5 bf16 at SD 1.5's "
               f"shapes, {k5['path_launches_per_step']} launches a step "
-              f"under auto | the step's own q, k, v "
-              f"{k5_note(k5['path'])} | fused_attention on, random inputs: "
+              f"under auto, {k5['on_launches_per_step']} under on | auto, "
+              f"the step's own q, k, v {k5_note(k5['path'])} | "
+              "fused_attention on, the step's own q, k, v: "
               + " | ".join(f"{lb} {k5_note(k5[lb])}"
-                           for lb in SD15_ON_ATTN)
-              + " | the mid block's [8, 64, 8, 160] is not eligible (L % "
-              "128), in either package", flush=True)
+                           for lb in ("on level 0", *SD15_ON_ATTN))
+              + f" | K5 device ms in the profiled step: auto "
+              f"{a['profile']['k5_device_ms']:.3f}, on "
+              f"{a_on['profile']['k5_device_ms']:.3f} | the mid block's "
+              "[8, 64, 8, 160] is not eligible (L % 128), in either package",
+              flush=True)
         torch.cuda.empty_cache()
 
         # ---- b: T5-XXL as if.yaml's prompt encoder ----

@@ -454,15 +454,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         if (kt < KT) {
-          wgmma_n64_ss(st, desc_sw128(ka + 32 * kt),
-                       desc_sw128(qb + 32 * kt), kt);
+          wgmma_ss(st, desc_sw128(ka + 32 * kt), desc_sw128(qb + 32 * kt),
+                   kt);
         }
       }
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         if (kt < KT) {
-          wgmma_n64_ss(dpt, desc_sw128(va + 32 * kt),
-                       desc_sw128(db + 32 * kt), kt);
+          wgmma_ss(dpt, desc_sw128(va + 32 * kt), desc_sw128(db + 32 * kt),
+                   kt);
         }
       }
       wgmma_commit();
@@ -499,11 +499,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_n64_rs(acc_v, pa[kk], desc_sw128(db + 2048 * kk));
+        wgmma_rs(acc_v, pa[kk], desc_sw128(db + 2048 * kk));
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_n64_rs(acc_k, da[kk], desc_sw128(qb + 2048 * kk));
+        wgmma_rs(acc_k, da[kk], desc_sw128(qb + 2048 * kk));
       }
       wgmma_commit();
       wgmma_wait0();
@@ -625,15 +625,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         if (kt < KT) {
-          wgmma_n64_ss(sc, desc_sw128(qa + 32 * kt), desc_sw128(kb + 32 * kt),
-                       kt);
+          wgmma_ss(sc, desc_sw128(qa + 32 * kt), desc_sw128(kb + 32 * kt),
+                   kt);
         }
       }
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         if (kt < KT) {
-          wgmma_n64_ss(dp, desc_sw128(da + 32 * kt), desc_sw128(vb + 32 * kt),
-                       kt);
+          wgmma_ss(dp, desc_sw128(da + 32 * kt), desc_sw128(vb + 32 * kt),
+                   kt);
         }
       }
       wgmma_commit();
@@ -662,7 +662,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_n64_rs(acc, dsa[kk], desc_sw128(kb + 2048 * kk));
+        wgmma_rs(acc, dsa[kk], desc_sw128(kb + 2048 * kk));
       }
       wgmma_commit();
       wgmma_wait0();

@@ -16,30 +16,56 @@
 // as the library saves l and m), from which the backward kernels K6/K7
 // (flash_attn_bwd.cu) recompute P exactly.
 //
-// Bound on this card: operations.  At SD 2.1's level 0, [8, 4096, 5, 64],
-// the two products are 4 B H L^2 D = 172 GFLOP against 84 MB of q/k/v/o
-// (0.174 ms at 989 TFLOP/s bf16 vs 0.025 ms at 3.35 TB/s).  Three instances:
+// Bound on this card: the largest of three times.  The two products are
+// 4 B H L^2 D operations (989 TFLOP/s bf16); q, k, v and o are 4 B L H D
+// values, each moved once (3.35 TB/s); and the online softmax takes one
+// exp2 a score, B H L^2 of them, on the SFU's 16 a clock per SM (132 SMs at
+// the 1.98 GHz at which the 67 TFLOP/s fp32 peak is stated: 4.18e12 a
+// second; gsgen_torch/tools/k5_bench.py::bound_ms).  Below D = 59 the
+// exponentials set the pace.  In bf16: SD 2.1's level 0 [8, 4096, 5, 64]
+// 0.174 ms (operations; the exponentials 0.160); SD 1.5's [8, 4096, 8, 40]
+// 0.257 ms (exponentials), [8, 1024, 8, 80] 0.0217 ms (operations), [8,
+// 256, 8, 160] 0.0063 ms (bytes).  Two instances:
 //
-//  * bf16, D <= 64 (SD 2.1 everywhere, SD 1.5's level 0): wgmma fed by TMA.
-//    One CTA per (128-query tile, head, batch): two consumer warpgroups of
-//    64 query rows and a producer warpgroup, one thread of which loads the
-//    Q tile once and
-//    K/V tiles of 128 keys through a 3-stage ring (mbarrier full/empty
-//    pairs), all by TMA in the 128-byte swizzle; TMA zero-fills head dims
-//    past D (D = 40 needs no padding pass).  S = Q K^T is an SS wgmma
-//    (m64n128k16, both K-major); P is rounded to bf16 in registers straight
-//    from the S accumulator as the A operand of O += P V, an RS wgmma with V
-//    as an MN-major B (tnspB).  l sums the rounded P, so the weights that
-//    multiply V sum to exactly l.  Scores are scaled by scale * log2(e) in
-//    one multiply and exponentiated with exp2f.  setmaxnreg moves
-//    registers inside the CTA's allocation (168 a thread at launch): the
-//    producer drops to 40, the consumers rise to 232.  The two warpgroups
-//    overlap each other (one's softmax with the other's products); a
-//    warpgroup's own products do not overlap its softmax (issuing the next
-//    tile's S first needs a second S accumulator, and ptxas compiles the
-//    consumers at the launch's 168 registers, so it spilled).
-//  * bf16, 64 < D <= 160 (no full-width path reaches it): mma.sync m16n8k16
-//    from shared memory, 4 warps of 16 query rows (the first design).
+//  * bf16, every D (D % 8 == 0, D <= 160): wgmma fed by TMA.  One CTA per
+//    (128-query tile, head, batch): two consumer warpgroups of 64 query
+//    rows and a producer warpgroup, one thread of which loads the Q tile
+//    once and K/V tiles through a 3-stage ring (mbarrier full/empty
+//    pairs), all by TMA in the 128-byte swizzle.  A box in that swizzle is
+//    at most 64 bf16 wide, so a tile of D > 64 is ceil(D / 64) boxes side
+//    by side (atom columns of rows x 128 bytes), and TMA zero-fills head
+//    dims past D (no D needs a padding pass).  S = Q K^T is an SS wgmma
+//    (m64nBKk16, both K-major: a k-step moves 32 bytes along the row, and
+//    every fourth one to the next atom column); P is rounded to bf16 in
+//    registers straight from the S accumulator as the A operand of O +=
+//    P V, an RS wgmma as wide as the instance with V as an MN-major B
+//    (tnspB: past 64 head dims N continues in the next atom column, the
+//    descriptor's LBO further on).  l sums the rounded P, so the weights
+//    that multiply V sum to exactly l.  The max is taken over the raw
+//    scores and scaled by scale * log2(e) once; P = exp2(fma(s, scale *
+//    log2(e), -m)) on the SFU (ex2.approx.ftz).
+//    The two warpgroups take the tensor core in turns (named barriers): in
+//    its turn a warpgroup issues S of its next tile and P V of its last
+//    one together, then hands over, waits for both and runs the next
+//    tile's softmax beside the other's products.  Issued together, the two
+//    products leave the tensor core no gap between them; a second S
+//    accumulator (S of tile j + 1 during the softmax of tile j) is not
+//    needed.
+//    Instances: P V width DN = D rounded up to 40, 64, 80 or 160 (the
+//    SD 1.5 and SD 2.1 widths; flash_attention.py::fwd_tiles picks it),
+//    BK = 128 keys a tile up to DN = 80 and 64 at 160.  Registers: ptxas sizes every thread by the
+//    launch bounds (384 threads: 168 registers; 288 threads, one producer
+//    warp, are rounded up to 12 warps and get no more); setmaxnreg moves
+//    registers inside the CTA's allocation at run time (producer 40,
+//    consumers 232) but does not raise what ptxas allocates for the
+//    consumer code.  A consumer thread holds DN / 2 accumulators, BK / 2
+//    scores and BK / 4 packed P, all three live while the products are
+//    issued: 136 values at DN = 80, BK = 128; at DN = 160 128-key tiles
+//    would need 176 and 64-key ones hold 128.  Shared memory (of 227 KB):
+//    Q plus 3 stages of K and V, 112 KB up to DN = 64, 224 KB at DN = 80
+//    (the barriers and the 1024-byte alignment slack fit beside them; 3
+//    stages keep two tiles in flight while the consumers read the third),
+//    192 KB at DN = 160.
 //  * fp32 (the VSD path): 3xTF32 on the tensor cores.  Each operand x is
 //    split at fragment load into hi = tf32(x) and lo = tf32(x - hi); each
 //    product is lo_a hi_b + hi_a lo_b + hi_a hi_b on mma.sync m16n8k8 tf32
@@ -64,202 +90,139 @@
 
 namespace {
 
-constexpr int kWgTile = 128 * 128;  // bytes of a 128-row bf16 TMA tile
-constexpr int kWgRows = 128;        // queries per CTA, keys per ring stage
+constexpr int kWgRows = 128;     // queries per CTA (bf16)
 constexpr int kWgStages = 3;
-constexpr int kWgThreads = 384;     // two consumer warpgroups + producer
-// dynamic shared memory: Q, the K and V rings, the barriers, and the slack
-// that aligns the base to 1024 bytes
-constexpr int kWgSmem =
-    (1 + 2 * kWgStages) * kWgTile + 8 * (1 + 2 * kWgStages) + 1024;
+constexpr int kWgThreads = 384;  // two consumer warpgroups + producer
 constexpr int kTfQ = 128;  // queries per block (fp32): 4 warps x 32
 constexpr int kTfK = 32;  // keys per double-buffered tile (fp32)
 
-// The mma.sync instance (bf16, D > 64).  KT_MAX: head dim in units of 16
-// that the registers are sized for (10: D <= 160); fragment layouts in
-// flash_attn_common.cuh.
-template <int KT_MAX>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int L, int H, int D,
-                          float scale) {
-  constexpr int kStride = KT_MAX * 16 + 8;  // smem row stride (elements)
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * kStride];
+// The bf16 instance of P V width DN (>= D) and BK keys a tile: sizes in
+// bytes.  A tile is kAtoms atom columns of rows x 128 bytes (64 head dims).
+template <int DN, int BK>
+struct WgTile {
+  static constexpr int kAtoms = (DN + 63) / 64;
+  static constexpr int kQCol = kWgRows * 128;
+  static constexpr int kKCol = BK * 128;
+  static constexpr int kQ = kAtoms * kQCol;
+  static constexpr int kKV = kAtoms * kKCol;  // a K or a V tile
+  // dynamic shared memory: Q, the K and V rings, the barriers, and the
+  // slack that aligns the base to 1024 bytes
+  static constexpr int kSmem =
+      kQ + 2 * kWgStages * kKV + 8 * (1 + 2 * kWgStages) + 1024;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int KT = (D + 15) / 16;
-  const long row_stride = static_cast<long>(H) * D;
-  const long base = static_cast<long>(blockIdx.z) * L * row_stride +
-                    static_cast<long>(blockIdx.y) * D;
-  const int q0 = blockIdx.x * kBlockQ + warp * 16;
-
-  // zero the tiles once: columns >= D stay zero (the D -> 16k padding)
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int i = tid; i < kBlockK * kStride; i += blockDim.x) {
-    ks[i] = zero;
-    vs[i] = zero;
-  }
-
-  // this warp's 16 query rows as A fragments, straight from device memory
-  uint32_t qf[KT_MAX][4];
+// ---- bf16: wgmma + TMA -----------------------------------------------------
+// S = Q K^T for one warpgroup: 64 queries x BK keys, issued and committed
+// (not waited for); k-step kt reads 16 head dims of atom column kt / 4.
+template <int DN, int BK>
+__device__ __forceinline__ void issue_scores(float (&sc)[BK / 2],
+                                             uint32_t qa, uint32_t kb,
+                                             int KT) {
+  using T = WgTile<DN, BK>;
+  wgmma_fence();
 #pragma unroll
-  for (int kt = 0; kt < KT_MAX; ++kt) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + g + (r & 1) * 8;
-      const int col = kt * 16 + 2 * t + (r >> 1) * 8;
-      qf[kt][r] = (kt < KT && col < D)
-                      ? *reinterpret_cast<const uint32_t*>(
-                            q + base + row * row_stride + col)
-                      : 0u;
+  for (int kt = 0; kt < (DN + 15) / 16; ++kt) {
+    if (kt < KT) {
+      const uint32_t col = 32 * (kt & 3);
+      wgmma_ss(sc, desc_sw128(qa + (kt >> 2) * T::kQCol + col),
+               desc_sw128(kb + (kt >> 2) * T::kKCol + col), kt);
     }
   }
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.0f, 0.0f};
-  float acc[2 * KT_MAX][4];
-#pragma unroll
-  for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
-  }
-
-  const int chunks = D / 8;  // 16-byte vectors per row
-  for (int j0 = 0; j0 < L; j0 += kBlockK) {
-    __syncthreads();
-    for (int i = tid; i < kBlockK * chunks; i += blockDim.x) {
-      const int r = i / chunks;
-      const int c = (i - r * chunks) * 8;
-      const long off = base + (j0 + r) * row_stride + c;
-      *reinterpret_cast<uint4*>(ks + r * kStride + c) =
-          *reinterpret_cast<const uint4*>(k + off);
-      *reinterpret_cast<uint4*>(vs + r * kStride + c) =
-          *reinterpret_cast<const uint4*>(v + off);
-    }
-    __syncthreads();
-
-    // S = Q K^T for 64 keys: 8 tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-      for (int kt = 0; kt < KT_MAX; ++kt) {
-        if (kt < KT) {
-          const __nv_bfloat16* kp =
-              ks + (nt * 8 + g) * kStride + kt * 16 + 2 * t;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-          mma_bf16(s[nt], qf[kt], b0, b1);
-        }
-      }
-    }
-
-    // online softmax: rows g (e = 0, 1) and g + 8 (e = 2, 3); the 4 lanes
-    // of a quad hold the same two rows
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] *= scale;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-
-    // P in bf16 as A fragments of P V (k = keys): key step kk takes score
-    // tiles 2kk (a0, a1) and 2kk + 1 (a2, a3)
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16 p0 = __float2bfloat16(expf(s[nt][0] - m[0]));
-      const __nv_bfloat16 p1 = __float2bfloat16(expf(s[nt][1] - m[0]));
-      const __nv_bfloat16 p2 = __float2bfloat16(expf(s[nt][2] - m[1]));
-      const __nv_bfloat16 p3 = __float2bfloat16(expf(s[nt][3] - m[1]));
-      l[0] += __bfloat162float(p0) + __bfloat162float(p1);
-      l[1] += __bfloat162float(p2) + __bfloat162float(p3);
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P V: B[key][d] = V[key][d], 8 head dims per tile
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int key = kk * 16 + 2 * t;
-#pragma unroll
-      for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
-        if (nd * 8 < D) {
-          const __nv_bfloat16* vp = vs + key * kStride + nd * 8 + g;
-          const uint32_t b0 = pack_bf16(vp[0], vp[kStride]);
-          const uint32_t b1 = pack_bf16(vp[8 * kStride], vp[9 * kStride]);
-          mma_bf16(acc[nd], pa[kk], b0, b1);
-        }
-      }
-    }
-  }
-
-  // the quad's partial row sums, then normalise and store
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  if (lse != nullptr && t == 0) {
-    const long lrow =
-        (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L + q0 + g;
-    lse[lrow] = m[0] + logf(l[0]);
-    lse[lrow + 8] = m[1] + logf(l[1]);
-  }
-  const float inv0 = 1.0f / l[0];
-  const float inv1 = 1.0f / l[1];
-#pragma unroll
-  for (int nd = 0; nd < 2 * KT_MAX; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (nd * 8 < D) {
-      __nv_bfloat16* o0 = o + base + (q0 + g) * row_stride + col;
-      __nv_bfloat16* o1 = o + base + (q0 + g + 8) * row_stride + col;
-      *reinterpret_cast<uint32_t*>(o0) =
-          pack_bf16(__float2bfloat16(acc[nd][0] * inv0),
-                    __float2bfloat16(acc[nd][1] * inv0));
-      *reinterpret_cast<uint32_t*>(o1) =
-          pack_bf16(__float2bfloat16(acc[nd][2] * inv1),
-                    __float2bfloat16(acc[nd][3] * inv1));
-    }
-  }
+  wgmma_commit();
 }
 
-// ---- bf16, D <= 64: wgmma + TMA --------------------------------------------
+// O += P V: V's rows (keys) are k, its head dims N (MN-major); N past 64
+// runs on into the next atom column, kKCol bytes on.  Issued and
+// committed (not waited for).
+template <int DN, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[DN / 2],
+                                         uint32_t (&pa)[BK / 16][4],
+                                         uint32_t vb) {
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    wgmma_rs(acc, pa[kk], desc_sw128(vb + 2048 * kk, WgTile<DN, BK>::kKCol));
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one score tile: rows g (e = 0, 1) and g + 8 (e =
+// 2, 3), the 4 lanes of a quad holding the same two rows.  m (log2 units)
+// and l are the quad's running max and this lane's part of the row sum;
+// acc is rescaled by exp2(m_old - m_new), and P, rounded to bf16, lands in
+// the A fragments of P V (key step kk: n8 chunks 2kk and 2kk + 1).  The
+// max is taken over the raw scores and scaled once (sl2 > 0, and rounding
+// keeps order).
+template <int DN, int BK>
+__device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&acc)[DN / 2],
+                                             uint32_t (&pa)[BK / 16][4],
+                                             float sl2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fmaxf(m[r], mx[r] * sl2);
+    alpha[r] = exp2_ftz(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  float ls[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const __nv_bfloat162 p01 = __floats2bfloat162_rn(
+        exp2_ftz(fmaf(sc[4 * j + 0], sl2, -m[0])),
+        exp2_ftz(fmaf(sc[4 * j + 1], sl2, -m[0])));
+    const __nv_bfloat162 p23 = __floats2bfloat162_rn(
+        exp2_ftz(fmaf(sc[4 * j + 2], sl2, -m[1])),
+        exp2_ftz(fmaf(sc[4 * j + 3], sl2, -m[1])));
+    ls[0] += __low2float(p01) + __high2float(p01);
+    ls[1] += __low2float(p23) + __high2float(p23);
+    pa[j >> 1][(j & 1) * 2 + 0] = bf162_bits(p01);
+    pa[j >> 1][(j & 1) * 2 + 1] = bf162_bits(p23);
+  }
+  l[0] = l[0] * alpha[0] + ls[0];
+  l[1] = l[1] * alpha[1] + ls[1];
+}
+
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
 // Threads 0-255: the consumer warpgroups (queries 64 wg .. of the tile);
-// threads 256-383: the producer warpgroup (thread 256 issues the copies).  Shared memory (1024-aligned): Q [128 rows], K ring
-// [kWgStages][128 rows], V ring, then the barriers q_full, full[s], empty[s].
+// threads 256-383: the producer warpgroup (thread 256 issues the copies).
+// Shared memory (1024-aligned): Q [atoms][128 rows], K ring
+// [kWgStages][atoms][BK rows], V ring, then the barriers q_full, full[s],
+// empty[s].  The consumers take the tensor core in turns (named barriers
+// 1 and 2, one a warpgroup: its own sync and the other's arrive): in its
+// turn a warpgroup issues S of its next tile and P V of its last one
+// together, hands the turn over, waits for both and runs the next tile's
+// softmax beside the other warpgroup's products.
+template <int DN, int BK>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -267,17 +230,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int L, int H, int D,
                            float scale) {
+  using T = WgTile<DN, BK>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t ks0 = qs + kWgTile;
-  const uint32_t vs0 = ks0 + kWgStages * kWgTile;
-  const uint32_t q_full = vs0 + kWgStages * kWgTile;
+  const uint32_t ks0 = qs + T::kQ;
+  const uint32_t vs0 = ks0 + kWgStages * T::kKV;
+  const uint32_t q_full = vs0 + kWgStages * T::kKV;
   const uint32_t full0 = q_full + 8;
   const uint32_t empty0 = full0 + 8 * kWgStages;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kWgRows;
-  const int n_tiles = L / kWgRows;
+  const int n_tiles = L / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -293,18 +257,24 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // ---- producer ----
     setmaxnreg_dec<40>();  // 128 x (168 - 40) registers to the consumers
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, kWgTile);
-      tma_load_4d(qs, &tq, q_full, 0, h, q0, b);
+      mbar_expect_tx(q_full, T::kQ);
+#pragma unroll
+      for (int a = 0; a < T::kAtoms; ++a) {
+        tma_load_4d(qs + a * T::kQCol, &tq, q_full, 64 * a, h, q0, b);
+      }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kWgStages;
         if (it >= kWgStages) {
           mbar_wait(empty0 + 8 * s, ((it / kWgStages) - 1) & 1);
         }
-        mbar_expect_tx(full0 + 8 * s, 2 * kWgTile);
-        tma_load_4d(ks0 + s * kWgTile, &tk, full0 + 8 * s, 0, h,
-                    it * kWgRows, b);
-        tma_load_4d(vs0 + s * kWgTile, &tv, full0 + 8 * s, 0, h,
-                    it * kWgRows, b);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, 2 * T::kKV);
+#pragma unroll
+        for (int a = 0; a < T::kAtoms; ++a) {
+          const uint32_t off = s * T::kKV + a * T::kKCol;
+          tma_load_4d(ks0 + off, &tk, full, 64 * a, h, it * BK, b);
+          tma_load_4d(vs0 + off, &tv, full, 64 * a, h, it * BK, b);
+        }
       }
     }
   } else {
@@ -317,89 +287,47 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int t = lane & 3;
     const int KT = (D + 15) / 16;
     const float sl2 = scale * kLog2e;
-    const uint32_t qa = qs + wg * (kWgTile / 2);  // this warpgroup's rows
+    const uint32_t qa = qs + wg * (T::kQCol / 2);  // this warpgroup's rows
 
-    float acc[32];
+    float acc[DN / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < DN / 2; ++i) acc[i] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
     float l[2] = {0.0f, 0.0f};
+    float sc[BK / 2];
+    uint32_t pa[BK / 16][4];
 
+    // the tensor core in turns (see above); warpgroup 0 goes first
     mbar_wait(q_full, 0);
+    if (wg == 1) named_bar_arrive(1);
+    named_bar_sync(1 + wg);
+    mbar_wait(full0, 0);
+    issue_scores<DN, BK>(sc, qa, ks0, KT);
+    named_bar_arrive(2 - wg);
+    wgmma_wait0();
+    fence_regs(sc);
+    softmax_tile<DN, BK>(sc, m, l, acc, pa, sl2);
     for (int it = 0; it < n_tiles; ++it) {
+      // S of the next tile and P V of this one, issued together
       const int s = it % kWgStages;
-      mbar_wait(full0 + 8 * s, (it / kWgStages) & 1);
-      const uint32_t kb = ks0 + s * kWgTile;
-      const uint32_t vb = vs0 + s * kWgTile;
-
-      // S = Q K^T: 64 queries x 128 keys
-      float sc[64];
-      wgmma_fence();
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt) {
-        if (kt < KT) {
-          wgmma_n128_ss(sc, desc_sw128(qa + 32 * kt),
-                        desc_sw128(kb + 32 * kt), kt);
-        }
+      const bool more = it + 1 < n_tiles;
+      named_bar_sync(1 + wg);
+      if (more) {
+        const int s1 = (it + 1) % kWgStages;
+        mbar_wait(full0 + 8 * s1, ((it + 1) / kWgStages) & 1);
+        issue_scores<DN, BK>(sc, qa, ks0 + s1 * T::kKV, KT);
       }
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(sc);
-
-      // online softmax: rows g (e = 0, 1) and g + 8 (e = 2, 3); the 4
-      // lanes of a quad hold the same two rows
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i] * sl2);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        alpha[r] = exp2f(m[r] - mx[r]);
-        m[r] = mx[r];
-        l[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-      // P in bf16 as the A operand of P V (k = keys): key step kk takes
-      // score columns 16kk.. (n8 chunks 2kk and 2kk + 1)
-      uint32_t pa[8][4];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const __nv_bfloat16 p0 =
-            __float2bfloat16(exp2f(fmaf(sc[4 * j + 0], sl2, -m[0])));
-        const __nv_bfloat16 p1 =
-            __float2bfloat16(exp2f(fmaf(sc[4 * j + 1], sl2, -m[0])));
-        const __nv_bfloat16 p2 =
-            __float2bfloat16(exp2f(fmaf(sc[4 * j + 2], sl2, -m[1])));
-        const __nv_bfloat16 p3 =
-            __float2bfloat16(exp2f(fmaf(sc[4 * j + 3], sl2, -m[1])));
-        l[0] += __bfloat162float(p0) + __bfloat162float(p1);
-        l[1] += __bfloat162float(p2) + __bfloat162float(p3);
-        pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-
-      // O += P V: V's rows (keys) are k, its head dims N (MN-major)
-      fence_regs(acc);
-      fence_regs(pa);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_n64_rs(acc, pa[kk], desc_sw128(vb + 2048 * kk));
-      }
-      wgmma_commit();
+      issue_pv<DN, BK>(acc, pa, vs0 + s * T::kKV);
+      // the last turn of all (warpgroup 1's last) hands over to no one
+      if (more || wg == 0) named_bar_arrive(2 - wg);
       wgmma_wait0();
       fence_regs(acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      if (more) {
+        fence_regs(sc);
+        softmax_tile<DN, BK>(sc, m, l, acc, pa, sl2);
+      }
     }
 
     // the quad's partial row sums, then normalise and store
@@ -421,7 +349,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         o + (static_cast<long>(b) * L + row) * row_stride + h * D + 2 * t;
     __nv_bfloat16* o1 = o0 + 8 * row_stride;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < DN / 8; ++j) {
       if (j * 8 < D) {
         *reinterpret_cast<uint32_t*>(o0 + 8 * j) =
             pack_f32_bf16(acc[4 * j + 0] * inv0, acc[4 * j + 1] * inv0);
@@ -666,54 +594,75 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
   }
 }
 
+// The bf16 instance of width DN: its tensor maps (boxes of 128 query rows
+// and BK key rows), then the launch.  key_tile must be the instance's BK.
+template <int DN>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int L, int H, int D, float scale,
+                int key_tile, cudaStream_t s) {
+  constexpr int BK = DN <= 80 ? 128 : 64;
+  if (key_tile != BK || D > DN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tq, tk, tv;
+  if (!bf16_rows_map(&tq, q, B, L, H, D, kWgRows) ||
+      !bf16_rows_map(&tk, k, B, L, H, D, BK) ||
+      !bf16_rows_map(&tv, v, B, L, H, D, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(flash_fwd_wgmma_kernel<DN, BK>, dim3(L / kWgRows, H, B),
+                kWgThreads, WgTile<DN, BK>::kSmem, s, tq, tk, tv,
+                static_cast<__nv_bfloat16*>(o), lse, L, H, D, scale);
+}
+
 }  // namespace
 
 // q, k, v, o: [B, L, H, D] contiguous, 16-byte aligned; D % 8 == 0,
-// D <= 160; L % 128 == 0 (L % 64 == 0 for bf16 with D > 64).
-// is_bf16: 1 for bfloat16, 0 for float32.  lse: null, or [B, H, L] fp32
-// for the log-sum-exp of each query's scaled scores (what the backward
-// K6/K7 recomputes P from).
+// D <= 160; L % 128 == 0.  is_bf16: 1 for bfloat16, 0 for float32.  lse:
+// null, or [B, H, L] fp32 for the log-sum-exp of each query's scaled
+// scores (what the backward K6/K7 recomputes P from).  key_tile, width:
+// the instance (flash_attention.py::fwd_tiles): keys a tile and the P V
+// width it is built for (bf16: 128 and 40, 64 or 80, or 64 and 160; fp32:
+// 32 and 64 or 160); any other pair is refused.
 extern "C" int gsgen_flash_attn_fwd(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int L, int H, int D, float scale,
-                                    int is_bf16, void* stream) {
-  if (L % kBlockQ != 0 || D % 8 != 0 || D <= 0 || D > kMaxD || B <= 0 ||
-      H <= 0 || B > 65535 || H > 65535) {
+                                    int is_bf16, int key_tile, int width,
+                                    void* stream) {
+  if (L % kWgRows != 0 || D % 8 != 0 || D <= 0 || D > kMaxD || D > width ||
+      B <= 0 || H <= 0 || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* lf = static_cast<float*>(lse);
-  if (is_bf16 && D <= 64) {
-    if (L % kWgRows != 0) return static_cast<int>(cudaErrorInvalidValue);
-    CUtensorMap tq, tk, tv;
-    if (!bf16_rows_map(&tq, q, B, L, H, D, kWgRows) ||
-        !bf16_rows_map(&tk, k, B, L, H, D, kWgRows) ||
-        !bf16_rows_map(&tv, v, B, L, H, D, kWgRows)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return launch(flash_fwd_wgmma_kernel, dim3(L / kWgRows, H, B),
-                       kWgThreads, kWgSmem, s, tq, tk, tv,
-                       static_cast<__nv_bfloat16*>(o), lf, L, H, D, scale);
-  }
   if (is_bf16) {
-    flash_fwd_bf16_kernel<10><<<dim3(L / kBlockQ, H, B), 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), lf, L, H, D, scale);
-    return static_cast<int>(cudaGetLastError());
+    switch (width) {
+      case 40:
+        return launch_bf16<40>(q, k, v, o, lf, B, L, H, D, scale, key_tile, s);
+      case 64:
+        return launch_bf16<64>(q, k, v, o, lf, B, L, H, D, scale, key_tile, s);
+      case 80:
+        return launch_bf16<80>(q, k, v, o, lf, B, L, H, D, scale, key_tile, s);
+      case 160:
+        return launch_bf16<160>(q, k, v, o, lf, B, L, H, D, scale, key_tile,
+                                s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  if (L % kTfQ != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (key_tile != kTfK || (width != 64 && width != kMaxD)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid(L / kTfQ, H, B);
   const size_t smem = sizeof(float) * (kTfQ + 4 * kTfK) * (D + 4);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
-  if (D <= 64) {
-    return launch(flash_fwd_tf32_kernel<8>, grid, 128, smem, s, qf, kf,
-                       vf, of, lf, L, H, D, scale);
+  if (width == 64) {
+    return launch(flash_fwd_tf32_kernel<8>, grid, 128, smem, s, qf, kf, vf,
+                  of, lf, L, H, D, scale);
   }
-  return launch(flash_fwd_tf32_kernel<kMaxD / 8>, grid, 128, smem, s,
-                     qf, kf, vf, of, lf, L, H, D, scale);
+  return launch(flash_fwd_tf32_kernel<kMaxD / 8>, grid, 128, smem, s, qf, kf,
+                vf, of, lf, L, H, D, scale);
 }

@@ -107,13 +107,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // ---- device: wgmma ---------------------------------------------------------
 // Descriptor of a 128-byte-swizzled tile at shared address `addr`: SBO 1024
-// bytes (8 rows of 128 B) between 8-row groups; LBO is unused by the shapes
-// here (K-major: k = 16 fits in a row; MN-major: N = 64 fits in a row).
-// K-major operands step k by 32 bytes within the row; MN-major ones by 16
-// rows (2048 bytes).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+// bytes (8 rows of 128 B) between 8-row groups along the rows.  K-major
+// operands (k = 16 fits in a row) step k by 32 bytes within the row and
+// take the next atom column (64 head dims further) at every fourth step;
+// LBO is unused.  MN-major ones (the rows are k, N runs along the row) step
+// k by 16 rows (2048 bytes); an N past 64 continues in the next atom
+// column, `lbo` bytes on (the rows of the tile x 128).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
 }
@@ -147,56 +150,115 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   }
 }
 
-#define GS_ACC8(d, o)                                                  \
-  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),      \
-      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define GS_ACC4(d, o) \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3])
+#define GS_ACC8(d, o) GS_ACC4(d, o), GS_ACC4(d, o + 4)
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory;
-// scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
+// wgmma_ss: d[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared
+// memory, N = 2 x the size of d (64, 128); scale_d 0 overwrites d.
+// wgmma_rs: d[64 x N] += A[64 x 16] B[16 x N], A from registers (bf16
+// pairs, the mma.sync A layout per warp), B MN-major in shared memory
+// (tnspB = 1); N = 2 x the size of d (40, 64, 80, 160).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : GS_ACC8(d, 0), GS_ACC8(d, 8), GS_ACC8(d, 16), GS_ACC8(d, 24)
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major in shared memory.
-__device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : GS_ACC8(d, 0), GS_ACC8(d, 8), GS_ACC8(d, 16), GS_ACC8(d, 24),
-        GS_ACC8(d, 32), GS_ACC8(d, 40), GS_ACC8(d, 48), GS_ACC8(d, 56)
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24),
+        GS_ACC8(d, 32), GS_ACC8(d, 40),
+        GS_ACC8(d, 48), GS_ACC8(d, 56)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (bf16 pairs, the
-// mma.sync A layout per warp), B MN-major in shared memory (tnspB = 1).
-__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[20],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC4(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : GS_ACC8(d, 0), GS_ACC8(d, 8), GS_ACC8(d, 16), GS_ACC8(d, 24)
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[40],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24),
+        GS_ACC8(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[80],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24),
+        GS_ACC8(d, 32), GS_ACC8(d, 40),
+        GS_ACC8(d, 48), GS_ACC8(d, 56),
+        GS_ACC8(d, 64), GS_ACC8(d, 72)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 #undef GS_ACC8
+#undef GS_ACC4
 
 // ---- device: 3xTF32 --------------------------------------------------------
 // x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), both rounded

@@ -15,11 +15,13 @@ function's layout, q, k, v, out and their gradients ``[B, L, H, D]``;
 * Each kernel wrapper (:func:`flash_self_attention_lse`,
   :func:`flash_bwd_dkv`, :func:`flash_bwd_dq`) launches its kernel on CUDA
   tensors, counting the launch, and raises on shapes or types the kernel
-  does not take; on CPU tensors it runs its plain version.  The C entries
-  pick the instance from the type and D alone: bf16 with D <= 64 runs the
-  wgmma + TMA kernels (K5, K6, K7), bf16 with D > 64 the mma.sync ones,
-  fp32 the 3xTF32 tensor-core ones (K5, K6, K7).  There is no fallback: a
-  CUDA tensor launches its kernel or raises.
+  does not take; on CPU tensors it runs its plain version.  K5 in bf16
+  is one wgmma + TMA kernel for every D, built at the P V widths of
+  :data:`BF16_WIDTHS`; :func:`fwd_tiles` picks the instance (keys a tile,
+  width), which the C entry checks.  K6 and K7 in bf16 run wgmma + TMA
+  at D <= 64 and mma.sync above; every fp32 kernel (K5, K6, K7) runs
+  3xTF32 on the tensor cores.  There is no fallback: a CUDA tensor
+  launches its kernel or raises.
 * The plain versions: :func:`flash_self_attention_plain` is the einsum
   path of the JAX ``Attention`` (``unet2d.py:199-203``: fp32 scores and
   softmax, the normalised weights cast to v's type, the second einsum);
@@ -41,6 +43,22 @@ from . import cuda_lib
 MAX_D = 160
 BLOCK_L = 128   # the wgmma kernels' tile; the JAX eligibility gate's too
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+# P V widths K5's bf16 instance is built for (csrc/flash_attn_fwd.cu): the
+# head widths of SD 1.5 and SD 2.1
+BF16_WIDTHS = (40, 64, 80, 160)
+FP32_KEY_TILE = 32
+
+
+def fwd_tiles(dtype: torch.dtype, D: int) -> tuple[int, int]:
+    """K5's instance for this type and head width: (keys a tile, the P V
+    width it is built for).  bf16: D rounded up to the next of
+    :data:`BF16_WIDTHS` (TMA zero-fills the head dims past D), 128 keys a
+    tile up to width 80 and 64 above (a 128-key tile's scores beside the
+    wider accumulators would spill); fp32: 32 keys, width 64 or 160."""
+    if dtype == torch.bfloat16:
+        width = next(w for w in BF16_WIDTHS if w >= D)
+        return (128 if width <= 80 else 64), width
+    return FP32_KEY_TILE, (64 if D <= 64 else MAX_D)
 
 
 def flash_self_attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -145,7 +163,7 @@ def _launch_fwd(q, k, v, scale: float, with_lse: bool):
     cuda_lib.launch("gsgen_flash_attn_fwd", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), B, L, H, D,
-                    float(scale), _DTYPES[q.dtype])
+                    float(scale), _DTYPES[q.dtype], *fwd_tiles(q.dtype, D))
     flash_self_attention.launches += 1
     return out, lse
 

@@ -211,28 +211,42 @@ def test_render_normal_pbr_on_card_matches_cpu(cuda, layout):
     assert torch.equal(outs[1]["n_dup"], outs[0]["n_dup"])
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("D", [40, 64, 160])
-def test_flash_attention_matches_plain(cuda, dtype, D):
-    """K5 against its plain version (fp32 scores and softmax): fp32 within
-    1e-4 of max|out|, bf16 within 2e-2 of max|out| (the plain path rounds
-    the normalised weights to bf16, K5 the unnormalised ones).  Instances:
-    bf16 D <= 64 wgmma + TMA, bf16 D = 160 mma.sync, fp32 3xTF32."""
+@pytest.mark.parametrize("dtype, D, L", [
+    *(("bfloat16", D, L) for D in (16, 24, 40, 64, 72, 80, 96, 128, 136,
+                                   160)
+      for L in (128, 256, 1024)),
+    *(("float32", D, 256) for D in (40, 64, 160))])
+def test_flash_attention_matches_plain(cuda, dtype, D, L):
+    """K5 and its lse against the plain version (fp32 scores and softmax):
+    fp32 within 1e-4 of max|out| and its lse within 1e-4 of max|lse|; bf16
+    within 2e-2 of max|out| (the plain path rounds the normalised weights
+    to bf16, K5 the unnormalised ones) and its lse within 2^-8 absolute
+    (2^-9 for the rounding of P that l sums, the rest for ex2.approx).
+    bf16 is one wgmma + TMA kernel built at P V widths 40, 64, 80 and 160:
+    the widths between (16, 24, 72, 96, 128, 136) round up to the next, and
+    at 96 and 128 the third 64-wide TMA box of the 160 instance lies
+    wholly past D; L from one tile to eight.  fp32 runs 3xTF32."""
     from gsgen_torch.ops import flash_attention as fa
-    rng = np.random.default_rng(D)
+    rng = np.random.default_rng(D + L)
     dt = getattr(torch, dtype)
-    q, k, v = (t(rng.standard_normal((2, 256, 3, D)).astype(np.float32))
+    q, k, v = (t(rng.standard_normal((2, L, 3, D)).astype(np.float32))
                .to(cuda, dt) for _ in range(3))
     scale = 1.0 / np.sqrt(D)
     n0 = fa.flash_self_attention.launches
     got = fa.flash_self_attention(q, k, v, scale)
-    assert fa.flash_self_attention.launches == n0 + 1
-    want = fa.flash_self_attention_plain(q, k, v, scale)
+    got_l, lse = fa.flash_self_attention_lse(q, k, v, scale)
+    assert fa.flash_self_attention.launches == n0 + 2
+    want, lse_p = fa.flash_self_attention_plain_lse(q, k, v, scale)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape
+    assert torch.equal(got, got_l)
+    share = 2e-2 if dt == torch.bfloat16 else 1e-4
     err = float((got.float() - want.float()).abs().max())
-    tol = (2e-2 if dt == torch.bfloat16 else 1e-4) * float(
-        want.float().abs().max())
+    tol = share * float(want.float().abs().max())
+    assert err <= tol, (err, tol)
+    err = float((lse - lse_p).abs().max())
+    tol = 2.0 ** -8 if dt == torch.bfloat16 else share * float(
+        lse_p.abs().max())
     assert err <= tol, (err, tol)
     with pytest.raises(ValueError):
         fa.flash_self_attention(q[:, :100], k[:, :100], v[:, :100], scale)
