@@ -8,7 +8,9 @@ Phases, each reported on its own line:
 1. device: require CUDA, print the card's name and power limit, TF32 off
    (the package's precision policy, utils/precision.py::exact_fp32);
 2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a; the raster
-   kernels' ptxas lines (registers, shared memory, spills: none allowed);
+   kernels' ptxas lines (registers, shared memory, spills: none allowed)
+   and those of K6 / K7's fp32 wgmma + TMA instances (no spill, and no
+   wgmma that ptxas serialised);
 3. kernels: every kernel of the render path against its plain PyTorch
    version on the card, at a small size, at the bench workload (100K
    Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
@@ -37,7 +39,9 @@ Phases, each reported on its own line:
    the plain backward at the VSD path's [4, 4096, 5, 64] in fp32 and
    bf16 (K7 fp32 there also within 1e-5 of max|dq|), a small
    [2, 256, 2, 64] in fp32, [1, 4096, 2, 64] and [2, 256, 2, 160] in bf16,
-   [2, 128, 3, 40] in bf16 (one tile, TMA zero fill) and [2, 256, 2, 160]
+   [2, 128, 3, 40] in bf16 (one tile, TMA zero fill), in fp32 [2, 1024,
+   8, 40] (SD 1.5's width, zero fill past D), [2, 128, 3, 8] (one tile,
+   one k-step of head dims) and [2, 256, 2, 160]
    in fp32, each error also as a share of the gradient's max, and
    autograd through K5 + K6 + K7 against autograd through the plain path;
 4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
@@ -45,18 +49,20 @@ Phases, each reported on its own line:
    counter read around the run;
 5. times: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, at the bench and base.yaml
-   shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7
-   at [4, 4096, 5, 64] in fp32 and bf16, SDPA's backward theirs, each
-   also in device time; SDPA in fp32 beside K5's fp32 instance at B=8 and
-   B=4), K1-K4, K8, K9 and torch.searchsorted by device time (a CUDA
-   graph of 50 calls replayed between two events) beside their host-loop
-   times, the lanes each tile's forward walked (max, mean) at both render
-   shapes, and the full render forward+backward in both layouts; one
-   line gives every K5/K6/K7 instance's ms, TFLOP/s, share of its bound and
-   SDPA's time, with the bound at the rate its design can reach (bf16
-   989 TFLOP/s, K5 bf16 also its exp2 a score on the SFU at 4.18e12 a
-   second: gsgen_torch/tools/k5_bench.py::bound_ms; fp32 3xTF32 3 x ops / 495 TFLOP/s); K5 fp32 at the
-   IF-II upsampler's two levels with its plain version and SDPA in fp32;
+   shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7 at
+   [4, 4096, 5, 64] in fp32 and bf16, each also in device time, SDPA's
+   backward theirs in device time from a profiler trace, K6 + K7 summed
+   beside it; SDPA in fp32 beside
+   K5's fp32 instance at B=8 and B=4), K1-K4, K8, K9 and torch.searchsorted
+   by device time (a CUDA graph of 50 calls replayed between two events)
+   beside their host-loop times, the lanes each tile's forward walked (max,
+   mean) at both render shapes, and the full render forward+backward in
+   both layouts; one line gives every K5/K6/K7 instance's ms, TFLOP/s,
+   share of its bound and SDPA's time, with the bound at the rate its
+   design can reach (bf16 989 TFLOP/s, K5 bf16 also its exp2 a score on the
+   SFU at 4.18e12 a second: gsgen_torch/tools/k5_bench.py::bound_ms; fp32
+   3xTF32 3 x ops / 495 TFLOP/s); K5 fp32 at the IF-II upsampler's two
+   levels with its plain version and SDPA in fp32;
 6. profile: two more training steps under torch.profiler; device busy
    time, idle share and the top device kernels per step (the trace goes
    to gsgen_torch/_build/train_step_trace.json);
@@ -75,7 +81,8 @@ Phases, each reported on its own line:
    camera conditioning, VAE in bf16, 512^2, batch 4) with every launch
    counter read around them (15 K5, 5 K6, 5 K7 a step) and a LoRA leaf
    required to move; then one VSD step under torch.profiler, device time
-   split into render, VAE, UNet forward and UNet backward (trace:
+   split into render, VAE, UNet forward and UNet backward, with K6's and
+   K7's device ms and launches in the step (trace:
    gsgen_torch/_build/vsd_step_trace.json);
 10. density: 3 SDS steps of the slice config in the compact layout
    (renderer.binning_layout=compact: K8, K9 and K3 once per view, K1, K2,
@@ -251,14 +258,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 # the H100 peaks, K5's bound (bf16: bytes, operations and one exp2 a score)
-# and the CUDA-graph timer, shared with the K5 bench
-from gsgen_torch.tools.k5_bench import (PEAK_BF16_FLOPS,  # noqa: E402
-                                        PEAK_BYTES, PEAK_FLOPS, graph_ms)
+# and K6's / K7's, the CUDA-graph timer, SDPA's backward and the trace's
+# device ops, shared with the K5 bench
+from gsgen_torch.tools.k5_bench import (DEVICE_CATS,  # noqa: E402
+                                        PEAK_3XTF32_FLOPS, PEAK_BF16_FLOPS,
+                                        PEAK_BYTES, PEAK_FLOPS, busy_us,
+                                        bwd_bound_ms, graph_ms, sdpa_bwd_ms)
 from gsgen_torch.tools.k5_bench import bound_ms as k5_bound  # noqa: E402
 
-# K5-K7 in fp32 run 3xTF32: three TF32 tensor-core products per product,
-# so the rate that design can reach is 495 / 3 TFLOP/s of fp32 work
-PEAK_3XTF32_FLOPS = 495e12 / 3
 # K5 (and its lse) against its plain version: max abs error over max
 # |plain output|; K6 / K7: the same over each gradient's max |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -418,6 +425,18 @@ def run(torch) -> int:
             f"a raster kernel spills: {spills}")
     print("phase 2 raster: ok | " + " | ".join(
         f"{k}: {v}" for k, v in raster_ptxas.items()), flush=True)
+    # K6 / K7 fp32 on wgmma: one kernel each, no spill, and no wgmma that
+    # ptxas serialised (its C75xx notes name the function)
+    tf32_ptxas = ptxas_lines(cuda_lib.build_info["log"], "tf32_wgmma")
+    require(len(tf32_ptxas) == 2, f"ptxas names {len(tf32_ptxas)} fp32 "
+            "wgmma backward kernels, expected 2")
+    require(not [f for f in spills if "tf32_wgmma" in f],
+            f"an fp32 wgmma backward kernel spills: {spills}")
+    serial = [ln.strip() for ln in cuda_lib.build_info["log"].splitlines()
+              if "serialized" in ln and "tf32_wgmma" in ln]
+    require(not serial, f"ptxas serialised wgmma: {serial}")
+    print("phase 2 flash fp32 bwd: ok | " + " | ".join(
+        f"{k}: {v}" for k, v in tf32_ptxas.items()), flush=True)
 
     # ---- helpers ----
     gen = torch.Generator(device=dev)
@@ -870,6 +889,8 @@ def run(torch) -> int:
             ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
             ("mma.sync instance", (2, 256, 2, 160), "bfloat16"),
             ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
+            ("SD 1.5 width, TMA zero fill", (2, 1024, 8, 40), "float32"),
+            ("one tile, one k-step", (2, 128, 3, 8), "float32"),
             ("D <= 160 instance", (2, 256, 2, 160), "float32"))):
         dt = getattr(torch, dtn)
         q, k, v, dout = qkvo(shape, dt, 40 + i)
@@ -1249,7 +1270,7 @@ def run(torch) -> int:
     # three gradients; K5 with its lse at the same shape
     Bv, Lv, Hv, Dv = VSD_ATTN
     units = Bv * Hv * Lv * Lv * Dv
-    times_bwd, k5_b4, sdpa_bwd_ms = {}, {}, {}
+    times_bwd, k5_b4, sdpa_bwd = {}, {}, {}
     for dtn in ("float32", "bfloat16"):
         dt = getattr(torch, dtn)
         q, k, v, dout = qkvo(VSD_ATTN, dt, 70)
@@ -1258,31 +1279,25 @@ def run(torch) -> int:
         args = (q, k, v, dout, lse, delta, scale)
         k5_b4[dtn] = time_ms(lambda: flash_attention.flash_self_attention_lse(
             q, k, v, scale), 10)
-        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        o_h = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-        do_h = dout.transpose(1, 2)
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-            o_h, (qh, kh, vh), do_h, retain_graph=True), 10)
-        sdpa_bwd_ms[dtn] = sdpa_bwd
-        io = Bv * Lv * Hv * Dv * dt.itemsize
-        in_b = 4 * io + 2 * Bv * Hv * Lv * 4
-        for name, fn, fn_p, ops, out_b in (
-                ("flash_attn_bwd_dkv", flash_attention.flash_bwd_dkv,
-                 flash_attention.flash_bwd_dkv_plain, 8.0 * units, 2 * io),
-                ("flash_attn_bwd_dq", flash_attention.flash_bwd_dq,
-                 flash_attention.flash_bwd_dq_plain, 6.0 * units, io)):
-            b_ms = 1e3 * (in_b + out_b) / PEAK_BYTES
-            o_ms = 1e3 * ops / flash_peak(dtn)
+        sdpa_bwd[dtn] = sdpa_bwd_ms(q, k, v, dout, scale)
+        for name, kn, fn, fn_p in (
+                ("flash_attn_bwd_dkv", "dkv", flash_attention.flash_bwd_dkv,
+                 flash_attention.flash_bwd_dkv_plain),
+                ("flash_attn_bwd_dq", "dq", flash_attention.flash_bwd_dq,
+                 flash_attention.flash_bwd_dq_plain)):
+            bd = bwd_bound_ms(*VSD_ATTN, dt, kn)
             # device_ms: the kernel alone, without the wrapper's host path
             times_bwd[(name, dtn)] = dict(
                 ms=time_ms(lambda fn=fn: fn(*args), 10),
                 device_ms=graph_ms(lambda fn=fn: fn(*args), 10, 3),
                 plain_ms=time_ms(lambda fn_p=fn_p: fn_p(*args), 3),
-                library_ms=sdpa_bwd, bound_ms=max(b_ms, o_ms),
-                bound_by="bytes" if b_ms >= o_ms else "operations")
-        del q, k, v, dout, out, lse, delta, args, qh, kh, vh, o_h, do_h
+                library_ms=sdpa_bwd[dtn], bound_ms=bd[0], bound_by=bd[1])
+        del q, k, v, dout, out, lse, delta, args
         torch.cuda.empty_cache()
+    # K6 + K7 in device time beside SDPA's whole backward
+    bwd_sum = {dtn: times_bwd[("flash_attn_bwd_dkv", dtn)]["device_ms"]
+               + times_bwd[("flash_attn_bwd_dq", dtn)]["device_ms"]
+               for dtn in sdpa_bwd}
     bwd_bound = {d: 1e3 * 10.0 * units / pk for d, pk in
                  (("float32", PEAK_FLOPS), ("bfloat16", PEAK_BF16_FLOPS))}
     # one row per K5 / K6 / K7 instance: ms, TFLOP/s, share of its bound
@@ -1302,12 +1317,12 @@ def run(torch) -> int:
                    for label, r in if2_times.items()]
     for (name, dtn), v in times_bwd.items():
         design = {("flash_attn_bwd_dkv", "bfloat16"): "K6 bf16 wgmma+TMA",
-                  ("flash_attn_bwd_dkv", "float32"): "K6 fp32 3xTF32",
+                  ("flash_attn_bwd_dkv", "float32"): "K6 fp32 3xTF32 wgmma",
                   ("flash_attn_bwd_dq", "bfloat16"): "K7 bf16 wgmma+TMA",
-                  ("flash_attn_bwd_dq", "float32"): "K7 fp32 3xTF32"}
+                  ("flash_attn_bwd_dq", "float32"): "K7 fp32 3xTF32 wgmma"}
         ops = (8.0 if name == "flash_attn_bwd_dkv" else 6.0) * units
-        flash_rows.append((design[(name, dtn)], list(VSD_ATTN), v["ms"], ops,
-                           v["bound_ms"], sdpa_bwd_ms[dtn]))
+        flash_rows.append((design[(name, dtn)], list(VSD_ATTN),
+                           v["device_ms"], ops, v["bound_ms"], sdpa_bwd[dtn]))
     flash_instances = [
         dict(instance=n, shape=shp, ms=ms, tflops=ops / ms / 1e9,
              bound_ms=bd, pct_of_bound=100.0 * bd / ms, sdpa_ms=sd)
@@ -1328,6 +1343,10 @@ def run(torch) -> int:
               f"plain {v['plain_ms']:.3f}, SDPA "
               f"bwd {v['library_ms']:.3f}, bound {v['bound_ms']:.4f} "
               f"{v['bound_by']})" for (n, d), v in times_bwd.items())
+          + " | K6 + K7 device: " + ", ".join(
+              f"{d} {ms:.3f} ms against SDPA's whole backward "
+              f"{sdpa_bwd[d]:.3f} ({ms / sdpa_bwd[d]:.2f}x)"
+              for d, ms in bwd_sum.items())
           + f" | whole backward bound 10 B H L^2 D: fp32 "
             f"{bwd_bound['float32']:.3f} ms, bf16 {bwd_bound['bfloat16']:.4f}"
             f" ms | K5 with lse at B=4: fp32 {k5_b4['float32']:.3f} ms, "
@@ -1654,15 +1673,21 @@ def run(torch) -> int:
             launches=vsd_launches[name], max_abs_err=errs[name],
             **times_bwd[(name, "float32")],
             shapes=f"VSD level-0 self-attention backward {list(VSD_ATTN)} "
-                   "fp32; library_ms: SDPA's backward (dQ, dK and dV)",
+                   "fp32; library_ms: SDPA's backward (dQ, dK and dV), "
+                   "device time from a profiler trace",
             design=("bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
                     "keys a CTA, 3-stage Q/dO ring); bf16 D>64: mma.sync; "
-                    "fp32: 3xTF32 on mma.sync m16n8k8, cp.async double "
-                    "buffer" if name == "flash_attn_bwd_dkv" else
+                    "fp32 D<=64: 3xTF32 on wgmma + TMA (64 keys a CTA, "
+                    "3-stage Q/dO ring; warpgroup 0 S, P, dV^T = dO^T P, "
+                    "warpgroup 1 dP, dS, dK^T = Q^T dS; P and dS as "
+                    "[key][query] hi/lo planes); fp32 D>64: 3xTF32 on "
+                    "mma.sync m16n8k8" if name == "flash_attn_bwd_dkv" else
                     "bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
                     "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
-                    "fp32: 3xTF32 on mma.sync m16n8k8, K/V tiles of 32 "
-                    "keys split at fragment load, cp.async double buffer"),
+                    "fp32 D<=64: 3xTF32 on wgmma + TMA (64 queries a CTA, "
+                    "3-stage K/V ring; warpgroup 0 S^T, P^T, warpgroup 1 "
+                    "dP^T, dS^T, dQ^T = K^T dS^T; dS as [query][key] hi/lo "
+                    "planes); fp32 D>64: 3xTF32 on mma.sync m16n8k8"),
             bf16=times_bwd[(name, "bfloat16")]))
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
                       "render_fwd_bwd_ms_compact": render_compact,
@@ -1679,6 +1704,8 @@ def run(torch) -> int:
                                   if k != "k5"},
                       "tools": tools, "parallel": parallel,
                       "flash_bwd_bound_ms": bwd_bound,
+                      "flash_bwd_sum_device_ms": bwd_sum,
+                      "flash_bwd_sdpa_ms": sdpa_bwd,
                       "flash_instances": flash_instances}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1957,7 +1984,6 @@ def outputs_phase(torch, build_trainer, load_config, wrappers, card,
     return res
 
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RASTER = ("raster_fwd", "raster_bwd", "raster_fwd_compact",
           "raster_bwd_compact")
 RASTER_DESIGN = dict(
@@ -1977,16 +2003,6 @@ def flash_peak(dtn: str) -> float:
     return PEAK_BF16_FLOPS if dtn == "bfloat16" else PEAK_3XTF32_FLOPS
 
 
-def busy_us(events):
-    """Union of the device events' [ts, ts + dur) spans, in us."""
-    busy, end = 0.0, -math.inf
-    for e in sorted(events, key=lambda e: e["ts"]):
-        s, d = float(e["ts"]), float(e["dur"])
-        busy += max(0.0, s + d - max(s, end))
-        end = max(end, s + d)
-    return busy
-
-
 def ptxas_lines(log, needle):
     """{kernel: "registers and shared memory; stack and spills"} from
     ptxas's -v report for each function whose name holds ``needle``."""
@@ -1997,8 +2013,13 @@ def ptxas_lines(log, needle):
             continue
         if needle not in func or not ("spill" in ln or "registers" in ln):
             continue
-        short = re.search(r"(raster_\w+?kernel)", func)
-        key = short.group(1) if short else func
+        # the kernel's name after the mangled namespace, with its template
+        # argument
+        short = re.search(r"((?:raster|flash)_\w+?kernel)(?:ILi(\d+)E)?",
+                          func)
+        key = func if not short else re.sub(
+            r"^.*\d(?=[a-z])", "", short.group(1)) + (
+            f"<{short.group(2)}>" if short.group(2) else "")
         res[key] = "; ".join(filter(None, (res.get(key), ln.split(
             ":", 1)[-1].strip() if "registers" in ln else ln.strip())))
     return res
@@ -3331,6 +3352,12 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
                 device_idle_share=1.0 - busy_ms / wall_ms,
                 k5_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
                                  if "flash_fwd" in e["name"]),
+                k6_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
+                                 if "flash_bwd_dkv" in e["name"]),
+                k7_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
+                                 if "flash_bwd_dq" in e["name"]),
+                k6_k7_launches=[sum(k in e["name"] for e in dev_ev)
+                                for k in ("flash_bwd_dkv", "flash_bwd_dq")],
                 device_ops_per_step=len(dev_ev), device_streams=len(streams),
                 device_ms_by_part=by_group,
                 top_device_ms=[[g, k, v] for (g, k), v in top])
@@ -3345,6 +3372,12 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
         fps_note = (f" | FPS: {len(fps_ev)} device ops, "
                     f"{info['fps_device_ms']:.2f} device ms, "
                     f"{info['fps_host_ms']:.2f} host ms in the step")
+    if vsd:
+        fps_note += (f" | K6 {info['k6_device_ms']:.2f} device ms in "
+                     f"{info['k6_k7_launches'][0]} launches, K7 "
+                     f"{info['k7_device_ms']:.2f} in "
+                     f"{info['k6_k7_launches'][1]}, unet_bwd "
+                     f"{by_group.get('unet_bwd', 0.0):.2f}")
     phase = phase or ("9 vsd" if vsd else "8 sds")
     print(f"phase {phase} profile: ok 1 "
           f"traced step, {wall_ms:.2f} ms, device "

@@ -36,17 +36,36 @@
 //    dK += dS^T Q, RS wgmma with dO and Q as MN-major B (tnspB).  dK * scale
 //    and dV go to bf16 at the end.  setmaxnreg moves registers inside the
 //    CTA's allocation (168 a thread): producer 40, consumers 232.
-//  * K6 fp32 (the VSD path: the JAX VSD UNet runs in fp32): 3xTF32 on
-//    mma.sync m16n8k8 (flash_attn_sm90.cuh), about 2^-21 relative per
-//    product.  4 warps of 16 keys; Q, dO, lse and Di tiles of 32 queries
-//    double-buffered by cp.async; terms interleaved over 4 accumulators;
-//    each tile's dV and dK go to partial sums folded in by rounded fp32
-//    adds (D <= 64; the D <= 160 instance adds into the totals, its
-//    registers would not hold both).  P^T and dS^T stay in registers: the
-//    score fragment's queries (2t, 2t + 1) stand at k = (t, t + 4) of the
-//    next products, the same permutation applied to dO's and Q's rows.
-//    Bound at the rate this design can reach: 3 x 8 B H L^2 D / 495
-//    TFLOP/s (1.04 ms at [4, 4096, 5, 64]).
+//  * K6 fp32, D <= 64 (the VSD path: the JAX VSD UNet runs in fp32): 3xTF32 on
+//    wgmma fed by TMA, about 2^-21 relative per product: each operand x splits
+//    into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest, and each
+//    product is lo_a hi_b + hi_a lo_b + hi_a hi_b with fp32 accumulation.
+//    Bound at the rate this design can reach: 3 x 8 B H L^2 D / 495 TFLOP/s
+//    (1.04 ms at [4, 4096, 5, 64]).  For 32-bit types wgmma reads
+//    shared-memory operands K-major only (no transpose bit), and dV = P^T dO
+//    and dK = dS^T Q contract over queries, which are not contiguous in the
+//    [B, L, H, D] tiles.  So the gradient products are taken transposed, dV^T
+//    = dO^T P and dK^T = Q^T dS: the row-major dO / Q tile is the register A
+//    operand (registers have no majorness), loaded transposed and split in
+//    registers, and P and dS go to shared memory as [key][query] hi and lo
+//    planes, K-major B operands.  One CTA per (64-key tile, head, batch):
+//    warpgroup 0 runs S = Q K^T, P and dV^T, warpgroup 1 dP = dO V^T, dS and
+//    dK^T (4 products of 64 x 64 a tile, 2 each), one thread of a producer
+//    warpgroup the TMA ring of Q / dO tiles of 64 queries with their lse and
+//    Di rows (3 stages, mbarrier full/empty pairs, 128-byte swizzle, two boxes
+//    of 32 fp32 side by side).  The score products take the Q / dO tile as A
+//    against K and V split once into resident hi / lo planes.  Warpgroup 1
+//    reads P back as hi + lo (named barriers between the two).  Shared memory:
+//    8 planes of 16 KB and 3 stages of 32.5 KB, 226.5 KB of 227.  TF32
+//    rounding takes two integer instructions (cvt.rna.tf32 ran at a fraction
+//    of their rate), the next k-step's A values load before this one's
+//    products issue, two k-steps are in flight, and every product takes 8
+//    k-steps known at compile time (TMA zero-fills the head dims past D): a
+//    run-time count serialised every wgmma.  Each tile's products go to
+//    partial sums folded in by rounded fp32 adds.  D = 72-160 (only SD 1.5
+//    under `fused_attention: on` would reach it; no shipped config runs VSD
+//    so) stays on PR 5's mma.sync m16n8k8 instance: 4 warps of 16 keys, Q, dO,
+//    lse and Di tiles of 32 queries double-buffered by cp.async.
 //  * K7 bf16, D <= 64: K6's design with the roles swapped.  One CTA per
 //    (128-query tile, head, batch): two consumer warpgroups of 64 queries
 //    and a producer warpgroup.  Q and dO stay resident (lse and Di rows in
@@ -55,19 +74,20 @@
 //    exp2(S scale log2e - lse log2e) (dP - Di) rounded to bf16 in registers
 //    as the A operand of dQ += dS K, an RS wgmma reading K's tile MN-major
 //    (tnspB) from the same swizzled bytes the score product read K-major.
-//  * K7 fp32: 3xTF32 on mma.sync m16n8k8 as K6 fp32.  4 warps of 32
-//    queries (two m16 tiles sharing every K / V fragment; 16 queries for
-//    D <= 160); the CTA's Q and dO stay resident, K and V stream in tiles
-//    of 32 keys double-buffered by cp.async (two CTAs an SM); dS stays in
-//    registers as the A operand of dQ += dS K (keys (2t, 2t + 1) at
-//    k = (t, t + 4), K's rows permuted the same way); each tile's dS K goes
-//    to partial sums folded into dQ by rounded fp32 adds.  Each warp splits
-//    the fragments it loads, as K5 and K6 do.  Splitting each landed K / V
-//    tile once into TF32 hi and lo planes was 2% faster at 16-key tiles,
-//    but its planes leave no room for 32-key tiles at two CTAs an SM, which
-//    cut the Q / dO splits per key by half: PERF.md.
-//    Bound at the rate this design can reach: 3 x 6 B H L^2 D / 495
-//    TFLOP/s (0.78 ms at [4, 4096, 5, 64]).
+//  * K7 fp32, D <= 64: 3xTF32 on wgmma + TMA, K6's design with the roles
+//    swapped. dQ = dS K contracts over keys, so it is taken as dQ^T = K^T
+//    dS^T: the K tile transposed is the register A operand, dS^T goes to
+//    shared memory as [query][key] hi and lo planes.  One CTA per (64-query
+//    tile, head, batch): Q and dO split once into resident hi / lo planes; K
+//    and V tiles of 64 keys stream through the 3-stage ring.  Warpgroup 0 runs
+//    S^T = K Q^T and P^T and hands P^T over in fp32; warpgroup 1 runs dP^T = V
+//    dO^T, dS^T and dQ^T.  Giving warpgroup 0 half of dQ^T (a second pair of
+//    named barriers) was 6.5% slower.  Bound at the rate this design can
+//    reach: 3 x 6 B H L^2 D / 495 TFLOP/s (0.78 ms at [4, 4096, 5, 64]).  D =
+//    72-160 stays on PR 6's mma.sync instance: 4 warps of 16 queries, K and V
+//    tiles of 32 keys double-buffered by cp.async, dS in registers as the A
+//    operand of dQ += dS K (keys (2t, 2t + 1) at k = (t, t + 4), K's rows
+//    permuted the same way).
 //  * K6 bf16, D > 64, and K7 bf16, D > 64: 4 warps of mma.sync m16n8k16
 //    (bf16 in, fp32 accumulate), each warp 16 keys (K6) or 16 queries (K7);
 //    the score accumulators become the A operands of the second products in
@@ -687,13 +707,455 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// ---- K6, fp32: 3xTF32 on mma.sync ------------------------------------------
+// ---- K6 and K7, fp32, D <= 64: 3xTF32 on wgmma + TMA ----------------------
+// Every tile is 64 rows of 64 fp32 in the 128-byte swizzle: two atom
+// columns of 64 rows x 128 bytes (32 floats), each the box of one TMA copy.
+constexpr int kTfCol = 64 * 128;
+constexpr int kTfTile = 2 * kTfCol;
+constexpr int kTfStages = 3;
+// K6: K, V (hi in place) and their lo planes, P and dS hi / lo, the ring of
+// Q and dO tiles and of their lse / Di rows, the barriers, the slack that
+// aligns the base to 1024 bytes (231,992 of the 232,448 bytes a block may
+// have)
+constexpr int kDkvTfSmem = 8 * kTfTile + kTfStages * (2 * kTfTile + 512) +
+                           8 * (1 + 2 * kTfStages) + 1024;
+// K7: Q, dO (hi in place) and their lo planes, P, dS hi / lo, the ring of K
+// and V tiles, the barriers, the slack
+constexpr int kDqTfSmem = 7 * kTfTile + kTfStages * 2 * kTfTile +
+                          8 * (1 + 2 * kTfStages) + 1024;
+// named barriers (0 is __syncthreads): P written / read between the two
+// consumer warpgroups, then one for each warpgroup's own 128 threads
+constexpr int kBarPFull = 1;
+constexpr int kBarPFree = 2;
+constexpr int kBarWg = 3;
+
+__device__ __forceinline__ void bar_sync_n(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_n(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Byte offset of element (row, col) of a swizzled fp32 tile.
+__device__ __forceinline__ uint32_t tf_off(int row, int col) {
+  return (col >> 5) * kTfCol + row * 128 +
+         ((((col >> 2) & 7) ^ (row & 7)) << 4) + ((col & 3) << 2);
+}
+
+__device__ __forceinline__ float& tf_at(unsigned char* tile, int row,
+                                        int col) {
+  return *reinterpret_cast<float*>(tile + tf_off(row, col));
+}
+
+// One 64-row fp32 tile (rows row0.. of head h, batch b) by two TMA boxes.
+__device__ __forceinline__ void tma_tile_f32(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int h, int row0,
+                                             int b) {
+  tma_load_4d(dst, map, bar, 0, h, row0, b);
+  tma_load_4d(dst + kTfCol, map, bar, 32, h, row0, b);
+}
+
+// A resident tile split into TF32 hi (rounded, in place) and lo planes by
+// the warpgroup's 128 threads: elementwise, so the swizzle does not matter.
+__device__ __forceinline__ void split_tile(unsigned char* hi,
+                                           unsigned char* lo, int tid) {
+  auto* h4 = reinterpret_cast<uint4*>(hi);
+  auto* l4 = reinterpret_cast<uint4*>(lo);
+  for (int i = tid; i < kTfTile / 16; i += 128) {
+    uint4 x = h4[i], y;
+    split_tf32(__uint_as_float(x.x), x.x, y.x);
+    split_tf32(__uint_as_float(x.y), x.y, y.y);
+    split_tf32(__uint_as_float(x.z), x.z, y.z);
+    split_tf32(__uint_as_float(x.w), x.w, y.w);
+    h4[i] = x;
+    l4[i] = y;
+  }
+}
+
+// acc = A B, 64 x 64, over 8 k-steps of 8: one warpgroup, A from the
+// tile `a` in registers, split into TF32 hi and lo there; B the hi / lo
+// planes at shared addresses bh / bl, K-major (their rows are N).  kCols:
+// A's rows are the tile's columns and k its rows (A = tile^T); else A's rows
+// are the tile's rows and k its columns.  Each k-step issues lo_a hi_b,
+// hi_a lo_b, hi_a hi_b as one commit group; kInFlight groups are in flight,
+// their A registers in turn, and the next k-step's A values are loaded
+// before this one's products are issued.  m0 = 16 warp + g.
+template <bool kCols>
+__device__ __forceinline__ void mma_3xtf32_wg(float (&acc)[32],
+                                              const unsigned char* a,
+                                              uint32_t bh, uint32_t bl,
+                                              int m0, int t) {
+  constexpr int kSteps = 8;
+  constexpr int kInFlight = 2;
+  auto load = [&](int kk, float (&x)[4]) {
+    const int k0 = 8 * kk + t;
+    const int r[4] = {kCols ? k0 : m0, kCols ? k0 : m0 + 8,
+                      kCols ? k0 + 4 : m0, kCols ? k0 + 4 : m0 + 8};
+    const int c[4] = {kCols ? m0 : k0, kCols ? m0 + 8 : k0,
+                      kCols ? m0 : k0 + 4, kCols ? m0 + 8 : k0 + 4};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = *reinterpret_cast<const float*>(a + tf_off(r[e], c[e]));
+    }
+  };
+  uint32_t ah[kInFlight][4], al[kInFlight][4];
+  float x[4];
+  load(0, x);
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int u = kk % kInFlight;
+    if (kk >= kInFlight) {
+      wgmma_wait<kInFlight - 1>();  // group kk - kInFlight is done
+      fence_regs(ah[u]);
+      fence_regs(al[u]);
+    }
+    split_frag(x, ah[u], al[u]);
+    if (kk + 1 < kSteps) load(kk + 1, x);
+    const uint32_t off = (kk >> 2) * kTfCol + 32 * (kk & 3);
+    wgmma_fence();
+    wgmma_tf32(acc, al[u], desc_sw128(bh + off), kk);
+    wgmma_tf32(acc, ah[u], desc_sw128(bl + off), 1);
+    wgmma_tf32(acc, ah[u], desc_sw128(bh + off), 1);
+    wgmma_commit();
+  }
+  wgmma_wait0();
+  fence_regs(acc);
+}
+
+// K6 fp32: every D <= 64, the score products over 8 k-steps of head dims
+// (TMA zero-fills the head dims past D).  A k-step count known to ptxas
+// keeps the products' commit groups in flight: read at run time it
+// serialised every wgmma (C7515) and took 25% longer.  One CTA per (64-key
+// tile, head, batch).  Threads 0-127: consumer
+// warpgroup 0, S = Q K^T, P, dV^T += dO^T P; threads 128-255: warpgroup 1,
+// dP = dO V^T, dS = P (dP - Di), dK^T += Q^T dS; threads 256-383: the
+// producer (thread 256 issues the copies).  The score products take the
+// streamed Q / dO tile as the register A operand (64 queries, k = head
+// dims) against the resident K / V hi and lo planes; the gradient products
+// take the same tile transposed as A (64 head dims, k = queries) against P
+// and dS written to shared memory as [key][query] hi and lo planes.
+// Warpgroup 1 reads P back as hi + lo.  Each tile's product goes to a
+// partial sum folded into the total by rounded fp32 adds.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int L, int H,
+                                    int D, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  constexpr int kKh = 0, kKl = kTfTile, kVh = 2 * kTfTile, kVl = 3 * kTfTile;
+  constexpr int kPh = 4 * kTfTile, kPl = 5 * kTfTile;
+  constexpr int kSh = 6 * kTfTile, kSl = 7 * kTfTile;
+  constexpr int kQ0 = 8 * kTfTile, kO0 = kQ0 + kTfStages * kTfTile;
+  constexpr int kRows0 = kO0 + kTfStages * kTfTile;  // lse, Di per stage
+  const uint32_t kv_full = base + kRows0 + kTfStages * 512;
+  const uint32_t full0 = kv_full + 8;
+  const uint32_t empty0 = full0 + 8 * kTfStages;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * 64;
+  const int n_tiles = L / 64;
+  const long lbase = (static_cast<long>(b) * H + h) * L;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kTfStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * kTfTile);
+      tma_tile_f32(base + kKh, &tk, kv_full, h, j0, b);
+      tma_tile_f32(base + kVh, &tv, kv_full, h, j0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kTfStages;
+        const uint32_t bar = full0 + 8 * s;
+        if (it >= kTfStages) {
+          mbar_wait(empty0 + 8 * s, ((it / kTfStages) - 1) & 1);
+        }
+        mbar_expect_tx(bar, 2 * kTfTile + 512);
+        tma_tile_f32(base + kQ0 + s * kTfTile, &tq, bar, h, it * 64, b);
+        tma_tile_f32(base + kO0 + s * kTfTile, &tdo, bar, h, it * 64, b);
+        bulk_load(base + kRows0 + s * 512, lse + lbase + it * 64, 256, bar);
+        bulk_load(base + kRows0 + s * 512 + 256, delta + lbase + it * 64,
+                  256, bar);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = 16 * (tid >> 5) + g;  // rows m0, m0 + 8 of every product
+  const float sl2 = scale * kLog2e;
+  // this warpgroup's resident operand: K (wg 0) or V (wg 1)
+  const int rh = wg ? kVh : kKh, rl = wg ? kVl : kKl;
+  mbar_wait(kv_full, 0);
+  split_tile(sm + rh, sm + rl, tid);
+  fence_proxy_async();
+  bar_sync_n(kBarWg + wg, 128);
+  if (wg == 1) bar_arrive_n(kBarPFree, 256);  // no P to read yet
+
+  float acc[32], part[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kTfStages;
+    mbar_wait(full0 + 8 * s, (it / kTfStages) & 1);
+    const unsigned char* qt = sm + kQ0 + s * kTfTile;
+    const unsigned char* ot = sm + kO0 + s * kTfTile;
+    const float* rows =
+        reinterpret_cast<const float*>(sm + kRows0 + s * 512);
+
+    // S = Q K^T (wg 0) or dP = dO V^T (wg 1): 64 queries x 64 keys
+    mma_3xtf32_wg<false>(sc, wg ? ot : qt, base + rh, base + rl, m0, t);
+
+    // accumulator i: query m0 + 8 (i & 2 ? 1 : 0), key 8 (i / 4) + 2t +
+    // (i & 1)
+    if (wg == 0) {
+      const float l0 = rows[m0] * kLog2e, l1 = rows[m0 + 8] * kLog2e;
+      bar_sync_n(kBarPFree, 256);  // warpgroup 1 has read the last P
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q = m0 + ((i & 2) << 2);
+        const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+        const float p = exp2f(fmaf(sc[i], sl2, (i & 2) ? -l1 : -l0));
+        uint32_t hi, lo;
+        split_tf32(p, hi, lo);
+        tf_at(sm + kPh, key, q) = __uint_as_float(hi);
+        tf_at(sm + kPl, key, q) = __uint_as_float(lo);
+      }
+      fence_proxy_async();
+      bar_arrive_n(kBarPFull, 256);
+      bar_sync_n(kBarWg, 128);
+      // dV^T = dO^T P: 64 head dims x 64 keys, k = queries
+      mma_3xtf32_wg<true>(part, ot, base + kPh, base + kPl, m0, t);
+    } else {
+      const float d0 = rows[64 + m0], d1 = rows[64 + m0 + 8];
+      bar_sync_n(kBarPFull, 256);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q = m0 + ((i & 2) << 2);
+        const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+        const float p = tf_at(sm + kPh, key, q) + tf_at(sm + kPl, key, q);
+        sc[i] = p * (sc[i] - ((i & 2) ? d1 : d0));
+      }
+      if (it + 1 < n_tiles) bar_arrive_n(kBarPFree, 256);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int q = m0 + ((i & 2) << 2);
+        const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+        uint32_t hi, lo;
+        split_tf32(sc[i], hi, lo);
+        tf_at(sm + kSh, key, q) = __uint_as_float(hi);
+        tf_at(sm + kSl, key, q) = __uint_as_float(lo);
+      }
+      fence_proxy_async();
+      bar_sync_n(kBarWg + 1, 128);
+      // dK^T = Q^T dS: 64 head dims x 64 keys, k = queries
+      mma_3xtf32_wg<true>(part, qt, base + kSh, base + kSl, m0, t);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  }
+
+  // acc i: head dim m0 + 8 (i & 2 ? 1 : 0), key 8 (i / 4) + 2t + (i & 1)
+  float* out = wg ? dk : dv;
+  const float mul = wg ? scale : 1.0f;
+  const long row_stride = static_cast<long>(H) * D;
+  const long o0 = (static_cast<long>(b) * L + j0) * row_stride + h * D;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int d = m0 + ((i & 2) << 2);
+    const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+    if (d < D) out[o0 + key * row_stride + d] = acc[i] * mul;
+  }
+}
+
+// K7 fp32: every D <= 64, as K6's.  One CTA per (64-query tile, head, batch).  Threads
+// 0-127: consumer warpgroup 0, S^T = K Q^T and P^T; threads 128-255: warpgroup
+// 1, dP^T = V dO^T, dS^T = P^T (dP^T - Di), dQ^T += K^T dS^T; threads 256-383:
+// the producer.  The score products take the streamed K / V tile as the
+// register A operand (64 keys, k = head dims) against the resident Q / dO hi
+// and lo planes; P^T passes to warpgroup 1 in fp32 through shared memory in
+// register order; dQ^T takes the K tile transposed as A (64 head dims, k =
+// keys) against dS written as [query][key] hi and lo planes.  Each tile's dQ^T
+// goes to a partial sum folded in by rounded fp32 adds.
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dq, int L, int H,
+                                   int D, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  constexpr int kQh = 0, kQl = kTfTile, kOh = 2 * kTfTile, kOl = 3 * kTfTile;
+  constexpr int kP = 4 * kTfTile, kSh = 5 * kTfTile, kSl = 6 * kTfTile;
+  constexpr int kK0 = 7 * kTfTile, kV0 = kK0 + kTfStages * kTfTile;
+  const uint32_t q_full = base + kV0 + kTfStages * kTfTile;
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * kTfStages;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.x * 64;
+  const int n_tiles = L / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kTfStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * kTfTile);
+      tma_tile_f32(base + kQh, &tq, q_full, h, i0, b);
+      tma_tile_f32(base + kOh, &tdo, q_full, h, i0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kTfStages;
+        const uint32_t bar = full0 + 8 * s;
+        if (it >= kTfStages) {
+          mbar_wait(empty0 + 8 * s, ((it / kTfStages) - 1) & 1);
+        }
+        mbar_expect_tx(bar, 2 * kTfTile);
+        tma_tile_f32(base + kK0 + s * kTfTile, &tk, bar, h, it * 64, b);
+        tma_tile_f32(base + kV0 + s * kTfTile, &tv, bar, h, it * 64, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = 16 * (tid >> 5) + g;
+  const float sl2 = scale * kLog2e;
+  // this warpgroup's resident operand: Q (wg 0) or dO (wg 1), and the
+  // lse (log2 units) or Di of this lane's 16 query columns 8j + 2t + e
+  const int rh = wg ? kOh : kQh, rl = wg ? kOl : kQl;
+  const long lrow = (static_cast<long>(b) * H + h) * L + i0;
+  float cst[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int q = 8 * (c >> 1) + 2 * t + (c & 1);
+    cst[c] = wg ? delta[lrow + q] : lse[lrow + q] * kLog2e;
+  }
+  mbar_wait(q_full, 0);
+  split_tile(sm + rh, sm + rl, tid);
+  fence_proxy_async();
+  bar_sync_n(kBarWg + wg, 128);
+  if (wg == 1) bar_arrive_n(kBarPFree, 256);  // no P to read yet
+
+  float acc[32], part[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  float* pp = reinterpret_cast<float*>(sm + kP);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kTfStages;
+    mbar_wait(full0 + 8 * s, (it / kTfStages) & 1);
+    const unsigned char* kt = sm + kK0 + s * kTfTile;
+    const unsigned char* vt = sm + kV0 + s * kTfTile;
+
+    // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1): 64 keys x 64 queries;
+    // accumulator i: key m0 + 8 (i & 2 ? 1 : 0), query column i / 2 of cst
+    mma_3xtf32_wg<false>(sc, wg ? vt : kt, base + rh, base + rl, m0, t);
+    if (wg == 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = exp2f(fmaf(sc[i], sl2, -cst[((i >> 2) << 1) | (i & 1)]));
+      }
+      bar_sync_n(kBarPFree, 256);  // warpgroup 1 has read the last P
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pp[i * 128 + tid] = sc[i];
+      bar_arrive_n(kBarPFull, 256);
+      continue;
+    }
+    bar_sync_n(kBarPFull, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = pp[i * 128 + tid] * (sc[i] - cst[((i >> 2) << 1) | (i & 1)]);
+    }
+    if (it + 1 < n_tiles) bar_arrive_n(kBarPFree, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = m0 + ((i & 2) << 2);
+      const int q = 8 * (i >> 2) + 2 * t + (i & 1);
+      uint32_t hi, lo;
+      split_tf32(sc[i], hi, lo);
+      tf_at(sm + kSh, q, key) = __uint_as_float(hi);
+      tf_at(sm + kSl, q, key) = __uint_as_float(lo);
+    }
+    fence_proxy_async();
+    bar_sync_n(kBarWg + 1, 128);
+    // dQ^T = K^T dS^T: 64 head dims x 64 queries, k = keys
+    mma_3xtf32_wg<true>(part, kt, base + kSh, base + kSl, m0, t);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  }
+  if (wg == 0) return;
+
+  // acc i: head dim m0 + 8 (i & 2 ? 1 : 0), query 8 (i / 4) + 2t + (i & 1)
+  const long row_stride = static_cast<long>(H) * D;
+  const long o0 = (static_cast<long>(b) * L + i0) * row_stride + h * D;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int d = m0 + ((i & 2) << 2);
+    const int q = 8 * (i >> 2) + 2 * t + (i & 1);
+    if (d < D) dq[o0 + q * row_stride + d] = acc[i] * scale;
+  }
+}
+
+// ---- K6, fp32, D = 72-160: 3xTF32 on mma.sync ----------------------------
 // 4 warps of 16 keys (64 keys a block); Q, dO, lse and Di stream in tiles of
 // 32 queries, double-buffered by cp.async.  NTD: D/8 that the registers are
-// sized for (8: D <= 64, 20: D <= 160).  Shared memory: K, V [64][D + 4],
-// Q, dO [2][32][D + 4], lse, Di [2][32].
-template <int NTD>
-__global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
+// sized for (kMaxD / 8).  Each tile's dV and dK add into the totals (the
+// registers would not hold partial sums beside them).  Shared memory: K, V
+// [64][D + 4], Q, dO [2][32][D + 4], lse, Di [2][32].
+__global__ void __launch_bounds__(128, 1)
     flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
@@ -702,6 +1164,7 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
                               int L, int H, int D, float scale) {
+  constexpr int NTD = kMaxD / 8;
   extern __shared__ __align__(16) float smem[];
   const int ds = D + 4;
   float* ks = smem;
@@ -745,9 +1208,7 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
 
   const float* kw = ks + warp * 16 * ds;
   const float* vw = vs + warp * 16 * ds;
-  constexpr bool kFold = NTD <= 8;
   float acc_v[NTD][4], acc_k[NTD][4];
-  float part_v[kFold ? NTD : 1][4], part_k[kFold ? NTD : 1][4];
 #pragma unroll
   for (int nd = 0; nd < NTD; ++nd) {
 #pragma unroll
@@ -819,17 +1280,8 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
       }
     }
 
-    // dV += P^T dO, dK += dS^T Q (into this tile's partial sums when they
-    // fit): query step kk covers queries 8kk..8kk+7; this lane's queries
-    // 8kk + 2t, + 1 stand at k = t, t + 4
-#pragma unroll
-    for (int nd = 0; nd < (kFold ? NTD : 1); ++nd) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        part_v[nd][e] = 0.0f;
-        part_k[nd][e] = 0.0f;
-      }
-    }
+    // dV += P^T dO, dK += dS^T Q: query step kk covers queries
+    // 8kk..8kk+7; this lane's queries 8kk + 2t, + 1 stand at k = t, t + 4
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float ap[4] = {st[kk][0], st[kk][2], st[kk][1], st[kk][3]};
@@ -850,23 +1302,8 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
             split_tf32(qt[c], qh[i][0], ql[i][0]);
             split_tf32(qt[c + ds], qh[i][1], ql[i][1]);
           }
-          if constexpr (kFold) {
-            mma_3xtf32(part_v, n0, ph, pl, oh, ol);
-            mma_3xtf32(part_k, n0, dh, dl, qh, ql);
-          } else {
-            mma_3xtf32(acc_v, n0, ph, pl, oh, ol);
-            mma_3xtf32(acc_k, n0, dh, dl, qh, ql);
-          }
-        }
-      }
-    }
-    if constexpr (kFold) {
-#pragma unroll
-      for (int nd = 0; nd < NTD; ++nd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc_v[nd][e] += part_v[nd][e];
-          acc_k[nd][e] += part_k[nd][e];
+          mma_3xtf32(acc_v, n0, ph, pl, oh, ol);
+          mma_3xtf32(acc_k, n0, dh, dl, qh, ql);
         }
       }
     }
@@ -890,16 +1327,14 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
   }
 }
 
-// ---- K7, fp32: 3xTF32 on mma.sync ------------------------------------------
-// 4 warps of 16 MT queries (MT m16 tiles share every K fragment a warp
-// loads); the CTA's Q and dO rows stay resident, their lse and Di in
-// registers; K and V stream in tiles of KEYS keys, double-buffered by
-// cp.async.  NTD: D/8 that the registers are sized for (8: D <= 64, 20:
-// D <= 160).  Each warp splits the K / V fragments it loads into TF32 hi
+// ---- K7, fp32, D = 72-160: 3xTF32 on mma.sync ----------------------------
+// 4 warps of 16 queries; the CTA's Q and dO rows stay resident, their lse
+// and Di in registers; K and V stream in tiles of KEYS keys,
+// double-buffered by cp.async.  NTD: D/8 that the registers are sized for
+// (kMaxD / 8).  Each warp splits the K / V fragments it loads into TF32 hi
 // and lo.  Shared memory (rows padded to D + 4 floats: conflict-free
-// fragment loads): Q, dO [64 MT], K, V [2][KEYS].
-template <int NTD, int MT>
-__global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
+// fragment loads): Q, dO [64], K, V [2][KEYS].
+__global__ void __launch_bounds__(128, 1)
     flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -908,14 +1343,14 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
                              const float* __restrict__ delta,
                              float* __restrict__ dq, int L, int H, int D,
                              float scale) {
-  constexpr int kQ = 64 * MT;  // queries per block
+  constexpr int NTD = kMaxD / 8;
   constexpr int KEYS = kDqTfKeys;
   constexpr int NT = KEYS / 8;  // key n-tiles of the score products
   extern __shared__ __align__(16) float smem[];
   const int ds = D + 4;
   float* qs = smem;
-  float* dos = qs + kQ * ds;
-  float* ks = dos + kQ * ds;
+  float* dos = qs + 64 * ds;
+  float* ks = dos + 64 * ds;
   float* vs = ks + 2 * KEYS * ds;
 
   const int tid = threadIdx.x;
@@ -929,36 +1364,30 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
   const long base = static_cast<long>(blockIdx.z) * L * row_stride +
                     static_cast<long>(blockIdx.y) * D;
   const long lbase = (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L;
-  const int i0 = blockIdx.x * kQ;
+  const int i0 = blockIdx.x * 64;
   const int n_tiles = L / KEYS;
 
-  load_rows_async(qs, ds, q, base, row_stride, i0, kQ, D);
-  load_rows_async(dos, ds, dout, base, row_stride, i0, kQ, D);
+  load_rows_async(qs, ds, q, base, row_stride, i0, 64, D);
+  load_rows_async(dos, ds, dout, base, row_stride, i0, 64, D);
   load_rows_async(ks, ds, k, base, row_stride, 0, KEYS, D);
   load_rows_async(vs, ds, v, base, row_stride, 0, KEYS, D);
   cp_async_commit();
 
-  // this lane's query rows: g and g + 8 of each of the warp's m16 tiles
-  const int r0 = warp * 16 * MT;
-  float l2[MT][2], di[MT][2];
+  // this lane's query rows: g and g + 8 of the warp's 16
+  const int r0 = warp * 16;
+  float l2[2], di[2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long row = lbase + i0 + r0 + 16 * mt + 8 * r + g;
-      l2[mt][r] = lse[row] * kLog2e;
-      di[mt][r] = delta[row];
-    }
+  for (int r = 0; r < 2; ++r) {
+    const long row = lbase + i0 + r0 + 8 * r + g;
+    l2[r] = lse[row] * kLog2e;
+    di[r] = delta[row];
   }
   // dQ, and this key tile's part of it (folded in by a rounded fp32 add)
-  float acc[MT][NTD][4], part[MT][NTD][4];
+  float acc[NTD][4], part[NTD][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int nd = 0; nd < NTD; ++nd) {
 #pragma unroll
-    for (int nd = 0; nd < NTD; ++nd) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nd][e] = 0.0f;
-    }
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
   }
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -978,18 +1407,15 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
     const float* kt = ks + buf * KEYS * ds;
     const float* vt = vs + buf * KEYS * ds;
 
-    // S = Q K^T and dP = dO V^T: the warp's 16 MT queries x the tile's
-    // KEYS keys (NT n-tiles of 8)
-    float s[MT][NT][4], dp[MT][NT][4];
+    // S = Q K^T and dP = dO V^T: the warp's 16 queries x the tile's KEYS
+    // keys (NT n-tiles of 8)
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[mt][nt][e] = 0.0f;
-          dp[mt][nt][e] = 0.0f;
-        }
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = 0.0f;
+        dp[nt][e] = 0.0f;
       }
     }
 #pragma unroll
@@ -1004,33 +1430,27 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
           split_tf32(vt[off], vh[nt][0], vl[nt][0]);
           split_tf32(vt[off + 4], vh[nt][1], vl[nt][1]);
         }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int c = (r0 + 16 * mt + g) * ds + 8 * kk + t;
-          const float aq[4] = {qs[c], qs[c + 8 * ds], qs[c + 4],
-                               qs[c + 8 * ds + 4]};
-          const float ao[4] = {dos[c], dos[c + 8 * ds], dos[c + 4],
-                               dos[c + 8 * ds + 4]};
-          uint32_t qh[4], ql[4], oh[4], ol[4];
-          split_frag(aq, qh, ql);
-          split_frag(ao, oh, ol);
-          mma_3xtf32(s[mt], 0, qh, ql, kh, kl);
-          mma_3xtf32(dp[mt], 0, oh, ol, vh, vl);
-        }
+        const int c = (r0 + g) * ds + 8 * kk + t;
+        const float aq[4] = {qs[c], qs[c + 8 * ds], qs[c + 4],
+                             qs[c + 8 * ds + 4]};
+        const float ao[4] = {dos[c], dos[c + 8 * ds], dos[c + 4],
+                             dos[c + 8 * ds + 4]};
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        split_frag(aq, qh, ql);
+        split_frag(ao, oh, ol);
+        mma_3xtf32(s, 0, qh, ql, kh, kl);
+        mma_3xtf32(dp, 0, oh, ol, vh, vl);
       }
     }
 
     // dS = P (dP - Di), P = exp2(S scale log2e - lse log2e): rows g (e = 0,
     // 1) and g + 8 (e = 2, 3), keys 8nt + 2t, + 1; into s
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(fmaf(s[mt][nt][e], sl2, -l2[mt][e >> 1]));
-          s[mt][nt][e] = p * (dp[mt][nt][e] - di[mt][e >> 1]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[nt][e], sl2, -l2[e >> 1]));
+        s[nt][e] = p * (dp[nt][e] - di[e >> 1]);
       }
     }
 
@@ -1038,22 +1458,15 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
     // 8kk..8kk+7; this lane's keys 8kk + 2t, + 1 stand at k = t, t + 4, the
     // same permutation applied to K's rows
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int nd = 0; nd < NTD; ++nd) {
 #pragma unroll
-      for (int nd = 0; nd < NTD; ++nd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][nd][e] = 0.0f;
-      }
+      for (int e = 0; e < 4; ++e) part[nd][e] = 0.0f;
     }
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
-      uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float a[4] = {s[mt][kk][0], s[mt][kk][2], s[mt][kk][1],
-                            s[mt][kk][3]};
-        split_frag(a, ah[mt], al[mt]);
-      }
+      const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      uint32_t ah[4], al[4];
+      split_frag(a, ah, al);
       const int r = (8 * kk + 2 * t) * ds + g;
 #pragma unroll
       for (int n0 = 0; n0 < NTD; n0 += 4) {
@@ -1065,36 +1478,27 @@ __global__ void __launch_bounds__(128, NTD <= 8 ? 2 : 1)
             split_tf32(kt[c], bh[i][0], bl[i][0]);
             split_tf32(kt[c + ds], bh[i][1], bl[i][1]);
           }
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_3xtf32(part[mt], n0, ah[mt], al[mt], bh, bl);
-          }
+          mma_3xtf32(part, n0, ah, al, bh, bl);
         }
       }
     }
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+    for (int nd = 0; nd < NTD; ++nd) {
 #pragma unroll
-      for (int nd = 0; nd < NTD; ++nd) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nd][e] += part[mt][nd][e];
-      }
+      for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
     }
     __syncthreads();  // the tile's readers are done before it is refilled
   }
 
+  const long row0 = base + (i0 + r0 + g) * row_stride + 2 * t;
+  const long row1 = row0 + 8 * row_stride;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const long row0 = base + (i0 + r0 + 16 * mt + g) * row_stride + 2 * t;
-    const long row1 = row0 + 8 * row_stride;
-#pragma unroll
-    for (int nd = 0; nd < NTD; ++nd) {
-      if (nd < ND) {
-        *reinterpret_cast<float2*>(dq + row0 + 8 * nd) =
-            make_float2(acc[mt][nd][0] * scale, acc[mt][nd][1] * scale);
-        *reinterpret_cast<float2*>(dq + row1 + 8 * nd) =
-            make_float2(acc[mt][nd][2] * scale, acc[mt][nd][3] * scale);
-      }
+  for (int nd = 0; nd < NTD; ++nd) {
+    if (nd < ND) {
+      *reinterpret_cast<float2*>(dq + row0 + 8 * nd) =
+          make_float2(acc[nd][0] * scale, acc[nd][1] * scale);
+      *reinterpret_cast<float2*>(dq + row1 + 8 * nd) =
+          make_float2(acc[nd][2] * scale, acc[nd][3] * scale);
     }
   }
 }
@@ -1107,19 +1511,6 @@ bool bad_shape(int B, int L, int H, int D) {
 size_t bf16_smem(int extra_floats) {
   return 4 * 64 * kStride * sizeof(__nv_bfloat16) +
          sizeof(float) * extra_floats;
-}
-
-template <int NTD, int MT>
-int launch_dq_tf32(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   float* dq, int B, int L, int H, int D, float scale,
-                   cudaStream_t s) {
-  if (L % (64 * MT) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (D + 4) * (2 * 64 * MT + 4 * kDqTfKeys);
-  return launch(flash_bwd_dq_tf32_kernel<NTD, MT>,
-                dim3(L / (64 * MT), H, B), 128, smem, s, q, k, v, dout, lse,
-                delta, dq, L, H, D, scale);
 }
 
 }  // namespace
@@ -1170,14 +1561,22 @@ extern "C" int gsgen_flash_attn_bwd_dkv(const void* q, const void* k,
   const auto* of = static_cast<const float*>(dout);
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
+  if (D <= 64) {
+    CUtensorMap tq, tdo, tk, tv;
+    if (!f32_rows_map(&tq, q, B, L, H, D, 64) ||
+        !f32_rows_map(&tdo, dout, B, L, H, D, 64) ||
+        !f32_rows_map(&tk, k, B, L, H, D, 64) ||
+        !f32_rows_map(&tv, v, B, L, H, D, 64)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch(flash_bwd_dkv_tf32_wgmma_kernel, dim3(L / 64, H, B),
+                  kWgThreads, kDkvTfSmem, s, tq, tdo, tk, tv, lf, df, dkf,
+                  dvf, L, H, D, scale);
+  }
   const size_t smem =
       sizeof(float) * ((2 * kBlockK + 4 * kTfQ) * (D + 4) + 4 * kTfQ);
-  if (D <= 64) {
-    return launch(flash_bwd_dkv_tf32_kernel<8>, grid, 128, smem, s, qf, kf,
-                  vf, of, lf, df, dkf, dvf, L, H, D, scale);
-  }
-  return launch(flash_bwd_dkv_tf32_kernel<kMaxD / 8>, grid, 128, smem, s, qf,
-                kf, vf, of, lf, df, dkf, dvf, L, H, D, scale);
+  return launch(flash_bwd_dkv_tf32_kernel, grid, 128, smem, s, qf, kf, vf,
+                of, lf, df, dkf, dvf, L, H, D, scale);
 }
 
 // As above, for dq.
@@ -1192,19 +1591,28 @@ extern "C" int gsgen_flash_attn_bwd_dq(const void* q, const void* k,
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
   if (!is_bf16) {
-    // 32 queries a warp for D <= 64, 16 for D <= 160 (whose registers hold
-    // one m16 tile's 20 accumulators and parts)
+    // D <= 64: the wgmma kernel; D <= 160: 16
+    // queries a warp on mma.sync (one m16 tile's 20 accumulators and parts)
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     const auto* of = static_cast<const float*>(dout);
     auto* dqf = static_cast<float*>(dq);
     if (D <= 64) {
-      return launch_dq_tf32<8, 2>(qf, kf, vf, of, lf, df, dqf, B, L, H, D,
-                                  scale, s);
+      CUtensorMap tq, tdo, tk, tv;
+      if (!f32_rows_map(&tq, q, B, L, H, D, 64) ||
+          !f32_rows_map(&tdo, dout, B, L, H, D, 64) ||
+          !f32_rows_map(&tk, k, B, L, H, D, 64) ||
+          !f32_rows_map(&tv, v, B, L, H, D, 64)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return launch(flash_bwd_dq_tf32_wgmma_kernel, dim3(L / 64, H, B),
+                    kWgThreads, kDqTfSmem, s, tq, tdo, tk, tv, lf, df, dqf, L,
+                    H, D, scale);
     }
-    return launch_dq_tf32<kMaxD / 8, 1>(qf, kf, vf, of, lf, df, dqf, B, L, H,
-                                        D, scale, s);
+    return launch(flash_bwd_dq_tf32_kernel, dim3(L / 64, H, B), 128,
+                  sizeof(float) * (D + 4) * (2 * 64 + 4 * kDqTfKeys), s, qf,
+                  kf, vf, of, lf, df, dqf, L, H, D, scale);
   }
   auto* dqb = static_cast<__nv_bfloat16*>(dq);
   if (D <= 64) {

@@ -1,14 +1,17 @@
 // Hopper building blocks of the flash-attention kernels K5, K6 and K7:
 // TMA tensor maps and loads (mbarriers and bulk copies: sm90_async.cuh),
 // warpgroup matrix multiply (wgmma) with shared-memory descriptors,
-// setmaxnreg, and the 3xTF32 split with its mma.sync product for the fp32
-// instances.
+// setmaxnreg, and the 3xTF32 split with its mma.sync and wgmma products
+// for the fp32 instances.
 //
 // Layout conventions (shared by every user):
 //  * A [B, L, H, D] bf16 tensor is a 4-D TMA map with dims (D, H, L, B) and
 //    byte strides (2D, 2HD, 2LHD); a box {64, 1, rows, 1} lands as `rows`
 //    rows of 128 bytes (64 head dims, zero-filled past D) in the 128-byte
 //    swizzle, in 1024-byte atoms of 8 rows.  Tile bases are 1024-aligned.
+//    An fp32 tensor's map is the same with 4-byte elements and boxes {32,
+//    1, rows, 1}: 32 head dims a 128-byte row, so a tile of 64 head dims is
+//    two boxes side by side (atom columns of rows x 128 bytes).
 //  * Such a tile is read by wgmma either K-major (the head dim is the
 //    product's k: rows are M or N) or MN-major (the rows are the product's
 //    k, the head dims its N: a B operand with tnspB = 1).
@@ -62,23 +65,39 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// The map of a [B, L, H, D] bf16 tensor with box {64, 1, rows, 1}.
-bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int L, int H,
-                   int D, int rows) {
+// The map of a [B, L, H, D] tensor of `bytes`-byte elements with box
+// {128 / bytes, 1, rows, 1}: one 128-byte swizzled row a box row.
+bool rows_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+              const void* base, int B, int L, int H, int D, int rows) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * L * H * D};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t e = static_cast<cuuint64_t>(bytes);
+  const cuuint64_t strides[3] = {e * D, e * H * D, e * L * H * D};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / bytes), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, elem,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a [B, L, H, D] bf16 tensor with box {64, 1, rows, 1}.
+bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int L, int H,
+                   int D, int rows) {
+  return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, L, H, D,
+                  rows);
+}
+
+// The map of a [B, L, H, D] fp32 tensor with box {32, 1, rows, 1}.
+bool f32_rows_map(CUtensorMap* map, const void* base, int B, int L, int H,
+                  int D, int rows) {
+  return rows_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, B, L, H, D,
+                  rows);
 }
 
 // ---- device: TMA (mbarriers and bulk copies: sm90_async.cuh) ---------------
@@ -133,12 +152,30 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Keep the compiler from moving register reads or writes across the
 // asynchronous products.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -257,17 +294,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// wgmma_tf32: d[64 x 64] (+)= A[64 x 8] B[8 x 64] in TF32 with fp32
+// accumulate, A from registers (four .b32 a thread, the mma.sync m16n8k8
+// tf32 A layout per warp: a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4],
+// a3 = A[g + 8][t + 4] of the warp's 16 rows), B K-major in shared memory
+// (32-bit types have no transposed form); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 #undef GS_ACC8
 #undef GS_ACC4
 
 // ---- device: 3xTF32 --------------------------------------------------------
+// x rounded to the nearest TF32 value, ties away from zero: the bits of
+// cvt.rna.tf32.f32 in two integer instructions (the conversion runs at a
+// fraction of their rate: with it the splits held K5-K7 fp32 back by
+// 12-20%, PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 // x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), both rounded
 // to nearest; a product a b is hi_a hi_b + hi_a lo_b + lo_a hi_b.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // D(16x8) += A(16x8, row) B(8x8, col) in tf32, fp32 accumulate.  Fragments

@@ -18,10 +18,10 @@ function's layout, q, k, v, out and their gradients ``[B, L, H, D]``;
   does not take; on CPU tensors it runs its plain version.  K5 in bf16
   is one wgmma + TMA kernel for every D, built at the P V widths of
   :data:`BF16_WIDTHS`; :func:`fwd_tiles` picks the instance (keys a tile,
-  width), which the C entry checks.  K6 and K7 in bf16 run wgmma + TMA
-  at D <= 64 and mma.sync above; every fp32 kernel (K5, K6, K7) runs
-  3xTF32 on the tensor cores.  There is no fallback: a CUDA tensor
-  launches its kernel or raises.
+  width), which the C entry checks.  K6 and K7 run wgmma + TMA at D <=
+  64 (bf16; fp32 as 3xTF32, one instance for every D <= 64) and
+  mma.sync above; K5 in fp32 runs 3xTF32 on mma.sync.  There is no fallback: a CUDA tensor launches its kernel or
+  raises.
 * The plain versions: :func:`flash_self_attention_plain` is the einsum
   path of the JAX ``Attention`` (``unet2d.py:199-203``: fp32 scores and
   softmax, the normalised weights cast to v's type, the second einsum);

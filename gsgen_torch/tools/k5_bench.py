@@ -1,16 +1,22 @@
 """Time K5 (the flash self-attention forward, ``ops/flash_attention.py``)
-at the UNet's bf16 attention shapes on one CUDA card.
+at the UNet's bf16 attention shapes, or with ``--bwd`` K6 and K7 (its
+backward), on one CUDA card.
 
-    python -m gsgen_torch.tools.k5_bench [--against DIR ...] [--rounds 2]
-        [--json OUT]
+    python -m gsgen_torch.tools.k5_bench [--bwd] [--against DIR ...]
+        [--rounds 2] [--json OUT]
 
-Shapes: SD 2.1's level 0 [8, 4096, 5, 64], SD 1.5's level 0 [8, 4096, 8,
-40] and the two levels ``fused_attention: on`` adds, [8, 1024, 8, 80] and
-[8, 256, 8, 160] (CFG batch 8, random inputs from a seed).  Each time is
-device time: a CUDA graph of 50 calls replayed 5 times between two events.
-Beside it: SDPA's time on the same inputs, the plain version's error, and
-the bound (:func:`bound_ms`).  ``chip_smoke.py`` takes its K5 bound, the
-H100 peaks behind it and its graph timer from here.
+Forward shapes: SD 2.1's level 0 [8, 4096, 5, 64], SD 1.5's level 0 [8,
+4096, 8, 40] and the two levels ``fused_attention: on`` adds, [8, 1024, 8,
+80] and [8, 256, 8, 160] (CFG batch 8, random inputs from a seed).
+Backward shapes (:data:`BWD_SHAPES`): VSD's fp32 [4, 4096, 5, 64] and the
+same SD 1.5 levels at batch 4 in bf16.  Each kernel time is device time: a
+CUDA graph of 50 calls (10 in the backward) replayed 5 times (3) between
+two events.  Beside it: SDPA's time on the same inputs (in the backward,
+one autograd call of SDPA computing dQ, dK and dV, its device ops' time
+from a profiler trace), each tree's error against the plain version,
+and the bound (:func:`bound_ms`, :func:`bwd_bound_ms`).
+``chip_smoke.py`` takes its K5 and K6 / K7 bounds, the H100 peaks behind
+them, its graph timer and its trace reading from here.
 
 ``--against DIR`` (repeatable): the ``gsgen_torch`` of another checkout
 (the parent commit unpacked by ``git archive``, say), loaded beside this
@@ -26,6 +32,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -36,12 +43,21 @@ SHAPES = {"SD 2.1 level 0": (8, 4096, 5, 64),
           "SD 1.5 level 0": (8, 4096, 8, 40),
           "SD 1.5 level 1 (on)": (8, 1024, 8, 80),
           "SD 1.5 level 2 (on)": (8, 256, 8, 160)}
+BWD_SHAPES = {"VSD level 0": ((4, 4096, 5, 64), "float32"),
+              "SD 1.5 level 0": ((4, 4096, 8, 40), "bfloat16"),
+              "SD 1.5 level 1 (on)": ((4, 1024, 8, 80), "bfloat16"),
+              "SD 1.5 level 2 (on)": ((4, 256, 8, 160), "bfloat16")}
 PEAK_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
+# K5-K7 in fp32 run 3xTF32: three TF32 tensor-core products per product,
+# so the rate that design can reach is 495 / 3 TFLOP/s of fp32 work
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 # exp2 on the SFU: 16 a clock per SM, 132 SMs at the 1.98 GHz at which the
 # fp32 peak is stated (67e12 = 132 x 128 x 2 x 1.98e9): 4.18e12 a second
 PEAK_EXP2 = 16 * 132 * 1.98e9
+# the chrome trace's categories of device ops
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def bound_ms(B, L, H, D, elem=2):
@@ -54,6 +70,68 @@ def bound_ms(B, L, H, D, elem=2):
              "exps": float(B * H * L * L) / PEAK_EXP2}
     by = max(terms, key=terms.get)
     return 1e3 * terms[by], by
+
+
+def bwd_bound_ms(B, L, H, D, dtype, kernel):
+    """K6's ("dkv": 8 B H L^2 D operations, dk and dv written) or K7's
+    ("dq": 6 B H L^2 D, dq written) bound, (ms, by): the larger of the
+    operations at the bf16 or 3xTF32 rate and the bytes of q, k, v, dout,
+    lse, Di and the outputs, each moved once."""
+    bf16 = dtype == torch.bfloat16
+    io = B * L * H * D * (2 if bf16 else 4)
+    n_out, units = (2, 8.0) if kernel == "dkv" else (1, 6.0)
+    terms = {"bytes": ((4 + n_out) * io + 2 * B * H * L * 4) / PEAK_BYTES,
+             "operations": units * B * H * L * L * D
+             / (PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS)}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by
+
+
+def sdpa_bwd_ms(q, k, v, dout, scale, iters=10):
+    """Device time of one autograd call through SDPA's backward on [B, H,
+    L, D] views of [B, L, H, D] inputs (dQ, dK and dV together): the
+    union of its device ops' spans in a torch.profiler trace of ``iters``
+    calls after one warm-up call, over ``iters``.  The host loop between
+    the calls is left out, as the CUDA graph of :func:`graph_ms` leaves it
+    out of K6 and K7."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o_h = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    do_h = dout.transpose(1, 2)
+
+    def bwd():
+        torch.autograd.grad(o_h, (qh, kh, vh), do_h, retain_graph=True)
+
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            bwd()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "sdpa_bwd.json"
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    if not events:
+        raise RuntimeError("the profiler saw no device op in SDPA's "
+                           "backward")
+    return busy_us(events) / 1e3 / iters
+
+
+def busy_us(events):
+    """Union of the trace events' [ts, ts + dur) spans, in us."""
+    busy, end = 0.0, -math.inf
+    for e in sorted(events, key=lambda e: e["ts"]):
+        t0, d = float(e["ts"]), float(e["dur"])
+        busy += max(0.0, t0 + d - max(t0, end))
+        end = max(end, t0 + d)
+    return busy
 
 
 def graph_ms(fn, iters=50, reps=5):
@@ -102,8 +180,62 @@ def card() -> str:
     return out.splitlines()[0] if out else "nvidia-smi gave no answer"
 
 
+def turns(trees):
+    """The order of one round: this, the others, the others reversed,
+    this."""
+    others = [n for n in trees if n != "this"]
+    return ["this", *others, *others[::-1], "this"] if others else ["this"]
+
+
+def bwd_rows(trees, rounds, gen):
+    """K6 and K7 of every tree at :data:`BWD_SHAPES`, in turns: device ms
+    of each, their sum, each tree's largest error over each gradient's
+    largest plain value, SDPA's backward and the bounds."""
+    fa = trees["this"]
+    dev = torch.device("cuda")
+    rows = {}
+    for label, (shp, dtn) in BWD_SHAPES.items():
+        B, L, H, D = shp
+        dt = getattr(torch, dtn)
+        gen.manual_seed(70 + L + D)
+        q, k, v, dout = (torch.randn(shp, generator=gen, device=dev).to(dt)
+                         for _ in range(4))
+        scale = D ** -0.5
+        out, lse = fa.flash_self_attention_lse(q, k, v, scale)
+        delta = fa.attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, scale)
+        want = fa.flash_self_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                 scale)
+        row = dict(shape=list(shp), dtype=dtn, err={},
+                   ms={n: dict(dkv=[], dq=[]) for n in trees})
+        for name, mod in trees.items():
+            dk, dv = mod.flash_bwd_dkv(*args)
+            dq = mod.flash_bwd_dq(*args)
+            row["err"][name] = max(
+                float((a.float() - b.float()).abs().max())
+                / float(b.float().abs().max())
+                for a, b in zip((dq, dk, dv), want))
+        del want, dk, dv, dq
+        for _ in range(rounds):
+            for name in turns(trees):
+                mod = trees[name]
+                row["ms"][name]["dkv"].append(graph_ms(
+                    lambda mod=mod: mod.flash_bwd_dkv(*args), 10, 3))
+                row["ms"][name]["dq"].append(graph_ms(
+                    lambda mod=mod: mod.flash_bwd_dq(*args), 10, 3))
+        row["sdpa_bwd_ms"] = sdpa_bwd_ms(q, k, v, dout, scale)
+        row["bound_ms"] = {kn: bwd_bound_ms(B, L, H, D, dt, kn)
+                           for kn in ("dkv", "dq")}
+        rows[label] = row
+        del q, k, v, dout, out, lse, delta, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bwd", action="store_true",
+                    help="time K6 and K7 at BWD_SHAPES instead of K5")
     ap.add_argument("--against", type=Path, action="append", default=[])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path, default=None)
@@ -114,13 +246,18 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from gsgen_torch.ops import flash_attention as fa
+    from gsgen_torch.utils.precision import exact_fp32
 
+    exact_fp32()
     trees = {"this": fa}
     for i, root in enumerate(args.against):
         trees[root.name] = load_other(root.resolve(), f"gsgen_torch_{i}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     res = dict(card=card(), kind=torch.cuda.get_device_name(0), shapes={})
+    if args.bwd:
+        res["bwd"] = bwd_rows(trees, args.rounds, gen)
+        return report(res, args.json)
     for label, shp in SHAPES.items():
         B, L, H, D = shp
         gen.manual_seed(60 + L)
@@ -134,11 +271,8 @@ def main(argv=None) -> int:
             row["err"][name] = float((got - want).abs().max())
         row["top"] = float(want.abs().max())
         del want, got
-        others = [n for n in trees if n != "this"]
-        order = ["this", *others, *others[::-1], "this"] if others \
-            else ["this"]
         for _ in range(args.rounds):
-            for name in order:
+            for name in turns(trees):
                 mod = trees[name]
                 row["ms"][name].append(graph_ms(
                     lambda mod=mod: mod.flash_self_attention(q, k, v,
@@ -149,16 +283,33 @@ def main(argv=None) -> int:
         row["bound_ms"], row["bound_by"] = bound_ms(B, L, H, D)
         res["shapes"][label] = row
         del q, k, v, qh, kh, vh
+    return report(res, args.json)
+
+
+def report(res, path) -> int:
+    """Print a line a shape (the least of each tree's times) and the JSON
+    line, also to ``path``."""
     line = json.dumps(res)
-    if args.json is not None:
-        args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(line + "\n")
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(line + "\n")
     for label, r in res["shapes"].items():
         print(f"{label} {r['shape']}: " + ", ".join(
             f"{n} {min(v):.4f} ms (err {r['err'][n]:.2e})"
             for n, v in r["ms"].items())
             + f", SDPA {r['sdpa_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}", flush=True)
+    for label, r in res.get("bwd", {}).items():
+        bd = r["bound_ms"]
+        best = {n: (min(v["dkv"]), min(v["dq"])) for n, v in r["ms"].items()}
+        print(f"{label} {r['shape']} {r['dtype']}: " + " | ".join(
+            f"{n}: K6 {k6:.4f} ms ({100 * bd['dkv'][0] / k6:.1f}% of "
+            f"bound), K7 {k7:.4f} ms ({100 * bd['dq'][0] / k7:.1f}%), K6 + "
+            f"K7 {k6 + k7:.4f} ms (err {r['err'][n]:.2e})"
+            for n, (k6, k7) in best.items())
+            + f" | SDPA bwd {r['sdpa_bwd_ms']:.4f} ms | bounds K6 "
+            f"{bd['dkv'][0]:.4f} {bd['dkv'][1]}, K7 {bd['dq'][0]:.4f} "
+            f"{bd['dq'][1]}", flush=True)
     print(line, flush=True)
     return 0
 

@@ -325,16 +325,28 @@ def _qkv_dout(cuda, shape, dt, seed):
             for _ in range(4)]
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("D", [40, 64, 160])
-def test_flash_backward_kernels_match_plain(cuda, dtype, D):
+# fp32: the wgmma + TMA instance at every D % 8 == 0 up to 64 (one k-step
+# of 8 head dims at D = 8, the second TMA box wholly past D up to 32) and
+# the mma.sync instance kept for D = 72-160; one tile, a few, a long walk
+FLASH_BWD_CASES = (
+    [("bfloat16", D, 256) for D in (40, 64, 160)]
+    + [("float32", D, L) for D in (8, 16, 24, 40, 64, 160)
+       for L in (128, 256, 4096)])
+
+
+def _bwd_shape(L, D):
+    return (2, L, 2, D) if L < 4096 else (1, L, 2, D)
+
+
+@pytest.mark.parametrize("dtype, D, L", FLASH_BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, dtype, D, L):
     """K5's lse within 1e-5 (fp32) / 2e-2 (bf16) of the plain lse's
     largest value; K6 and K7 against flash_self_attention_bwd_plain within
     1e-4 (fp32) / 3e-2 (bf16) of each gradient's largest value (bf16: the
     kernels round P and dS to bf16 for the second products)."""
     from gsgen_torch.ops import flash_attention as fa
     dt = getattr(torch, dtype)
-    q, k, v, dout = _qkv_dout(cuda, (2, 256, 2, D), dt, D + 1)
+    q, k, v, dout = _qkv_dout(cuda, _bwd_shape(L, D), dt, D + L + 1)
     scale = 1.0 / np.sqrt(D)
     out, lse = fa.flash_self_attention_lse(q, k, v, scale)
     out_p, lse_p = fa.flash_self_attention_plain_lse(q, k, v, scale)
@@ -355,7 +367,7 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D):
         err = float((got.float() - ref.float()).abs().max())
         assert err <= ftol * float(ref.float().abs().max()), (name, err)
     with pytest.raises(ValueError):
-        fa.flash_bwd_dq(q, k, v, dout, lse[:, :, :128], delta, scale)
+        fa.flash_bwd_dq(q, k, v, dout, lse[:, :, :L // 2], delta, scale)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -381,19 +393,21 @@ def test_flash_long_sequence_matches_plain(cuda, dtype):
             b.float().abs().max())
 
 
-@pytest.mark.parametrize("L", [128, 4096])
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("D", [40, 64, 160])
+@pytest.mark.parametrize("dtype, D, L", [
+    (dt, D, L) for dt in ("bfloat16",) for D in (40, 64, 160)
+    for L in (128, 4096)] + [
+    ("float32", D, L) for D in (8, 16, 24, 40, 64, 160)
+    for L in (128, 256, 4096)])
 def test_flash_dq_kernel_matches_plain(cuda, dtype, D, L):
-    """K7 alone (bf16 D <= 64: wgmma + TMA, one tile at L = 128 and the
-    whole K / V ring at L = 4096; bf16 D = 160: mma.sync; fp32: 3xTF32)
-    against flash_bwd_dq_plain from the plain lse and Di: fp32 within 1e-5
-    of max|dq| (3xTF32 is about fp32 summation order; the chip gate is
-    1e-4), bf16 within 3e-2 (dS rounded to bf16).  One launch per call, and
-    two runs on the same inputs are bitwise equal (no atomics)."""
+    """K7 alone (D <= 64: wgmma + TMA, one tile at L = 128 and the whole
+    K / V ring at L = 4096, 3xTF32 in fp32; D = 160: mma.sync) against
+    flash_bwd_dq_plain from the plain lse and Di: fp32 within 1e-5 of
+    max|dq| (3xTF32 is about fp32 summation order; the chip gate is 1e-4),
+    bf16 within 3e-2 (dS rounded to bf16).  One launch per call, and two
+    runs on the same inputs are bitwise equal (no atomics)."""
     from gsgen_torch.ops import flash_attention as fa
     dt = getattr(torch, dtype)
-    shape = (2, L, 3, D) if L == 128 else (1, L, 2, D)
+    shape = (2, L, 3, D) if L < 4096 else (1, L, 2, D)
     q, k, v, dout = _qkv_dout(cuda, shape, dt, 3 * D + L)
     scale = 1.0 / np.sqrt(D)
     out, lse = fa.flash_self_attention_plain_lse(q, k, v, scale)
@@ -409,6 +423,27 @@ def test_flash_dq_kernel_matches_plain(cuda, dtype, D, L):
     tol = (1e-5 if dt == torch.float32 else 3e-2) * float(
         want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_autograd_vsd_shape_matches_plain(cuda):
+    """One autograd step through K5 + K6 + K7 at the VSD path's fp32 [4,
+    4096, 5, 64] against flash_self_attention_bwd_plain from the plain
+    output and lse: 1e-4 of each gradient's largest value, one launch of
+    each kernel."""
+    from gsgen_torch.ops import flash_attention as fa
+    q, k, v, dout = _qkv_dout(cuda, (4, 4096, 5, 64), torch.float32, 17)
+    ps = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n = (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
+         fa.flash_bwd_dq.launches)
+    got = torch.autograd.grad(fa.flash_self_attention(*ps, 0.125), ps, dout)
+    assert (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    out, lse = fa.flash_self_attention_plain_lse(q, k, v, 0.125)
+    want = fa.flash_self_attention_bwd_plain(q, k, v, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, err)
 
 
 def test_flash_attention_autograd_on_card(cuda):

@@ -7,13 +7,21 @@ The kernels split each fp32 operand x into hi = tf32(x) and lo = tf32(x -
 hi) (``cvt.rna``: round to nearest, ties away, to a 10-bit mantissa) and
 compute each product as lo_a hi_b + hi_a lo_b + hi_a hi_b with fp32
 accumulation.  Here the split is done by bit arithmetic and the products
-by fp32 matmuls; K5's online softmax walks key tiles of 32 as the kernel
-does, K7 key tiles of 32 whose K is split into hi and lo planes (the
-values are the same whether the kernel splits a tile once or each fragment
-as it loads), with dS fed to dQ += dS K in the order of its register
-fragment.  Gate: 1e-5 of each output's largest value, a tenth of the kernels'
-1e-4 gate on the card; a single TF32 product (hi only) is held to be at
-least ten times worse, so the split is what buys the accuracy.
+by fp32 matmuls.  K5's online softmax walks key tiles of 32 as the kernel
+does.  K6 and K7 have two walks each (``walk``):
+
+* ``wgmma`` (D <= 64): K6 walks query tiles of 64.  Per tile it forms S
+  and dP, and writes P as hi and lo planes.  dS takes P back as hi + lo.
+  dV^T = dO^T P and dK^T = Q^T dS go to partial sums, which are folded
+  into the totals by fp32 adds.  K7 walks key tiles of 64 the same way:
+  S^T, dP^T, dS^T from the exact P^T, then dQ^T = K^T dS^T folded in.
+* ``mma_sync`` (the instance kept for D = 72-160): K6 in whole products.
+  K7 walks key tiles of 32 whose K is split into hi and lo planes, with dS
+  fed to dQ += dS K in the order of its register fragment.
+
+Gate: 1e-5 of each output's largest value, a tenth of the kernels' 1e-4
+gate on the card.  A single TF32 product (hi only) is held to be at least
+ten times worse, so the split is what buys the accuracy.
 """
 
 import jax
@@ -27,7 +35,8 @@ from torch_fixtures import t
 
 SHAPE = (2, 256, 2)      # [B, L, H]; D is the parameter
 KEY_TILE = 32            # keys per tile of K5's fp32 instance
-DQ_KEY_TILE = 32         # keys per tile of K7's fp32 instance
+WG_TILE = 64             # queries (K6) / keys (K7) a tile of the wgmma walk
+DQ_KEY_TILE = 32         # keys per tile of K7's mma.sync instance
 # K7's dS fragment as the A operand of dQ += dS K: in each step of 8 keys,
 # lane t's keys 2t and 2t + 1 stand at k = t and k = t + 4
 FRAG_K = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
@@ -76,23 +85,58 @@ def fwd_emulated(q, k, v, scale, mm):
     return heads(acc / l[..., None]), lse
 
 
-def dkv_emulated(q, k, v, dout, lse, delta, scale, mm):
-    """K6 fp32: P^T, dS^T and the two sums, every product split."""
+def dkv_emulated(q, k, v, dout, lse, delta, scale, mm, walk="wgmma",
+                 p_planes=2):
+    """K6 fp32, every product split.  ``wgmma``: per tile of 64 queries, S
+    = Q K^T and dP = dO V^T; P to hi and lo planes, dS = (hi + lo) (dP -
+    Di) (``p_planes`` 1: hi alone, the control); the tile's dO^T P and Q^T
+    dS folded into dV^T and dK^T by fp32 adds.  ``mma_sync``: P^T, dS^T and
+    the two sums over all queries at once."""
     qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(dout)
     sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
-    pt = torch.exp2(mm(kh, qh.transpose(-1, -2)) * sl2
-                    - (lse * LOG2E)[:, :, None, :])
-    dst = pt * (mm(vh, doh.transpose(-1, -2)) - delta[:, :, None, :])
-    return heads(mm(dst, qh) * scale), heads(mm(pt, doh))
+    if walk == "mma_sync":
+        pt = torch.exp2(mm(kh, qh.transpose(-1, -2)) * sl2
+                        - (lse * LOG2E)[:, :, None, :])
+        dst = pt * (mm(vh, doh.transpose(-1, -2)) - delta[:, :, None, :])
+        return heads(mm(dst, qh) * scale), heads(mm(pt, doh))
+    acc_v = torch.zeros(kh.transpose(-1, -2).shape)
+    acc_k = torch.zeros(acc_v.shape)
+    for i0 in range(0, qh.shape[2], WG_TILE):
+        rows = slice(i0, i0 + WG_TILE)
+        qt, ot = qh[:, :, rows], doh[:, :, rows]
+        p = torch.exp2(mm(qt, kh.transpose(-1, -2)) * sl2
+                       - (lse[:, :, rows] * LOG2E)[..., None])
+        p_hi = tf32(p)
+        p_back = p_hi + tf32(p - p_hi) if p_planes == 2 else p_hi
+        ds = p_back * (mm(ot, vh.transpose(-1, -2))
+                       - delta[:, :, rows, None])
+        acc_v = acc_v + mm(ot.transpose(-1, -2), p)
+        acc_k = acc_k + mm(qt.transpose(-1, -2), ds)
+    return (heads(acc_k.transpose(-1, -2) * scale),
+            heads(acc_v.transpose(-1, -2)))
 
 
-def dq_emulated(q, k, v, dout, lse, delta, scale, mm, b_order=FRAG_K):
-    """K7 fp32: per key tile, S and dP as three TF32 products, dS in fp32,
-    then this tile's dS K from K's hi / lo planes with dS's
-    columns in fragment order and K's rows in ``b_order`` (the kernel's:
-    the same order), folded into dQ by an fp32 add."""
+def dq_emulated(q, k, v, dout, lse, delta, scale, mm, walk="wgmma",
+                b_order=FRAG_K):
+    """K7 fp32.  ``wgmma``: per tile of 64 keys, S^T = K Q^T and dP^T = V
+    dO^T as three TF32 products each, dS^T = P^T (dP^T - Di) in fp32, and
+    the tile's K^T dS^T folded into dQ^T by an fp32 add.  ``mma_sync``:
+    per tile of 32 keys, S and dP as three TF32 products, dS in fp32, then
+    this tile's dS K from K's hi / lo planes with dS's columns in fragment
+    order and K's rows in ``b_order`` (the kernel's: the same order),
+    folded into dQ by an fp32 add."""
     qh, kh, vh, doh = heads(q), heads(k), heads(v), heads(dout)
     sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    if walk == "wgmma":
+        acc = torch.zeros(qh.transpose(-1, -2).shape)
+        for j0 in range(0, kh.shape[2], WG_TILE):
+            kt = kh[:, :, j0:j0 + WG_TILE]
+            pt = torch.exp2(mm(kt, qh.transpose(-1, -2)) * sl2
+                            - (lse * LOG2E)[:, :, None, :])
+            dst = pt * (mm(vh[:, :, j0:j0 + WG_TILE], doh.transpose(-1, -2))
+                        - delta[:, :, None, :])
+            acc = acc + mm(kt.transpose(-1, -2), dst)
+        return heads(acc.transpose(-1, -2) * scale)
     a_idx = torch.cat([FRAG_K + 8 * i for i in range(DQ_KEY_TILE // 8)])
     b_idx = torch.cat([b_order + 8 * i for i in range(DQ_KEY_TILE // 8)])
     acc = torch.zeros(qh.shape)
@@ -152,42 +196,53 @@ def test_3xtf32_forward_matches_fp32(D):
     assert rel_err(out_1, out_p) >= 10 * rel_err(out, out_p)
 
 
-@pytest.mark.parametrize("D", [40, 64])
-def test_3xtf32_dkv_matches_fp32(D):
+# the wgmma walk at one k-step of head dims, at SD 1.5's and SD 2.1's
+# widths; the mma.sync walk of the D <= 160 instance
+WALKS = [("wgmma", 8), ("wgmma", 40), ("wgmma", 64), ("mma_sync", 160)]
+
+
+@pytest.mark.parametrize("walk, D", WALKS)
+def test_3xtf32_dkv_matches_fp32(walk, D):
     q, k, v, dout = inputs(D, 20 + D)
     scale = 1.0 / np.sqrt(D)
     tq, tk, tv, tdo = (t(x) for x in (q, k, v, dout))
     out, lse = fa.flash_self_attention_plain_lse(tq, tk, tv, scale)
     delta = fa.attention_delta(out, tdo)
-    dk, dv = dkv_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3)
+    dk, dv = dkv_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3, walk)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse, delta, scale)
     _, vjp = jax.vjp(jax_core(scale), *(jnp.asarray(x) for x in (q, k, v)))
     _, dk_j, dv_j = vjp(jnp.asarray(dout))
     for got, plain, ref in ((dk, dk_p, dk_j), (dv, dv_p, dv_j)):
         assert rel_err(got, plain) <= TOL
         assert rel_err(got, ref) <= TOL
-    dk_1, dv_1 = dkv_emulated(tq, tk, tv, tdo, lse, delta, scale, mm1)
+    dk_1, dv_1 = dkv_emulated(tq, tk, tv, tdo, lse, delta, scale, mm1, walk)
     assert rel_err(dk_1, dk_p) >= 10 * rel_err(dk, dk_p)
     assert rel_err(dv_1, dv_p) >= 10 * rel_err(dv, dv_p)
+    if walk == "wgmma":
+        # dS from P's hi plane alone: the lo plane must be read back too
+        dk_x, _ = dkv_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3,
+                               walk, p_planes=1)
+        assert rel_err(dk_x, dk_p) >= 10 * TOL
 
 
-@pytest.mark.parametrize("D", [40, 64])
-def test_3xtf32_dq_matches_fp32(D):
+@pytest.mark.parametrize("walk, D", WALKS)
+def test_3xtf32_dq_matches_fp32(walk, D):
     q, k, v, dout = inputs(D, 30 + D)
     scale = 1.0 / np.sqrt(D)
     tq, tk, tv, tdo = (t(x) for x in (q, k, v, dout))
     out, lse = fa.flash_self_attention_plain_lse(tq, tk, tv, scale)
     delta = fa.attention_delta(out, tdo)
-    dq = dq_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3)
+    dq = dq_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3, walk)
     dq_p = fa.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, scale)
     _, vjp = jax.vjp(jax_core(scale), *(jnp.asarray(x) for x in (q, k, v)))
     dq_j = vjp(jnp.asarray(dout))[0]
     assert rel_err(dq, dq_p) <= TOL
     assert rel_err(dq, dq_j) <= TOL
-    dq_1 = dq_emulated(tq, tk, tv, tdo, lse, delta, scale, mm1)
+    dq_1 = dq_emulated(tq, tk, tv, tdo, lse, delta, scale, mm1, walk)
     assert rel_err(dq_1, dq_p) >= 10 * rel_err(dq, dq_p)
-    # K's rows left in key order while dS's columns are in fragment order:
-    # the permutation must be applied to both operands
-    dq_x = dq_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3,
-                       b_order=torch.arange(8))
-    assert rel_err(dq_x, dq_p) > 0.1
+    if walk == "mma_sync":
+        # K's rows left in key order while dS's columns are in fragment
+        # order: the permutation must be applied to both operands
+        dq_x = dq_emulated(tq, tk, tv, tdo, lse, delta, scale, mm3, walk,
+                           b_order=torch.arange(8))
+        assert rel_err(dq_x, dq_p) > 0.1
