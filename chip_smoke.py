@@ -9,8 +9,8 @@ Phases, each reported on its own line:
    (the package's precision policy, utils/precision.py::exact_fp32);
 2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a; the raster
    kernels' ptxas lines (registers, shared memory, spills: none allowed)
-   and those of K6 / K7's fp32 wgmma + TMA instances (no spill, and no
-   wgmma that ptxas serialised);
+   and those of K5's fp32 wgmma + TMA instances (P V 16, 32 and 64 wide)
+   and K6 / K7's (no spill, and no wgmma that ptxas serialised);
 3. kernels: every kernel of the render path against its plain PyTorch
    version on the card, at a small size, at the bench workload (100K
    Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
@@ -25,12 +25,14 @@ Phases, each reported on its own line:
    by two tiles counted;
    Phase 3 also holds K5 (flash self-attention forward) against its plain
    version at SD 2.1's level 0 [8, 4096, 5, 64] in bf16 and fp32, SD
-   1.5's level 0 [8, 4096, 8, 40] in bf16, a small [2, 256, 2, 64] in
-   fp32, and in bf16 [1, 4096, 2, 64] (the whole TMA ring on few CTAs),
-   [2, 128, 3, 40] (one tile, TMA zero fill past D) and, with its lse,
-   [2, L, 2, D] at L = 128, 256, 1024 and D = 16, 24, 40, 64, 72, 80, 136,
-   160 (every P V width the bf16 instance is built for, and widths that
-   round up to the next), at the IF-II upsampler's levels [2, 16384, 8,
+   1.5's level 0 [8, 4096, 8, 40] in bf16, in fp32 a small [2, 256, 2,
+   64], one tile [2, 128, 3, 64] and SD 1.5's width [2, 1024, 8, 40] (TMA
+   zero fill past D), and in bf16 [1, 4096, 2, 64] (the whole TMA ring on
+   few CTAs), [2, 128, 3, 40] (one tile, TMA zero fill past D) and, with
+   its lse, [2, L, 2, D] at L = 128, 256, 1024 and D = 16, 24, 40, 64, 72,
+   80, 136, 160 (every P V width the bf16 instance is built for, and
+   widths that round up to the next), at the IF-II upsampler's levels [2,
+   16384, 8,
    16] and [2, 4096, 8, 32] in fp32 and bf16 (bf16 there also each
    element within one bf16 step plus 5% of the output's RMS) and at phase
    14 d's TINY_SR level 0 [8, 65536, 2, 16] in fp32 (the plain version on
@@ -81,8 +83,8 @@ Phases, each reported on its own line:
    camera conditioning, VAE in bf16, 512^2, batch 4) with every launch
    counter read around them (15 K5, 5 K6, 5 K7 a step) and a LoRA leaf
    required to move; then one VSD step under torch.profiler, device time
-   split into render, VAE, UNet forward and UNet backward, with K6's and
-   K7's device ms and launches in the step (trace:
+   split into render, VAE, UNet forward and UNet backward, with K5's,
+   K6's and K7's device ms and launches in the step (trace:
    gsgen_torch/_build/vsd_step_trace.json);
 10. density: 3 SDS steps of the slice config in the compact layout
    (renderer.binning_layout=compact: K8, K9 and K3 once per view, K1, K2,
@@ -425,18 +427,23 @@ def run(torch) -> int:
             f"a raster kernel spills: {spills}")
     print("phase 2 raster: ok | " + " | ".join(
         f"{k}: {v}" for k, v in raster_ptxas.items()), flush=True)
-    # K6 / K7 fp32 on wgmma: one kernel each, no spill, and no wgmma that
-    # ptxas serialised (its C75xx notes name the function)
-    tf32_ptxas = ptxas_lines(cuda_lib.build_info["log"], "tf32_wgmma")
-    require(len(tf32_ptxas) == 2, f"ptxas names {len(tf32_ptxas)} fp32 "
-            "wgmma backward kernels, expected 2")
+    # K5 fp32 on wgmma: one kernel a P V width (16, 32, 64); K6 / K7 fp32
+    # on wgmma: one kernel each; none spills, and ptxas serialised no wgmma
+    # in them (its C75xx notes name the function)
     require(not [f for f in spills if "tf32_wgmma" in f],
-            f"an fp32 wgmma backward kernel spills: {spills}")
+            f"an fp32 wgmma kernel spills: {spills}")
     serial = [ln.strip() for ln in cuda_lib.build_info["log"].splitlines()
               if "serialized" in ln and "tf32_wgmma" in ln]
     require(not serial, f"ptxas serialised wgmma: {serial}")
-    print("phase 2 flash fp32 bwd: ok | " + " | ".join(
-        f"{k}: {v}" for k, v in tf32_ptxas.items()), flush=True)
+    for what, needle, want in (("fwd", "fwd_tf32_wgmma", 3),
+                               ("bwd", "bwd_d", 2)):
+        tf32_ptxas = {k: v for k, v in ptxas_lines(
+            cuda_lib.build_info["log"], needle).items()
+            if "tf32_wgmma" in k}
+        require(len(tf32_ptxas) == want, f"ptxas names {len(tf32_ptxas)} "
+                f"fp32 wgmma {what} kernels, expected {want}")
+        print(f"phase 2 flash fp32 {what}: ok | " + " | ".join(
+            f"{k}: {v}" for k, v in tf32_ptxas.items()), flush=True)
 
     # ---- helpers ----
     gen = torch.Generator(device=dev)
@@ -796,6 +803,8 @@ def run(torch) -> int:
             ("SD 2.1 level 0", SD21_ATTN, "float32"),
             ("SD 1.5 level 0", (8, 4096, 8, 40), "bfloat16"),
             ("small", (2, 256, 2, 64), "float32"),
+            ("one tile", (2, 128, 3, 64), "float32"),
+            ("SD 1.5 width, TMA zero fill", (2, 1024, 8, 40), "float32"),
             ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
             ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
             *((label, shape, dtn) for label, shape in IF2_ATTN.items()
@@ -1305,14 +1314,15 @@ def run(torch) -> int:
     flash_rows = [
         ("K5 bf16 wgmma+TMA", list(SD21_ATTN), times_flash["ms"], flash_ops,
          times_flash["bound_ms"], times_flash["library_ms"]),
-        ("K5 fp32 3xTF32", list(SD21_ATTN), flash_fp32_ms, flash_ops,
-         1e3 * flash_ops / PEAK_3XTF32_FLOPS, sdpa_fp32["b8"]),
-        ("K5 fp32 3xTF32 +lse", list(VSD_ATTN), k5_b4["float32"],
+        ("K5 fp32 3xTF32 wgmma+TMA", list(SD21_ATTN), flash_fp32_ms,
+         flash_ops, 1e3 * flash_ops / PEAK_3XTF32_FLOPS, sdpa_fp32["b8"]),
+        ("K5 fp32 3xTF32 wgmma+TMA +lse", list(VSD_ATTN), k5_b4["float32"],
          4.0 * units, 1e3 * 4.0 * units / PEAK_3XTF32_FLOPS,
          sdpa_fp32["b4"]),
         ("K5 bf16 wgmma+TMA +lse", list(VSD_ATTN), k5_b4["bfloat16"],
          4.0 * units, k5_bound(*VSD_ATTN)[0], None)]
-    flash_rows += [(f"K5 fp32 3xTF32 {label}", r["shape"], r["ms"],
+    flash_rows += [(f"K5 fp32 3xTF32 wgmma+TMA {label}", r["shape"],
+                    r["ms"],
                     r["ops"], r["bound_ms"], r["library_ms"])
                    for label, r in if2_times.items()]
     for (name, dtn), v in times_bwd.items():
@@ -1659,8 +1669,14 @@ def run(torch) -> int:
                "queries a CTA, 3-stage K/V ring, P V as wide as D rounded "
                "up to 40/64/80/160; the warpgroups take the tensor core in "
                "turns, each issuing S of its next tile with P V of its "
-               "last); fp32: 3xTF32 on mma.sync m16n8k8, cp.async double "
-               "buffer"))
+               "last); fp32 D<=64: 3xTF32 on wgmma + TMA (a split pass "
+               "writes K's and V^T's hi/lo planes once, V^T's columns in "
+               "the order of P's A fragment; 2 consumer warpgroups, 128 "
+               "queries a CTA, the planes of 64-key tiles through a TMA "
+               "ring; S as SS wgmma against resident Q hi/lo planes, P in "
+               "registers as the A operand of P V, 16/32/64 wide; each "
+               "tile's P V folded into O by one FMA); fp32 D>64: 3xTF32 on "
+               "mma.sync m16n8k8, cp.async double buffer"))
     for name, func, line in (
             ("flash_attn_bwd_dkv", "_flash_attention_dkv_kernel", 796),
             ("flash_attn_bwd_dq", "_flash_attention_dq_kernel", 1146)):
@@ -3352,10 +3368,17 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
                 device_idle_share=1.0 - busy_ms / wall_ms,
                 k5_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
                                  if "flash_fwd" in e["name"]),
+                k5_split_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
+                                       if "flash_fwd_split" in e["name"]),
                 k6_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
                                  if "flash_bwd_dkv" in e["name"]),
                 k7_device_ms=sum(float(e["dur"]) / 1e3 for e in dev_ev
                                  if "flash_bwd_dq" in e["name"]),
+                k5_launches=sum("flash_fwd" in e["name"]
+                                and "split" not in e["name"]
+                                for e in dev_ev),
+                k5_split_launches=sum("flash_fwd_split" in e["name"]
+                                      for e in dev_ev),
                 k6_k7_launches=[sum(k in e["name"] for e in dev_ev)
                                 for k in ("flash_bwd_dkv", "flash_bwd_dq")],
                 device_ops_per_step=len(dev_ev), device_streams=len(streams),
@@ -3373,7 +3396,12 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
                     f"{info['fps_device_ms']:.2f} device ms, "
                     f"{info['fps_host_ms']:.2f} host ms in the step")
     if vsd:
-        fps_note += (f" | K6 {info['k6_device_ms']:.2f} device ms in "
+        fps_note += (f" | K5 {info['k5_device_ms']:.2f} device ms in "
+                     f"{info['k5_launches']} launches (its split pass "
+                     f"{info['k5_split_device_ms']:.2f} in "
+                     f"{info['k5_split_launches']}), unet_fwd "
+                     f"{by_group.get('unet_fwd', 0.0):.2f}"
+                     f" | K6 {info['k6_device_ms']:.2f} device ms in "
                      f"{info['k6_k7_launches'][0]} launches, K7 "
                      f"{info['k7_device_ms']:.2f} in "
                      f"{info['k6_k7_launches'][1]}, unet_bwd "

@@ -294,11 +294,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// wgmma_tf32: d[64 x 64] (+)= A[64 x 8] B[8 x 64] in TF32 with fp32
+// wgmma_tf32: d[64 x N] (+)= A[64 x 8] B[8 x N] in TF32 with fp32
 // accumulate, A from registers (four .b32 a thread, the mma.sync m16n8k8
 // tf32 A layout per warp: a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4],
 // a3 = A[g + 8][t + 4] of the warp's 16 rows), B K-major in shared memory
-// (32-bit types have no transposed form); scale_d 0 overwrites d.
+// (32-bit types have no transposed form); N = 2 x the size of d (16, 32,
+// 64); scale_d 0 overwrites d.  wgmma_tf32_ss: the same at N = 64 with A
+// K-major in shared memory too.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : GS_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : GS_ACC8(d, 0), GS_ACC8(d, 8),
+        GS_ACC8(d, 16), GS_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {

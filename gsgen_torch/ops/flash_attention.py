@@ -17,11 +17,14 @@ function's layout, q, k, v, out and their gradients ``[B, L, H, D]``;
   tensors, counting the launch, and raises on shapes or types the kernel
   does not take; on CPU tensors it runs its plain version.  K5 in bf16
   is one wgmma + TMA kernel for every D, built at the P V widths of
-  :data:`BF16_WIDTHS`; :func:`fwd_tiles` picks the instance (keys a tile,
-  width), which the C entry checks.  K6 and K7 run wgmma + TMA at D <=
-  64 (bf16; fp32 as 3xTF32, one instance for every D <= 64) and
-  mma.sync above; K5 in fp32 runs 3xTF32 on mma.sync.  There is no fallback: a CUDA tensor launches its kernel or
-  raises.
+  :data:`BF16_WIDTHS`; in fp32 (3xTF32) K5 is, for D <= 64, a split pass
+  (K's and V^T's hi and lo planes, into scratch allocated here) and a
+  wgmma + TMA kernel built at the P V widths of :data:`FP32_WIDTHS`, and
+  an mma.sync kernel for D = 72-160.  :func:`fwd_tiles` picks the instance
+  (keys a tile, width), which the C entry checks.  K6 and K7 run wgmma +
+  TMA at D <= 64 (bf16; fp32 as 3xTF32, one instance for every D <= 64)
+  and mma.sync above.  There is no fallback: a CUDA tensor launches its
+  kernel or raises.
 * The plain versions: :func:`flash_self_attention_plain` is the einsum
   path of the JAX ``Attention`` (``unet2d.py:199-203``: fp32 scores and
   softmax, the normalised weights cast to v's type, the second einsum);
@@ -46,19 +49,27 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 # P V widths K5's bf16 instance is built for (csrc/flash_attn_fwd.cu): the
 # head widths of SD 1.5 and SD 2.1
 BF16_WIDTHS = (40, 64, 80, 160)
-FP32_KEY_TILE = 32
+# P V widths of K5's fp32 wgmma instance (64 keys a tile): IF-II's D = 16
+# and 32, SD 2.1's 64; D = 72-160 run the mma.sync instance (32 keys)
+FP32_WIDTHS = (16, 32, 64)
+FP32_KEY_TILE = 64
+FP32_WIDE_KEY_TILE = 32
 
 
 def fwd_tiles(dtype: torch.dtype, D: int) -> tuple[int, int]:
     """K5's instance for this type and head width: (keys a tile, the P V
-    width it is built for).  bf16: D rounded up to the next of
-    :data:`BF16_WIDTHS` (TMA zero-fills the head dims past D), 128 keys a
-    tile up to width 80 and 64 above (a 128-key tile's scores beside the
-    wider accumulators would spill); fp32: 32 keys, width 64 or 160."""
+    width it is built for).  D rounds up to the next built width, TMA
+    zero-filling the head dims past D.  bf16: the next of
+    :data:`BF16_WIDTHS`, 128 keys a tile up to width 80 and 64 above (a
+    128-key tile's scores beside the wider accumulators would spill);
+    fp32: the next of :data:`FP32_WIDTHS` at 64 keys a tile, or the
+    mma.sync instance (32 keys, width 160) above 64."""
     if dtype == torch.bfloat16:
         width = next(w for w in BF16_WIDTHS if w >= D)
         return (128 if width <= 80 else 64), width
-    return FP32_KEY_TILE, (64 if D <= 64 else MAX_D)
+    if D <= FP32_WIDTHS[-1]:
+        return FP32_KEY_TILE, next(w for w in FP32_WIDTHS if w >= D)
+    return FP32_WIDE_KEY_TILE, MAX_D
 
 
 def flash_self_attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -160,10 +171,18 @@ def _launch_fwd(q, k, v, scale: float, with_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty(B, H, L, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    tiles = fwd_tiles(q.dtype, D)
+    # the fp32 wgmma instance's split pass writes K's and V^T's hi and lo
+    # planes here
+    scratch = (torch.empty(4 * q.numel(), dtype=torch.float32,
+                           device=q.device)
+               if tiles[0] == FP32_KEY_TILE and q.dtype == torch.float32
+               else None)
     cuda_lib.launch("gsgen_flash_attn_fwd", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), B, L, H, D,
-                    float(scale), _DTYPES[q.dtype], *fwd_tiles(q.dtype, D))
+                    float(scale), _DTYPES[q.dtype], *tiles,
+                    None if scratch is None else scratch.data_ptr())
     flash_self_attention.launches += 1
     return out, lse
 

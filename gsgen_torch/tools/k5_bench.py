@@ -1,13 +1,17 @@
 """Time K5 (the flash self-attention forward, ``ops/flash_attention.py``)
-at the UNet's bf16 attention shapes, or with ``--bwd`` K6 and K7 (its
+at the UNets' attention shapes, or with ``--bwd`` K6 and K7 (its
 backward), on one CUDA card.
 
-    python -m gsgen_torch.tools.k5_bench [--bwd] [--against DIR ...]
-        [--rounds 2] [--json OUT]
+    python -m gsgen_torch.tools.k5_bench [--bwd] [--dtype TYPE]
+        [--against DIR ...] [--rounds 2] [--json OUT]
 
-Forward shapes: SD 2.1's level 0 [8, 4096, 5, 64], SD 1.5's level 0 [8,
-4096, 8, 40] and the two levels ``fused_attention: on`` adds, [8, 1024, 8,
-80] and [8, 256, 8, 160] (CFG batch 8, random inputs from a seed).
+Forward shapes (:data:`SHAPES`, random inputs from a seed): in bf16 SD
+2.1's level 0 [8, 4096, 5, 64], SD 1.5's level 0 [8, 4096, 8, 40] and the
+two levels ``fused_attention: on`` adds, [8, 1024, 8, 80] and [8, 256, 8,
+160] (CFG batch 8); in fp32 (3xTF32) VSD's [8, 4096, 5, 64] and, with the
+lse that K6 and K7 read, [4, 4096, 5, 64], and the IF-II upsampler's
+levels [2, 16384, 8, 16] and [2, 4096, 8, 32]; ``--dtype`` keeps one
+type's forward shapes.
 Backward shapes (:data:`BWD_SHAPES`): VSD's fp32 [4, 4096, 5, 64] and the
 same SD 1.5 levels at batch 4 in bf16.  Each kernel time is device time: a
 CUDA graph of 50 calls (10 in the backward) replayed 5 times (3) between
@@ -39,10 +43,15 @@ from pathlib import Path
 
 import torch
 
-SHAPES = {"SD 2.1 level 0": (8, 4096, 5, 64),
-          "SD 1.5 level 0": (8, 4096, 8, 40),
-          "SD 1.5 level 1 (on)": (8, 1024, 8, 80),
-          "SD 1.5 level 2 (on)": (8, 256, 8, 160)}
+# label: ([B, L, H, D], dtype, whether the lse is written too)
+SHAPES = {"SD 2.1 level 0": ((8, 4096, 5, 64), "bfloat16", False),
+          "SD 1.5 level 0": ((8, 4096, 8, 40), "bfloat16", False),
+          "SD 1.5 level 1 (on)": ((8, 1024, 8, 80), "bfloat16", False),
+          "SD 1.5 level 2 (on)": ((8, 256, 8, 160), "bfloat16", False),
+          "VSD level 0": ((8, 4096, 5, 64), "float32", False),
+          "VSD level 0 +lse": ((4, 4096, 5, 64), "float32", True),
+          "IF-II level 1": ((2, 16384, 8, 16), "float32", False),
+          "IF-II level 2": ((2, 4096, 8, 32), "float32", False)}
 BWD_SHAPES = {"VSD level 0": ((4, 4096, 5, 64), "float32"),
               "SD 1.5 level 0": ((4, 4096, 8, 40), "bfloat16"),
               "SD 1.5 level 1 (on)": ((4, 1024, 8, 80), "bfloat16"),
@@ -60,13 +69,18 @@ PEAK_EXP2 = 16 * 132 * 1.98e9
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def bound_ms(B, L, H, D, elem=2):
+def bound_ms(B, L, H, D, dtype=torch.bfloat16, with_lse=False):
     """K5's bound, (ms, by): the largest of three times, q, k, v read and
-    the output written once at :data:`PEAK_BYTES` ("bytes"), 4 B H L^2 D
-    operations at :data:`PEAK_BF16_FLOPS` ("operations"), and one exp2 a
+    the output (and the fp32 lse) written once at :data:`PEAK_BYTES`
+    ("bytes"), 4 B H L^2 D operations at :data:`PEAK_BF16_FLOPS` (bf16)
+    or :data:`PEAK_3XTF32_FLOPS` (fp32) ("operations"), and one exp2 a
     score, B H L^2 of them, at :data:`PEAK_EXP2` ("exps")."""
-    terms = {"bytes": 4 * B * L * H * D * elem / PEAK_BYTES,
-             "operations": 4.0 * B * H * L * L * D / PEAK_BF16_FLOPS,
+    bf16 = dtype == torch.bfloat16
+    io = 4 * B * L * H * D * (2 if bf16 else 4) + (4 * B * H * L
+                                                    if with_lse else 0)
+    terms = {"bytes": io / PEAK_BYTES,
+             "operations": 4.0 * B * H * L * L * D
+             / (PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS),
              "exps": float(B * H * L * L) / PEAK_EXP2}
     by = max(terms, key=terms.get)
     return 1e3 * terms[by], by
@@ -236,6 +250,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bwd", action="store_true",
                     help="time K6 and K7 at BWD_SHAPES instead of K5")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default=None, help="time only this type's forward "
+                    "shapes")
     ap.add_argument("--against", type=Path, action="append", default=[])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path, default=None)
@@ -258,31 +275,47 @@ def main(argv=None) -> int:
     if args.bwd:
         res["bwd"] = bwd_rows(trees, args.rounds, gen)
         return report(res, args.json)
-    for label, shp in SHAPES.items():
+    for label, (shp, dtn, with_lse) in SHAPES.items():
+        if args.dtype not in (None, dtn):
+            continue
         B, L, H, D = shp
+        dt = getattr(torch, dtn)
         gen.manual_seed(60 + L)
-        q, k, v = (torch.randn(shp, generator=gen, device=dev).to(
-            torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.randn(shp, generator=gen, device=dev).to(dt)
+                   for _ in range(3))
         scale = D ** -0.5
-        want = fa.flash_self_attention_plain(q, k, v, scale).float()
-        row = dict(shape=list(shp), ms={n: [] for n in trees}, err={})
+
+        def call(mod):
+            if with_lse:
+                return mod.flash_self_attention_lse(q, k, v, scale)
+            return mod.flash_self_attention(q, k, v, scale), None
+
+        want, lse_p = (fa.flash_self_attention_plain_lse(q, k, v, scale)
+                       if with_lse else
+                       (fa.flash_self_attention_plain(q, k, v, scale), None))
+        want = want.float()
+        row = dict(shape=list(shp), dtype=dtn, lse=with_lse,
+                   ms={n: [] for n in trees}, err={})
         for name, mod in trees.items():
-            got = mod.flash_self_attention(q, k, v, scale).float()
-            row["err"][name] = float((got - want).abs().max())
+            got, lse = call(mod)
+            row["err"][name] = float((got.float() - want).abs().max())
+            if with_lse:
+                row.setdefault("lse_err", {})[name] = float(
+                    (lse - lse_p).abs().max())
         row["top"] = float(want.abs().max())
-        del want, got
+        del want, lse_p, got, lse
         for _ in range(args.rounds):
             for name in turns(trees):
-                mod = trees[name]
                 row["ms"][name].append(graph_ms(
-                    lambda mod=mod: mod.flash_self_attention(q, k, v,
-                                                             scale)))
+                    lambda mod=trees[name]: call(mod)))
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         row["sdpa_ms"] = graph_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, scale=scale))
-        row["bound_ms"], row["bound_by"] = bound_ms(B, L, H, D)
+        row["bound_ms"], row["bound_by"] = bound_ms(B, L, H, D, dt,
+                                                    with_lse)
         res["shapes"][label] = row
         del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
     return report(res, args.json)
 
 
@@ -294,8 +327,10 @@ def report(res, path) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(line + "\n")
     for label, r in res["shapes"].items():
-        print(f"{label} {r['shape']}: " + ", ".join(
-            f"{n} {min(v):.4f} ms (err {r['err'][n]:.2e})"
+        print(f"{label} {r['shape']} {r['dtype']}: " + ", ".join(
+            f"{n} {min(v):.4f} ms = {100 * r['bound_ms'] / min(v):.1f}% "
+            f"of bound (err {r['err'][n] / r['top']:.2e} of max"
+            + (f", lse {r['lse_err'][n]:.2e}" if r["lse"] else "") + ")"
             for n, v in r["ms"].items())
             + f", SDPA {r['sdpa_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}", flush=True)

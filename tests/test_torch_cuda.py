@@ -215,7 +215,9 @@ def test_render_normal_pbr_on_card_matches_cpu(cuda, layout):
     *(("bfloat16", D, L) for D in (16, 24, 40, 64, 72, 80, 96, 128, 136,
                                    160)
       for L in (128, 256, 1024)),
-    *(("float32", D, 256) for D in (40, 64, 160))])
+    *(("float32", D, L) for D in (8, 16, 32, 40, 64)
+      for L in (128, 256, 4096)),
+    ("float32", 160, 256)])
 def test_flash_attention_matches_plain(cuda, dtype, D, L):
     """K5 and its lse against the plain version (fp32 scores and softmax):
     fp32 within 1e-4 of max|out| and its lse within 1e-4 of max|lse|; bf16
@@ -225,7 +227,10 @@ def test_flash_attention_matches_plain(cuda, dtype, D, L):
     bf16 is one wgmma + TMA kernel built at P V widths 40, 64, 80 and 160:
     the widths between (16, 24, 72, 96, 128, 136) round up to the next, and
     at 96 and 128 the third 64-wide TMA box of the 160 instance lies
-    wholly past D; L from one tile to eight.  fp32 runs 3xTF32."""
+    wholly past D; L from one tile to eight.  fp32 runs 3xTF32: D <= 64
+    the wgmma + TMA kernel built at P V widths 16, 32 and 64 (D = 8 and 40
+    round up, TMA zero-filling past D), L from one tile of 128 queries to
+    the 64 key tiles of SD 2.1's level 0; D = 160 the mma.sync kernel."""
     from gsgen_torch.ops import flash_attention as fa
     rng = np.random.default_rng(D + L)
     dt = getattr(torch, dtype)

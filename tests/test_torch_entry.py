@@ -83,37 +83,6 @@ def assert_exact_fp32():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def test_build_trainer_sets_exact_fp32(tf32_on):
-    assert torch.backends.cudnn.conv.fp32_precision == "tf32"
-    cfg = config_mod.load_config(CONFIGS / "base.yaml", TINY)
-    config_mod.build_trainer(cfg, device="cpu")
-    assert_exact_fp32()
-
-
-def test_main_sets_exact_fp32_and_names_skipped_outputs(tf32_on, capsys,
-                                                        tmp_path,
-                                                        quiet_logger):
-    """SDS on MockUNet with guidance samples every 2 steps and the profiler
-    trace of step 1: main writes both (no output is left unwritten, so no
-    line names one), and leaves exact fp32 after."""
-    assert main_mod.main(["--config", str(CONFIGS / "base.yaml"),
-                          "--steps", "3", "--device", "cpu",
-                          "--log-root", str(tmp_path), *TINY[1:],
-                          "guidance.backbone_latent_size=8",
-                          "trainer.guidance_eval_period=2",
-                          "trainer.profile_steps=[1, 2]"]) == 0
-    assert_exact_fp32()
-    assert "not written" not in capsys.readouterr().out
-    run = _run_dir(tmp_path)
-    assert (run / "ckpts" / "step_3").is_dir()
-    sample = run / "eval" / "eval_guidance_sample_000002.png"
-    assert sample.is_file() and sample.stat().st_size > 0
-    assert not (run / "eval" / "eval_guidance_sample_000001.png").exists()
-    trace = json.loads((run / "profile" / "steps_1_2.json").read_text())
-    assert any(e.get("name") == "aten::conv2d"
-               for e in trace["traceEvents"])
-
-
 def test_main_flagship_writes_run_outputs(tmp_path, quiet_logger, capsys):
     """configs/flagship_rehearsal.yaml end to end: 3 steps, eval images,
     the orbit and a checkpoint at step 2, the upsample fine-tune, the
@@ -156,6 +125,37 @@ def test_main_flagship_writes_run_outputs(tmp_path, quiet_logger, capsys):
             np.asarray(state_j.scene.params.mean) if k.endswith("mean")
             else np.asarray(state_j.scene.active) if k.endswith("active")
             else np.asarray(state_j.opt.count), mine[k], err_msg=k)
+
+
+def test_build_trainer_sets_exact_fp32(tf32_on):
+    assert torch.backends.cudnn.conv.fp32_precision == "tf32"
+    cfg = config_mod.load_config(CONFIGS / "base.yaml", TINY)
+    config_mod.build_trainer(cfg, device="cpu")
+    assert_exact_fp32()
+
+
+def test_main_sets_exact_fp32_and_names_skipped_outputs(tf32_on, capsys,
+                                                        tmp_path,
+                                                        quiet_logger):
+    """SDS on MockUNet with guidance samples every 2 steps and the profiler
+    trace of step 1: main writes both (no output is left unwritten, so no
+    line names one), and leaves exact fp32 after."""
+    assert main_mod.main(["--config", str(CONFIGS / "base.yaml"),
+                          "--steps", "3", "--device", "cpu",
+                          "--log-root", str(tmp_path), *TINY[1:],
+                          "guidance.backbone_latent_size=8",
+                          "trainer.guidance_eval_period=2",
+                          "trainer.profile_steps=[1, 2]"]) == 0
+    assert_exact_fp32()
+    assert "not written" not in capsys.readouterr().out
+    run = _run_dir(tmp_path)
+    assert (run / "ckpts" / "step_3").is_dir()
+    sample = run / "eval" / "eval_guidance_sample_000002.png"
+    assert sample.is_file() and sample.stat().st_size > 0
+    assert not (run / "eval" / "eval_guidance_sample_000001.png").exists()
+    trace = json.loads((run / "profile" / "steps_1_2.json").read_text())
+    assert any(e.get("name") == "aten::conv2d"
+               for e in trace["traceEvents"])
 
 
 def test_main_tune_only_resumes_from_ckpt(tmp_path, quiet_logger, capsys):

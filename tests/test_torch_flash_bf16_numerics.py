@@ -139,7 +139,10 @@ def test_bf16_forward_model_matches_references(D):
     (160, (64, 160))])
 def test_fwd_tiles_instances(D, tiles):
     """The bf16 instance each head width launches: D rounded up to a built
-    P V width, 128 keys a tile up to width 80 and 64 above; fp32 keeps its
-    32-key tiles at width 64 or 160."""
+    P V width, 128 keys a tile up to width 80 and 64 above; fp32: the wgmma
+    instance, 64 keys a tile at width 16, 32 or 64 (D rounded up), or the
+    mma.sync instance, 32 keys at width 160, above 64."""
     assert fa.fwd_tiles(torch.bfloat16, D) == tiles
-    assert fa.fwd_tiles(torch.float32, D) == (32, 64 if D <= 64 else 160)
+    width = next((w for w in (16, 32, 64) if w >= D), 160)
+    assert fa.fwd_tiles(torch.float32, D) == (
+        (64, width) if width <= 64 else (32, 160))

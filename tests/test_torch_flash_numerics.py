@@ -7,8 +7,16 @@ The kernels split each fp32 operand x into hi = tf32(x) and lo = tf32(x -
 hi) (``cvt.rna``: round to nearest, ties away, to a 10-bit mantissa) and
 compute each product as lo_a hi_b + hi_a lo_b + hi_a hi_b with fp32
 accumulation.  Here the split is done by bit arithmetic and the products
-by fp32 matmuls.  K5's online softmax walks key tiles of 32 as the kernel
-does.  K6 and K7 have two walks each (``walk``):
+by fp32 matmuls.  Each kernel has two walks (``walk``).  K5's online
+softmax:
+
+* ``wgmma`` (D <= 64): key tiles of 64; each tile's P, split into hi and
+  lo A fragments, times V's hi / lo planes into partial sums, folded into
+  O by one rounded FMA that takes the rescale alpha.
+* ``mma_sync`` (the instance kept for D = 72-160): key tiles of 32, O
+  rescaled and the tile's P V added into it.
+
+K6 and K7:
 
 * ``wgmma`` (D <= 64): K6 walks query tiles of 64.  Per tile it forms S
   and dP, and writes P as hi and lo planes.  dS takes P back as hi + lo.
@@ -34,8 +42,9 @@ from gsgen_torch.ops import flash_attention as fa
 from torch_fixtures import t
 
 SHAPE = (2, 256, 2)      # [B, L, H]; D is the parameter
-KEY_TILE = 32            # keys per tile of K5's fp32 instance
-WG_TILE = 64             # queries (K6) / keys (K7) a tile of the wgmma walk
+KEY_TILE = 32            # keys per tile of K5's fp32 mma.sync instance
+WG_TILE = 64             # keys (K5, K7) / queries (K6) a tile of the wgmma
+                         # walk
 DQ_KEY_TILE = 32         # keys per tile of K7's mma.sync instance
 # K7's dS fragment as the A operand of dQ += dS K: in each step of 8 keys,
 # lane t's keys 2t and 2t + 1 stand at k = t and k = t + 4
@@ -66,21 +75,31 @@ def heads(x):
     return x.permute(0, 2, 1, 3)          # [B, L, H, D] -> [B, H, L, D]
 
 
-def fwd_emulated(q, k, v, scale, mm):
-    """K5 fp32: online softmax over key tiles, log2 units, exp2."""
+def fwd_emulated(q, k, v, scale, mm, walk="wgmma"):
+    """K5 fp32: online softmax over key tiles, log2 units, exp2.
+    ``wgmma``: tiles of 64 keys, each tile's P V (both split) a partial
+    sum folded into O as fma(O, alpha, part), one rounding (fp64 holds
+    the product exactly).  ``mma_sync``: tiles of 32 keys, O rescaled,
+    then the tile's P V added."""
     qh, kh, vh = heads(q), heads(k), heads(v)
     sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
     m = torch.full(qh.shape[:3], -torch.inf)
     l = torch.zeros(qh.shape[:3])
     acc = torch.zeros(qh.shape)
-    for j0 in range(0, kh.shape[2], KEY_TILE):
-        s = mm(qh, kh[:, :, j0:j0 + KEY_TILE].transpose(-1, -2))
-        mx = torch.maximum(m, (s * sl2).amax(-1))
+    tile = WG_TILE if walk == "wgmma" else KEY_TILE
+    for j0 in range(0, kh.shape[2], tile):
+        s = mm(qh, kh[:, :, j0:j0 + tile].transpose(-1, -2))
+        mx = torch.maximum(m, s.amax(-1) * sl2)
         alpha = torch.exp2(m - mx)
-        m, l, acc = mx, l * alpha, acc * alpha[..., None]
+        m, l = mx, l * alpha
         p = torch.exp2(s * sl2 - m[..., None])
         l = l + p.sum(-1)
-        acc = acc + mm(p, vh[:, :, j0:j0 + KEY_TILE])
+        part = mm(p, vh[:, :, j0:j0 + tile])
+        if walk == "wgmma":
+            acc = (acc.double() * alpha[..., None].double()
+                   + part.double()).float()
+        else:
+            acc = acc * alpha[..., None] + part
     lse = (m + torch.log2(l)) * np.float32(np.log(2.0))
     return heads(acc / l[..., None]), lse
 
@@ -181,18 +200,26 @@ def rel_err(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-@pytest.mark.parametrize("D", [40, 64])
-def test_3xtf32_forward_matches_fp32(D):
+# K5: the wgmma walk at each built P V width (16, 32, 64) and at SD 1.5's
+# 40 (zero-filled to 64); the mma.sync walk of the D <= 160 instance
+FWD_WALKS = [("wgmma", 16), ("wgmma", 32), ("wgmma", 40), ("wgmma", 64),
+             ("mma_sync", 160)]
+
+
+@pytest.mark.parametrize("walk, D", FWD_WALKS)
+def test_3xtf32_forward_matches_fp32(walk, D):
     q, k, v, _ = inputs(D, 10 + D)
     scale = 1.0 / np.sqrt(D)
     tq, tk, tv = (t(x) for x in (q, k, v))
-    out, lse = fwd_emulated(tq, tk, tv, scale, mm3)
+    assert fa.fwd_tiles(torch.float32, D)[0] == (
+        WG_TILE if walk == "wgmma" else KEY_TILE)
+    out, lse = fwd_emulated(tq, tk, tv, scale, mm3, walk)
     out_p, lse_p = fa.flash_self_attention_plain_lse(tq, tk, tv, scale)
     out_j = jax_core(scale)(*(jnp.asarray(x) for x in (q, k, v)))
     assert rel_err(out, out_p) <= TOL
     assert rel_err(out, out_j) <= TOL
     assert rel_err(lse, lse_p) <= TOL
-    out_1, _ = fwd_emulated(tq, tk, tv, scale, mm1)
+    out_1, _ = fwd_emulated(tq, tk, tv, scale, mm1, walk)
     assert rel_err(out_1, out_p) >= 10 * rel_err(out, out_p)
 
 

@@ -123,6 +123,38 @@ def tiny_sr():
     return up_j, up_t
 
 
+def test_if_yaml_builds_if_pixel_and_trains_on_tiny(monkeypatch, tmp_path):
+    """guidance/if.yaml over base.yaml: deep_floyd is SDS in pixel space
+    with CFG 20 on IF_PIXEL (no VAE, 64^2, bf16 weights, T5's 4096-wide
+    context projected to 256); on the TINY preset two steps train, and K5
+    never runs on the CPU."""
+    monkeypatch.chdir(tmp_path)
+    cfgs = [ROOT / "configs" / n for n in ("base.yaml", "guidance/if.yaml",
+                                           "prompt/if.yaml")]
+    tr = build_trainer(load_config(cfgs, SMALL), device="cpu")
+    g = tr.guidance
+    assert isinstance(g, SDSGuidance)
+    assert g.cfg.rgb_as_latents and g.cfg.guidance_scale == 20.0
+    bb = g.backbone
+    assert bb.cfg == IF_PIXEL and bb.vae is None
+    assert (bb.latent_size, bb.image_size, bb.latent_channels) == (64, 64, 3)
+    assert all(p.dtype == torch.bfloat16 for p in bb.parameters())
+    assert tuple(bb.unet.encoder_hid_proj.weight.shape) == (256, 4096)
+    assert not hasattr(bb.unet, "class_embedding")
+    del tr, g, bb
+
+    tr = build_trainer(load_config(cfgs, SMALL + [
+        "guidance.backbone_preset=tiny"]), device="cpu")
+    n5 = fa.flash_self_attention.launches
+    losses = []
+    tr.fit(2, callback=lambda i, m: losses.append(float(m["loss_sds"])))
+    assert tr.state.step == 2 and all(np.isfinite(losses))
+    assert fa.flash_self_attention.launches == n5
+    img = tr._guidance_sample(2)
+    size = tr.guidance.backbone.image_size
+    assert img.shape == (size, size, 3) and np.isfinite(img).all()
+
+
 def test_unet_encoder_hid_proj_matches_jax(pixel):
     bb_j, bb_t, _, _ = pixel
     w = bb_t.unet.state_dict()["encoder_hid_proj.weight"]
@@ -263,38 +295,6 @@ def test_upsample_images_matches_jax(tiny_sr):
         rtol=0, atol=0)
     with pytest.raises(FileNotFoundError, match="no .safetensors"):
         up_t.load_weights("/nonexistent/if2.safetensors")
-
-
-def test_if_yaml_builds_if_pixel_and_trains_on_tiny(monkeypatch, tmp_path):
-    """guidance/if.yaml over base.yaml: deep_floyd is SDS in pixel space
-    with CFG 20 on IF_PIXEL (no VAE, 64^2, bf16 weights, T5's 4096-wide
-    context projected to 256); on the TINY preset two steps train, and K5
-    never runs on the CPU."""
-    monkeypatch.chdir(tmp_path)
-    cfgs = [ROOT / "configs" / n for n in ("base.yaml", "guidance/if.yaml",
-                                           "prompt/if.yaml")]
-    tr = build_trainer(load_config(cfgs, SMALL), device="cpu")
-    g = tr.guidance
-    assert isinstance(g, SDSGuidance)
-    assert g.cfg.rgb_as_latents and g.cfg.guidance_scale == 20.0
-    bb = g.backbone
-    assert bb.cfg == IF_PIXEL and bb.vae is None
-    assert (bb.latent_size, bb.image_size, bb.latent_channels) == (64, 64, 3)
-    assert all(p.dtype == torch.bfloat16 for p in bb.parameters())
-    assert tuple(bb.unet.encoder_hid_proj.weight.shape) == (256, 4096)
-    assert not hasattr(bb.unet, "class_embedding")
-    del tr, g, bb
-
-    tr = build_trainer(load_config(cfgs, SMALL + [
-        "guidance.backbone_preset=tiny"]), device="cpu")
-    n5 = fa.flash_self_attention.launches
-    losses = []
-    tr.fit(2, callback=lambda i, m: losses.append(float(m["loss_sds"])))
-    assert tr.state.step == 2 and all(np.isfinite(losses))
-    assert fa.flash_self_attention.launches == n5
-    img = tr._guidance_sample(2)
-    size = tr.guidance.backbone.image_size
-    assert img.shape == (size, size, 3) and np.isfinite(img).all()
 
 
 def test_upsampler_presets_at_full_width():

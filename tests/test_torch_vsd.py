@@ -93,6 +93,59 @@ def tiny_pair():
     return g_j, train_j, bb_t
 
 
+def test_vsd_configs_build_and_train(tmp_path, monkeypatch):
+    """base + guidance/vsd + prompt/vsd (merged as ``--config`` does) on
+    the TINY preset: the UNet in fp32 with LoRA and a camera embedding,
+    the VAE in bf16, ``gp/<name>`` optimizer leaves that move, and no
+    kernel launch on the CPU."""
+    monkeypatch.chdir(tmp_path)          # the prompt cache is cwd-relative
+    cfgs = [ROOT / "configs" / n for n in
+            ("base.yaml", "guidance/vsd.yaml", "prompt/vsd.yaml")]
+    tr = build_trainer(load_config(cfgs, [
+        "guidance.backbone_preset=tiny", "init.num_points=64",
+        "init.capacity=128", "data.reso=[32]", "renderer.tile_size=8",
+        "renderer.chunk=128", "renderer.dup_cap=4096",
+        "trainer.batch_size=2"]), device="cpu")
+    g = tr.guidance
+    assert isinstance(g, VSDGuidance) and g.faithful
+    assert g.cfg.guidance_scale == 7.5 and g.cfg.lora_rank == 4
+    bb = g.backbone
+    assert bb.cfg.lora_rank == 4 and bb.cfg.class_embed_proj_dim == 16
+    assert all(p.dtype == torch.float32 for p in bb.unet.parameters())
+    assert all(p.dtype == torch.bfloat16 for p in bb.vae.parameters())
+    assert set(tr.state.gp) == set(g.trainable_params)
+    assert {k for k in tr.state.opt.mu if k.startswith("gp/")} == {
+        f"gp/{k}" for k in tr.state.gp}
+    s = tr.sched_scalars(0)
+    assert (s["min_t"], s["max_t"], s["lr_guidance"]) == (20, 980, 1e-4)
+    assert tr.sched_scalars(5001)["max_t"] == 500
+    gp0 = {k: v.clone() for k, v in tr.state.gp.items()}
+    n = (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
+         fa.flash_bwd_dq.launches)
+    metrics = []
+    tr.fit(2, callback=lambda i, m: metrics.append(m))
+    assert tr.state.step == 2
+    assert all(np.isfinite(float(m[k])) for m in metrics
+               for k in ("loss_vsd", "loss_lora", "loss_total"))
+    assert max(float((v - gp0[k]).abs().max())
+               for k, v in tr.state.gp.items()) > 0
+    assert (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == n
+    # the guidance-eval samples of the trained state: the frozen model and
+    # the LoRA model on the trainer's leaves, 2 DDIM steps, no K5 on the CPU
+    emb = tr.prompt_processor()
+    pose = [torch.tensor([15.0]), torch.tensor([30.0]), torch.tensor([2.5])]
+    img = g.sample(emb, *pose, num_steps=2,
+                   generator=torch.Generator().manual_seed(0))
+    c2w = torch.eye(4)[None, :3]
+    img_l = g.sample_lora(emb, *pose, c2w, num_steps=2, train=tr.state.gp,
+                          generator=torch.Generator().manual_seed(0))
+    assert img.shape == img_l.shape == (1, bb.image_size, bb.image_size, 3)
+    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+    assert float((img - img_l).abs().max()) > 0.0
+    assert fa.flash_self_attention.launches == n[0]
+
+
 def test_trainable_leaves_and_init(tiny_pair):
     g_j, _, bb_t = tiny_pair
     g_t = VSDGuidance(VSDConfig(), bb_t, device="cpu")
@@ -291,55 +344,3 @@ def test_vsd_trainer_step_matches_jax():
     moved = st.gp["up"] - t(np.asarray(tt.guidance.trainable_params["up"]))
     assert float(moved.abs().max()) > 0.5 * lr
 
-
-def test_vsd_configs_build_and_train(tmp_path, monkeypatch):
-    """base + guidance/vsd + prompt/vsd (merged as ``--config`` does) on
-    the TINY preset: the UNet in fp32 with LoRA and a camera embedding,
-    the VAE in bf16, ``gp/<name>`` optimizer leaves that move, and no
-    kernel launch on the CPU."""
-    monkeypatch.chdir(tmp_path)          # the prompt cache is cwd-relative
-    cfgs = [ROOT / "configs" / n for n in
-            ("base.yaml", "guidance/vsd.yaml", "prompt/vsd.yaml")]
-    tr = build_trainer(load_config(cfgs, [
-        "guidance.backbone_preset=tiny", "init.num_points=64",
-        "init.capacity=128", "data.reso=[32]", "renderer.tile_size=8",
-        "renderer.chunk=128", "renderer.dup_cap=4096",
-        "trainer.batch_size=2"]), device="cpu")
-    g = tr.guidance
-    assert isinstance(g, VSDGuidance) and g.faithful
-    assert g.cfg.guidance_scale == 7.5 and g.cfg.lora_rank == 4
-    bb = g.backbone
-    assert bb.cfg.lora_rank == 4 and bb.cfg.class_embed_proj_dim == 16
-    assert all(p.dtype == torch.float32 for p in bb.unet.parameters())
-    assert all(p.dtype == torch.bfloat16 for p in bb.vae.parameters())
-    assert set(tr.state.gp) == set(g.trainable_params)
-    assert {k for k in tr.state.opt.mu if k.startswith("gp/")} == {
-        f"gp/{k}" for k in tr.state.gp}
-    s = tr.sched_scalars(0)
-    assert (s["min_t"], s["max_t"], s["lr_guidance"]) == (20, 980, 1e-4)
-    assert tr.sched_scalars(5001)["max_t"] == 500
-    gp0 = {k: v.clone() for k, v in tr.state.gp.items()}
-    n = (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
-         fa.flash_bwd_dq.launches)
-    metrics = []
-    tr.fit(2, callback=lambda i, m: metrics.append(m))
-    assert tr.state.step == 2
-    assert all(np.isfinite(float(m[k])) for m in metrics
-               for k in ("loss_vsd", "loss_lora", "loss_total"))
-    assert max(float((v - gp0[k]).abs().max())
-               for k, v in tr.state.gp.items()) > 0
-    assert (fa.flash_self_attention.launches, fa.flash_bwd_dkv.launches,
-            fa.flash_bwd_dq.launches) == n
-    # the guidance-eval samples of the trained state: the frozen model and
-    # the LoRA model on the trainer's leaves, 2 DDIM steps, no K5 on the CPU
-    emb = tr.prompt_processor()
-    pose = [torch.tensor([15.0]), torch.tensor([30.0]), torch.tensor([2.5])]
-    img = g.sample(emb, *pose, num_steps=2,
-                   generator=torch.Generator().manual_seed(0))
-    c2w = torch.eye(4)[None, :3]
-    img_l = g.sample_lora(emb, *pose, c2w, num_steps=2, train=tr.state.gp,
-                          generator=torch.Generator().manual_seed(0))
-    assert img.shape == img_l.shape == (1, bb.image_size, bb.image_size, 3)
-    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
-    assert float((img - img_l).abs().max()) > 0.0
-    assert fa.flash_self_attention.launches == n[0]
