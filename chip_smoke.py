@@ -9,8 +9,9 @@ Phases, each reported on its own line:
    (the package's precision policy, utils/precision.py::exact_fp32);
 2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a; the raster
    kernels' ptxas lines (registers, shared memory, spills: none allowed)
-   and those of K5's fp32 wgmma + TMA instances (P V 16, 32 and 64 wide)
-   and K6 / K7's (no spill, and no wgmma that ptxas serialised);
+   and those of K5's fp32 wgmma + TMA instances (P V 16, 32 and 64 wide),
+   K6 / K7's fp32 ones and K6 / K7's bf16 instances of widths 80 and 160
+   (no spill, and no wgmma that ptxas serialised);
 3. kernels: every kernel of the render path against its plain PyTorch
    version on the card, at a small size, at the bench workload (100K
    Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
@@ -40,8 +41,10 @@ Phases, each reported on its own line:
    K5's lse, K6 (dK, dV) and K7 (dQ) against
    the plain backward at the VSD path's [4, 4096, 5, 64] in fp32 and
    bf16 (K7 fp32 there also within 1e-5 of max|dq|), a small
-   [2, 256, 2, 64] in fp32, [1, 4096, 2, 64] and [2, 256, 2, 160] in bf16,
-   [2, 128, 3, 40] in bf16 (one tile, TMA zero fill), in fp32 [2, 1024,
+   [2, 256, 2, 64] in fp32, [1, 4096, 2, 64] in bf16, SD 1.5's `on`
+   levels [2, 1024, 8, 80] and [2, 256, 8, 160] and the width between
+   them [2, 256, 2, 120] in bf16 (the wide instances, TMA zero fill past
+   D), [2, 128, 3, 40] in bf16 (one tile, TMA zero fill), in fp32 [2, 1024,
    8, 40] (SD 1.5's width, zero fill past D), [2, 128, 3, 8] (one tile,
    one k-step of head dims) and [2, 256, 2, 160]
    in fp32, each error also as a share of the gradient's max, and
@@ -54,7 +57,8 @@ Phases, each reported on its own line:
    shapes (K5 at SD 2.1's level 0, SDPA its library yardstick; K6 and K7 at
    [4, 4096, 5, 64] in fp32 and bf16, each also in device time, SDPA's
    backward theirs in device time from a profiler trace, K6 + K7 summed
-   beside it; SDPA in fp32 beside
+   beside it, and in bf16 at SD 1.5's `on` levels [4, 1024, 8, 80] and
+   [4, 256, 8, 160] in device time beside SDPA's backward; SDPA in fp32 beside
    K5's fp32 instance at B=8 and B=4), K1-K4, K8, K9 and torch.searchsorted
    by device time (a CUDA graph of 50 calls replayed between two events)
    beside their host-loop times, the lanes each tile's forward walked (max,
@@ -284,6 +288,9 @@ FLASH_BWD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 K7_FP32_VSD_TOL = 1e-5
 SD21_ATTN = (8, 4096, 5, 64)    # SD 2.1 level-0 self-attention [B, L, H, D]
 VSD_ATTN = (4, 4096, 5, 64)     # the same under VSD's LoRA pass (batch 4)
+# SD 1.5's `fused_attention: on` levels at batch 4: K6 / K7's bf16
+# instances of widths 80 and 160
+SD15_ON_BWD = {"level 1": (4, 1024, 8, 80), "level 2": (4, 256, 8, 160)}
 # the IF-II upsampler (IF2_PIXEL, 8 heads on 128 / 256 channels) at a 256^2
 # target, CFG batch 2 (B = 1): its two K5 levels
 IF2_ATTN = {"IF-II level 1": (2, 16384, 8, 16),
@@ -428,22 +435,25 @@ def run(torch) -> int:
     print("phase 2 raster: ok | " + " | ".join(
         f"{k}: {v}" for k, v in raster_ptxas.items()), flush=True)
     # K5 fp32 on wgmma: one kernel a P V width (16, 32, 64); K6 / K7 fp32
-    # on wgmma: one kernel each; none spills, and ptxas serialised no wgmma
-    # in them (its C75xx notes name the function)
-    require(not [f for f in spills if "tf32_wgmma" in f],
-            f"an fp32 wgmma kernel spills: {spills}")
+    # on wgmma: one kernel each; K6 / K7 bf16 above D = 64: one kernel a
+    # width (80, 160); none spills, and ptxas serialised no wgmma in them
+    # (its C75xx notes name the function)
+    gated = ("tf32_wgmma", "_wide_kernel")
+    require(not [f for f in spills if any(g in f for g in gated)],
+            f"an fp32 or wide bf16 wgmma kernel spills: {spills}")
     serial = [ln.strip() for ln in cuda_lib.build_info["log"].splitlines()
-              if "serialized" in ln and "tf32_wgmma" in ln]
+              if "serialized" in ln and any(g in ln for g in gated)]
     require(not serial, f"ptxas serialised wgmma: {serial}")
-    for what, needle, want in (("fwd", "fwd_tf32_wgmma", 3),
-                               ("bwd", "bwd_d", 2)):
-        tf32_ptxas = {k: v for k, v in ptxas_lines(
-            cuda_lib.build_info["log"], needle).items()
-            if "tf32_wgmma" in k}
-        require(len(tf32_ptxas) == want, f"ptxas names {len(tf32_ptxas)} "
-                f"fp32 wgmma {what} kernels, expected {want}")
-        print(f"phase 2 flash fp32 {what}: ok | " + " | ".join(
-            f"{k}: {v}" for k, v in tf32_ptxas.items()), flush=True)
+    for what, needle, kind, want in (
+            ("fp32 fwd", "fwd_tf32_wgmma", "tf32_wgmma", 3),
+            ("fp32 bwd", "bwd_d", "tf32_wgmma", 2),
+            ("bf16 bwd D 72-160", "bwd_d", "_wide_kernel", 4)):
+        gated_ptxas = {k: v for k, v in ptxas_lines(
+            cuda_lib.build_info["log"], needle).items() if kind in k}
+        require(len(gated_ptxas) == want, f"ptxas names "
+                f"{len(gated_ptxas)} {what} wgmma kernels, expected {want}")
+        print(f"phase 2 flash {what}: ok | " + " | ".join(
+            f"{k}: {v}" for k, v in gated_ptxas.items()), flush=True)
 
     # ---- helpers ----
     gen = torch.Generator(device=dev)
@@ -896,7 +906,9 @@ def run(torch) -> int:
             ("VSD level 0", VSD_ATTN, "bfloat16"),
             ("small", (2, 256, 2, 64), "float32"),
             ("whole ring, few CTAs", (1, 4096, 2, 64), "bfloat16"),
-            ("mma.sync instance", (2, 256, 2, 160), "bfloat16"),
+            ("SD 1.5 level 1 (on)", (2, 1024, 8, 80), "bfloat16"),
+            ("SD 1.5 level 2 (on)", (2, 256, 8, 160), "bfloat16"),
+            ("width 120, TMA zero fill", (2, 256, 2, 120), "bfloat16"),
             ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
             ("SD 1.5 width, TMA zero fill", (2, 1024, 8, 40), "float32"),
             ("one tile, one k-step", (2, 128, 3, 8), "float32"),
@@ -1303,6 +1315,23 @@ def run(torch) -> int:
                 library_ms=sdpa_bwd[dtn], bound_ms=bd[0], bound_by=bd[1])
         del q, k, v, dout, out, lse, delta, args
         torch.cuda.empty_cache()
+    # K6 / K7 bf16 at SD 1.5's `on` levels (the instances of widths 80 and
+    # 160), device time, SDPA's whole backward beside them
+    wide_bwd = {}
+    for label, shp in SD15_ON_BWD.items():
+        q, k, v, dout = qkvo(shp, torch.bfloat16, 71)
+        sc = shp[-1] ** -0.5
+        out, lse = flash_attention.flash_self_attention_lse(q, k, v, sc)
+        delta = flash_attention.attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, sc)
+        wide_bwd[label] = dict(
+            shape=list(shp), sdpa_bwd_ms=sdpa_bwd_ms(q, k, v, dout, sc),
+            **{kn: dict(device_ms=graph_ms(lambda fn=fn: fn(*args), 10, 3),
+                        bound=bwd_bound_ms(*shp, torch.bfloat16, kn))
+               for kn, fn in (("dkv", flash_attention.flash_bwd_dkv),
+                              ("dq", flash_attention.flash_bwd_dq))})
+        del q, k, v, dout, out, lse, delta, args
+        torch.cuda.empty_cache()
     # K6 + K7 in device time beside SDPA's whole backward
     bwd_sum = {dtn: times_bwd[("flash_attn_bwd_dkv", dtn)]["device_ms"]
                + times_bwd[("flash_attn_bwd_dq", dtn)]["device_ms"]
@@ -1333,6 +1362,14 @@ def run(torch) -> int:
         ops = (8.0 if name == "flash_attn_bwd_dkv" else 6.0) * units
         flash_rows.append((design[(name, dtn)], list(VSD_ATTN),
                            v["device_ms"], ops, v["bound_ms"], sdpa_bwd[dtn]))
+    for label, r in wide_bwd.items():
+        B_, L_, H_, D_ = r["shape"]
+        for kn, name, mult in (("dkv", "K6", 8.0), ("dq", "K7", 6.0)):
+            flash_rows.append((
+                f"{name} bf16 wgmma+TMA width {80 if D_ <= 80 else 160}",
+                r["shape"], r[kn]["device_ms"],
+                mult * B_ * H_ * L_ * L_ * D_, r[kn]["bound"][0],
+                r["sdpa_bwd_ms"]))
     flash_instances = [
         dict(instance=n, shape=shp, ms=ms, tflops=ops / ms / 1e9,
              bound_ms=bd, pct_of_bound=100.0 * bd / ms, sdpa_ms=sd)
@@ -1692,14 +1729,20 @@ def run(torch) -> int:
                    "fp32; library_ms: SDPA's backward (dQ, dK and dV), "
                    "device time from a profiler trace",
             design=("bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
-                    "keys a CTA, 3-stage Q/dO ring); bf16 D>64: mma.sync; "
+                    "keys a CTA, 3-stage Q/dO ring); bf16 D 72-160: "
+                    "wgmma + TMA at widths 80 / 160 (64 keys a CTA, 3-stage "
+                    "Q/dO ring; warpgroup 0 S^T, P^T, dV, warpgroup 1 dP^T, "
+                    "dS^T, dK; P^T handed over in fp32); "
                     "fp32 D<=64: 3xTF32 on wgmma + TMA (64 keys a CTA, "
                     "3-stage Q/dO ring; warpgroup 0 S, P, dV^T = dO^T P, "
                     "warpgroup 1 dP, dS, dK^T = Q^T dS; P and dS as "
                     "[key][query] hi/lo planes); fp32 D>64: 3xTF32 on "
                     "mma.sync m16n8k8" if name == "flash_attn_bwd_dkv" else
                     "bf16 D<=64: wgmma + TMA (2 consumer warpgroups, 128 "
-                    "queries a CTA, 3-stage K/V ring); bf16 D>64: mma.sync; "
+                    "queries a CTA, 3-stage K/V ring); bf16 D 72-160: "
+                    "wgmma + TMA at widths 80 / 160 (64 queries a CTA, "
+                    "3-stage K/V ring; warpgroup 0 S, P, warpgroup 1 dP, "
+                    "dS, dQ; P handed over in fp32); "
                     "fp32 D<=64: 3xTF32 on wgmma + TMA (64 queries a CTA, "
                     "3-stage K/V ring; warpgroup 0 S^T, P^T, warpgroup 1 "
                     "dP^T, dS^T, dQ^T = K^T dS^T; dS as [query][key] hi/lo "
@@ -3989,7 +4032,9 @@ def k5_row(torch, q, k, v, time_ms):
             f"{err:.3e} above {tol:.3e}")
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     ms = graph_ms(lambda: fa.flash_self_attention(q, k, v, scale))
-    bound, by = k5_bound(B, L, H, D, q.element_size())
+    bound, by = k5_bound(B, L, H, D, q.dtype)
+    require(bound <= ms, f"K5 {[B, L, H, D]}: {ms:.4f} ms reads under its "
+            f"{bound:.4f} ms {by} bound")
     return dict(shape=[B, L, H, D], dtype="bfloat16", max_abs_err=err,
                 tol=tol, ms=ms, bound_ms=bound, bound_by=by,
                 instance=list(fa.fwd_tiles(q.dtype, D)),

@@ -88,10 +88,35 @@
 //    tiles of 32 keys double-buffered by cp.async, dS in registers as the A
 //    operand of dQ += dS K (keys (2t, 2t + 1) at k = (t, t + 4), K's rows
 //    permuted the same way).
-//  * K6 bf16, D > 64, and K7 bf16, D > 64: 4 warps of mma.sync m16n8k16
-//    (bf16 in, fp32 accumulate), each warp 16 keys (K6) or 16 queries (K7);
-//    the score accumulators become the A operands of the second products in
-//    registers, as in K5.  P and dS are rounded to bf16 for those products.
+//  * K6 and K7 bf16, D = 72-160 (SD 1.5's levels under `fused_attention:
+//    on`, D = 80 and 160): wgmma fed by TMA, one instance a width, DN = 80
+//    (D = 72, 80) or 160 (D = 88-160), every product's k-steps known at
+//    compile time and TMA zero-filling the head dims past D; a tile wider
+//    than 64 head dims is ceil(DN / 64) 128-byte-swizzle boxes side by
+//    side, as in K5.  Registers set the design: ptxas gives a 384-thread CTA
+//    168 a thread, and one warpgroup holding dK and dV for its 64 keys
+//    beside S^T and dP^T (the D <= 64 layout) would need 176 values at DN =
+//    80 and 256 at 160.  So the roles split as in K6 fp32: one CTA per
+//    (64-key tile, head, batch), warpgroup 0 runs S^T = K Q^T, P^T and dV
+//    += P^T dO, warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - Di) and dK +=
+//    dS^T Q, each holding one accumulator (DN / 2 values), one score tile
+//    (32) and its bf16 fragments (16): 128 at DN = 160.  P^T passes to
+//    warpgroup 1 in fp32 through 16 KB of shared memory in register order
+//    (named barriers), so dS takes the exact P as before.  K and V stay
+//    resident; Q and dO tiles of 64 queries with their lse and Di rows
+//    stream through a ring of 4 stages at DN = 80 and 3 at 160 (216 KB of
+//    shared memory at DN = 160).
+//    K7 swaps the roles: one CTA per (64-query tile, head, batch), Q and dO
+//    resident, K and V streamed; warpgroup 0 runs S = Q K^T and P,
+//    warpgroup 1 dP = dO V^T, dS and dQ += dS K.  A warpgroup issues the
+//    next tile's score product with this tile's gradient product; in K6 it
+//    waits for the score product alone and runs its elementwise step (P^T
+//    or dS^T) beside the gradient product, in K7 it waits for both (there
+//    the overlap was slower).  P and dS are rounded to bf16 only as the A
+//    operands of the gradient products (RS wgmma, the streamed tile as an
+//    MN-major B).  Bound at SD 1.5's levels: operations at [4, 1024,
+//    8, 80] (K6 0.0217 ms, K7 0.0163 ms at 989 TFLOP/s), bytes at [4, 256,
+//    8, 160] (gsgen_torch/tools/k5_bench.py::bwd_bound_ms).
 #include "flash_attn_common.cuh"
 #include "flash_attn_sm90.cuh"
 
@@ -118,258 +143,26 @@ constexpr int kDqSmem = 4 * kDkvTile + kDqStages * 2 * kDkvTile +
                         8 * (1 + 2 * kDqStages) + 1024;
 constexpr int kDqTfKeys = 32;  // keys per streamed tile (K7 fp32)
 
-// ---- bf16 (mma.sync) -------------------------------------------------------
-// Registers are sized for D <= 160: kKtMax head-dim steps of 16.  Tiles in
-// shared memory are zero-padded from D to a multiple of 16; row stride
-// kStride elements (conflict-free fragment loads).
-constexpr int kKtMax = 10;
-constexpr int kStride = kKtMax * 16 + 8;
-
-// S = X Y^T and dP = U W^T for the warp's 16 rows r0.. (X, U) against the
-// tile's 64 rows (Y, W): 8 n-tiles of 8 columns each.
-__device__ __forceinline__ void score_tiles_bf16(
-    const __nv_bfloat16* xs, const __nv_bfloat16* us,
-    const __nv_bfloat16* ys, const __nv_bfloat16* ws, int r0, int KT, int g,
-    int t, float (&s)[8][4], float (&dp)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[nt][e] = 0.0f;
-      dp[nt][e] = 0.0f;
-    }
-  }
-#pragma unroll
-  for (int kt = 0; kt < kKtMax; ++kt) {
-    if (kt < KT) {
-      uint32_t xa[4], ua[4];
-      load_a_frag(xa, xs, kStride, r0, kt, g, t);
-      load_a_frag(ua, us, kStride, r0, kt, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int off = (nt * 8 + g) * kStride + kt * 16 + 2 * t;
-        mma_bf16(s[nt], xa, *reinterpret_cast<const uint32_t*>(ys + off),
-                 *reinterpret_cast<const uint32_t*>(ys + off + 8));
-        mma_bf16(dp[nt], ua, *reinterpret_cast<const uint32_t*>(ws + off),
-                 *reinterpret_cast<const uint32_t*>(ws + off + 8));
-      }
-    }
-  }
-}
-
-// B fragment of a product whose k runs over tile rows k0.. and n over head
-// dims n0..: b0 = (T[k0 + 2t][n0 + g], T[k0 + 2t + 1][n0 + g]), b1 the same
-// 8 rows on.
-__device__ __forceinline__ void gather_b_frag(const __nv_bfloat16* tile,
-                                              int stride, int k0, int n0,
-                                              int g, int t, uint32_t& b0,
-                                              uint32_t& b1) {
-  const __nv_bfloat16* p = tile + (k0 + 2 * t) * stride + n0 + g;
-  b0 = pack_bf16(p[0], p[stride]);
-  b1 = pack_bf16(p[8 * stride], p[9 * stride]);
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int L, int H, int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // this block's
-  __nv_bfloat16* vs = ks + kBlockK * kStride;
-  __nv_bfloat16* qs = vs + kBlockK * kStride;              // current tile
-  __nv_bfloat16* dos = qs + kBlockQ * kStride;
-  auto* lse_s = reinterpret_cast<float*>(dos + kBlockQ * kStride);
-  float* di_s = lse_s + kBlockQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int KT = (D + 15) / 16;
+// One warpgroup's DN / 2 accumulators of a 64-row output tile to bf16
+// (the bf16 kernels' epilogue): rows row0 + 16 warp + g (+ 8) of [B, L, H,
+// D] (b, h), times `mul`.
+template <int DN>
+__device__ __forceinline__ void store_rows_bf16(
+    __nv_bfloat16* __restrict__ out, const float (&acc)[DN / 2], int b,
+    int h, int row0, int L, int H, int D, float mul) {
+  const int lane = threadIdx.x & 31;
   const long row_stride = static_cast<long>(H) * D;
-  const long base = static_cast<long>(blockIdx.z) * L * row_stride +
-                    static_cast<long>(blockIdx.y) * D;
-  const long lbase = (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L;
-  const int j0 = blockIdx.x * kBlockK;
-  const int kr = warp * 16;  // the warp's first key row in the tile
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int i = tid; i < 4 * kBlockK * kStride; i += blockDim.x) ks[i] = zero;
-  __syncthreads();
-  load_rows(ks, kStride, k, base, row_stride, j0, D);
-  load_rows(vs, kStride, v, base, row_stride, j0, D);
-
-  float acc_v[2 * kKtMax][4], acc_k[2 * kKtMax][4];
+  const int row = row0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const long off0 = (static_cast<long>(b) * L + row) * row_stride + h * D +
+                    2 * (lane & 3);
+  const long off1 = off0 + 8 * row_stride;
 #pragma unroll
-  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc_v[nd][e] = 0.0f;
-      acc_k[nd][e] = 0.0f;
-    }
-  }
-
-  for (int i0 = 0; i0 < L; i0 += kBlockQ) {
-    __syncthreads();
-    load_rows(qs, kStride, q, base, row_stride, i0, D);
-    load_rows(dos, kStride, dout, base, row_stride, i0, D);
-    if (tid < kBlockQ) {
-      lse_s[tid] = lse[lbase + i0 + tid];
-      di_s[tid] = delta[lbase + i0 + tid];
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: rows = the warp's 16 keys, columns =
-    // the tile's 64 queries
-    float st[8][4], dpt[8][4];
-    score_tiles_bf16(ks, vs, qs, dos, kr, KT, g, t, st, dpt);
-
-    // P^T and dS^T as A fragments (k = queries) of the two sums
-    uint32_t pa[4][4], da[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int qc = nt * 8 + 2 * t;
-      const float l0 = lse_s[qc], l1 = lse_s[qc + 1];
-      const float d0 = di_s[qc], d1 = di_s[qc + 1];
-      const float p0 = expf(st[nt][0] * scale - l0);
-      const float p1 = expf(st[nt][1] * scale - l1);
-      const float p2 = expf(st[nt][2] * scale - l0);
-      const float p3 = expf(st[nt][3] * scale - l1);
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_f32_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_f32_bf16(p2, p3);
-      da[nt >> 1][(nt & 1) * 2 + 0] =
-          pack_f32_bf16(p0 * (dpt[nt][0] - d0), p1 * (dpt[nt][1] - d1));
-      da[nt >> 1][(nt & 1) * 2 + 1] =
-          pack_f32_bf16(p2 * (dpt[nt][2] - d0), p3 * (dpt[nt][3] - d1));
-    }
-
-    // dV += P^T dO, dK += dS^T Q: B[query][d] gathered from the tiles
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nd = 0; nd < 2 * kKtMax; ++nd) {
-        if (nd * 8 < D) {
-          uint32_t b0, b1;
-          gather_b_frag(dos, kStride, kk * 16, nd * 8, g, t, b0, b1);
-          mma_bf16(acc_v[nd], pa[kk], b0, b1);
-          gather_b_frag(qs, kStride, kk * 16, nd * 8, g, t, b0, b1);
-          mma_bf16(acc_k[nd], da[kk], b0, b1);
-        }
-      }
-    }
-  }
-
-  const long row0 = base + (j0 + kr + g) * row_stride;
-  const long row1 = row0 + 8 * row_stride;
-#pragma unroll
-  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
-    if (nd * 8 < D) {
-      const int col = nd * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dv + row0 + col) =
-          pack_f32_bf16(acc_v[nd][0], acc_v[nd][1]);
-      *reinterpret_cast<uint32_t*>(dv + row1 + col) =
-          pack_f32_bf16(acc_v[nd][2], acc_v[nd][3]);
-      *reinterpret_cast<uint32_t*>(dk + row0 + col) =
-          pack_f32_bf16(acc_k[nd][0] * scale, acc_k[nd][1] * scale);
-      *reinterpret_cast<uint32_t*>(dk + row1 + col) =
-          pack_f32_bf16(acc_k[nd][2] * scale, acc_k[nd][3] * scale);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int L,
-    int H, int D, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // this block's
-  __nv_bfloat16* dos = qs + kBlockQ * kStride;
-  __nv_bfloat16* ks = dos + kBlockQ * kStride;             // current tile
-  __nv_bfloat16* vs = ks + kBlockK * kStride;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int KT = (D + 15) / 16;
-  const long row_stride = static_cast<long>(H) * D;
-  const long base = static_cast<long>(blockIdx.z) * L * row_stride +
-                    static_cast<long>(blockIdx.y) * D;
-  const long lbase = (static_cast<long>(blockIdx.z) * H + blockIdx.y) * L;
-  const int i0 = blockIdx.x * kBlockQ;
-  const int qr = warp * 16;  // the warp's first query row in the tile
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int i = tid; i < 4 * kBlockQ * kStride; i += blockDim.x) qs[i] = zero;
-  __syncthreads();
-  load_rows(qs, kStride, q, base, row_stride, i0, D);
-  load_rows(dos, kStride, dout, base, row_stride, i0, D);
-  // this lane's two query rows (g and g + 8 of the warp's 16)
-  const float l0 = lse[lbase + i0 + qr + g], l1 = lse[lbase + i0 + qr + g + 8];
-  const float d0 = delta[lbase + i0 + qr + g];
-  const float d1 = delta[lbase + i0 + qr + g + 8];
-
-  float acc[2 * kKtMax][4];
-#pragma unroll
-  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
-  }
-
-  for (int j0 = 0; j0 < L; j0 += kBlockK) {
-    __syncthreads();
-    load_rows(ks, kStride, k, base, row_stride, j0, D);
-    load_rows(vs, kStride, v, base, row_stride, j0, D);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: rows = the warp's 16 queries, columns =
-    // the tile's 64 keys
-    float s[8][4], dp[8][4];
-    score_tiles_bf16(qs, dos, ks, vs, qr, KT, g, t, s, dp);
-
-    uint32_t da[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = expf(s[nt][0] * scale - l0);
-      const float p1 = expf(s[nt][1] * scale - l0);
-      const float p2 = expf(s[nt][2] * scale - l1);
-      const float p3 = expf(s[nt][3] * scale - l1);
-      da[nt >> 1][(nt & 1) * 2 + 0] =
-          pack_f32_bf16(p0 * (dp[nt][0] - d0), p1 * (dp[nt][1] - d0));
-      da[nt >> 1][(nt & 1) * 2 + 1] =
-          pack_f32_bf16(p2 * (dp[nt][2] - d1), p3 * (dp[nt][3] - d1));
-    }
-
-    // dQ += dS K: B[key][d] gathered from the key tile
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nd = 0; nd < 2 * kKtMax; ++nd) {
-        if (nd * 8 < D) {
-          uint32_t b0, b1;
-          gather_b_frag(ks, kStride, kk * 16, nd * 8, g, t, b0, b1);
-          mma_bf16(acc[nd], da[kk], b0, b1);
-        }
-      }
-    }
-  }
-
-  const long row0 = base + (i0 + qr + g) * row_stride;
-  const long row1 = row0 + 8 * row_stride;
-#pragma unroll
-  for (int nd = 0; nd < 2 * kKtMax; ++nd) {
-    if (nd * 8 < D) {
-      const int col = nd * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dq + row0 + col) =
-          pack_f32_bf16(acc[nd][0] * scale, acc[nd][1] * scale);
-      *reinterpret_cast<uint32_t*>(dq + row1 + col) =
-          pack_f32_bf16(acc[nd][2] * scale, acc[nd][3] * scale);
+  for (int j = 0; j < DN / 8; ++j) {
+    if (j * 8 < D) {
+      *reinterpret_cast<uint32_t*>(out + off0 + 8 * j) =
+          pack_f32_bf16(acc[4 * j + 0] * mul, acc[4 * j + 1] * mul);
+      *reinterpret_cast<uint32_t*>(out + off1 + 8 * j) =
+          pack_f32_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
     }
   }
 }
@@ -442,9 +235,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // ---- consumers ----
     setmaxnreg_inc<232>();  // 256 x (232 - 168): what the producer gave
     const int wg = threadIdx.x >> 7;
-    const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
     const int t = lane & 3;
     const int KT = (D + 15) / 16;
     const float sl2 = scale * kLog2e;
@@ -533,24 +324,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
     }
 
-    const long row_stride = static_cast<long>(H) * D;
-    const int row = j0 + wg * 64 + warp * 16 + g;
-    const long off0 =
-        (static_cast<long>(b) * L + row) * row_stride + h * D + 2 * t;
-    const long off1 = off0 + 8 * row_stride;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j * 8 < D) {
-        *reinterpret_cast<uint32_t*>(dv + off0 + 8 * j) =
-            pack_f32_bf16(acc_v[4 * j + 0], acc_v[4 * j + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off1 + 8 * j) =
-            pack_f32_bf16(acc_v[4 * j + 2], acc_v[4 * j + 3]);
-        *reinterpret_cast<uint32_t*>(dk + off0 + 8 * j) = pack_f32_bf16(
-            acc_k[4 * j + 0] * scale, acc_k[4 * j + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dk + off1 + 8 * j) = pack_f32_bf16(
-            acc_k[4 * j + 2] * scale, acc_k[4 * j + 3] * scale);
-      }
-    }
+    store_rows_bf16<64>(dv, acc_v, b, h, j0 + wg * 64, L, H, D, 1.0f);
+    store_rows_bf16<64>(dk, acc_k, b, h, j0 + wg * 64, L, H, D, scale);
   }
 }
 
@@ -617,7 +392,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
-    const int t = lane & 3;
     const int KT = (D + 15) / 16;
     const float sl2 = scale * kLog2e;
     const uint32_t qa = qs + wg * kDkvTile;  // this warpgroup's 64 queries
@@ -691,19 +465,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       if (lane == 0) mbar_arrive(empty0 + 8 * s);
     }
 
-    const long row_stride = static_cast<long>(H) * D;
-    const long off0 =
-        (static_cast<long>(b) * L + row) * row_stride + h * D + 2 * t;
-    const long off1 = off0 + 8 * row_stride;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j * 8 < D) {
-        *reinterpret_cast<uint32_t*>(dq + off0 + 8 * j) = pack_f32_bf16(
-            acc[4 * j + 0] * scale, acc[4 * j + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dq + off1 + 8 * j) = pack_f32_bf16(
-            acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
-      }
-    }
+    store_rows_bf16<64>(dq, acc, b, h, i0 + wg * 64, L, H, D, scale);
   }
 }
 
@@ -1149,6 +911,404 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ---- K6 and K7, bf16, D = 72-160: wgmma + TMA ----------------------------
+// The instance of width DN (80 or 160; D rounds up to it, TMA zero-filling
+// the head dims past D): sizes in bytes.  A tile is 64 rows in kAtoms atom
+// columns of 64 rows x 128 bytes (64 head dims, one TMA box each).
+template <int DN>
+struct WideTile {
+  static constexpr int kAtoms = (DN + 63) / 64;
+  static constexpr int kCol = 64 * 128;
+  static constexpr int kTile = kAtoms * kCol;
+  // 4 stages where they fit (3% faster than 3 at [4, 1024, 8, 80])
+  static constexpr int kStages = DN <= 80 ? 4 : 3;
+  static constexpr int kPBuf = 64 * 64 * 4;  // P handed over in fp32
+  // K6: K, V (resident), the ring of Q and dO tiles and of their lse / Di
+  // rows, P, the barriers, the slack that aligns the base to 1024 bytes
+  // (183,368 bytes at DN = 80, 215,608 at 160)
+  static constexpr int kDkvSmem = 2 * kTile + kStages * (2 * kTile + 512) +
+                                  kPBuf + 8 * (1 + 2 * kStages) + 1024;
+  // K7: Q, dO (resident), the ring of K and V tiles, P, the barriers, the
+  // slack (181,320 bytes at DN = 80, 214,072 at 160)
+  static constexpr int kDqSmem = 2 * kTile + kStages * 2 * kTile + kPBuf +
+                                 8 * (1 + 2 * kStages) + 1024;
+};
+
+// d = A B^T, 64 x 64, for one warpgroup: A's and B's 64 rows K-major, k the
+// DN head dims (k-step kt reads 16 of atom column kt / 4).  Issued and
+// committed, not waited for.
+template <int DN>
+__device__ __forceinline__ void issue_scores_wide(float (&d)[32], uint32_t a,
+                                                  uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < DN / 16; ++kt) {
+    const uint32_t off = (kt >> 2) * WideTile<DN>::kCol + 32 * (kt & 3);
+    wgmma_ss(d, desc_sw128(a + off), desc_sw128(b + off), kt);
+  }
+  wgmma_commit();
+}
+
+// acc += A B, 64 x DN: A the bf16 fragments of a 64 x 64 score tile (k its
+// 64 columns), B a streamed tile read MN-major (its rows are k, its head
+// dims N; N past 64 runs on in the next atom column, kCol bytes on).
+// Issued and committed, not waited for.
+template <int DN>
+__device__ __forceinline__ void issue_grad_wide(float (&acc)[DN / 2],
+                                                uint32_t (&a)[4][4],
+                                                uint32_t b) {
+  fence_regs(acc);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs(acc, a[kk], desc_sw128(b + 2048 * kk, WideTile<DN>::kCol));
+  }
+  wgmma_commit();
+}
+
+// A 64 x 64 score-shaped tile in fp32 registers (accumulator 4j + e: row
+// 16 warp + g, + 8 if e >= 2; column 8j + 2t + (e & 1)) rounded to bf16 as
+// the A fragments of a gradient product, k its 64 columns.
+__device__ __forceinline__ void pack_frags(const float (&x)[32],
+                                           uint32_t (&fa)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    fa[j >> 1][(j & 1) * 2 + 0] = pack_f32_bf16(x[4 * j + 0], x[4 * j + 1]);
+    fa[j >> 1][(j & 1) * 2 + 1] = pack_f32_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// K6, warpgroup 0: S^T into P^T = exp2(S^T sl2 - lse log2(e)) in place, lse
+// the tile's 64 query rows (the columns), written to pp in register order
+// for warpgroup 1.
+__device__ __forceinline__ void dkv_probs(float (&sc)[32], const float* lse,
+                                          float* pp, float sl2) {
+  const int tid = threadIdx.x & 127;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qc = 8 * j + 2 * t;
+    const float l0 = lse[qc] * kLog2e, l1 = lse[qc + 1] * kLog2e;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      sc[i] = exp2f(fmaf(sc[i], sl2, (e & 1) ? -l1 : -l0));
+      pp[i * 128 + tid] = sc[i];
+    }
+  }
+}
+
+// K6, warpgroup 1: dP^T into dS^T = P^T (dP^T - Di) in place, P^T read back
+// from pp at this thread's own places, Di the tile's 64 query rows.
+__device__ __forceinline__ void dkv_dscores(float (&sc)[32], const float* di,
+                                            const float* pp) {
+  const int tid = threadIdx.x & 127;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qc = 8 * j + 2 * t;
+    const float d0 = di[qc], d1 = di[qc + 1];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      sc[i] = pp[i * 128 + tid] * (sc[i] - ((e & 1) ? d1 : d0));
+    }
+  }
+}
+
+// K6 bf16, D = 72-160.  One CTA per (64-key tile, head, batch); K and V stay
+// resident, Q and dO tiles of 64 queries with their lse and Di rows stream
+// through the ring.  Threads 0-127: warpgroup 0, S^T = K Q^T, P^T, dV += P^T
+// dO; threads 128-255: warpgroup 1, dP^T = V dO^T, dS^T = P^T (dP^T - Di),
+// dK += dS^T Q; threads 256-383: the producer (thread 256 issues the
+// copies).  Both score products are 64 keys x 64 queries in the same
+// accumulator layout, so warpgroup 0 hands P^T over in fp32 in register
+// order (conflict-free) and warpgroup 1 reads back the values it needs at
+// its own registers' places (named barriers PFull / PFree).  Each
+// warpgroup issues the next tile's score product together with this
+// tile's gradient product, waits for the score product alone and runs its
+// elementwise step (P^T or dS^T, in place) beside the gradient product
+// (4.5% faster than waiting for both at [4, 1024, 8, 80]).
+template <int DN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int L, int H,
+                              int D, float scale) {
+  using T = WideTile<DN>;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  constexpr int kK = 0, kV = T::kTile;
+  constexpr int kQ0 = 2 * T::kTile, kO0 = kQ0 + S * T::kTile;
+  constexpr int kRows0 = kO0 + S * T::kTile;  // lse, Di per stage
+  constexpr int kP = kRows0 + S * 512;
+  const uint32_t kv_full = base + kP + T::kPBuf;
+  const uint32_t full0 = kv_full + 8;
+  const uint32_t empty0 = full0 + 8 * S;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * 64;
+  const int n_tiles = L / 64;
+  const long lbase = (static_cast<long>(b) * H + h) * L;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * T::kTile);
+#pragma unroll
+      for (int a = 0; a < T::kAtoms; ++a) {
+        tma_load_4d(base + kK + a * T::kCol, &tk, kv_full, 64 * a, h, j0, b);
+        tma_load_4d(base + kV + a * T::kCol, &tv, kv_full, 64 * a, h, j0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        const uint32_t bar = full0 + 8 * s;
+        if (it >= S) mbar_wait(empty0 + 8 * s, ((it / S) - 1) & 1);
+        mbar_expect_tx(bar, 2 * T::kTile + 512);
+#pragma unroll
+        for (int a = 0; a < T::kAtoms; ++a) {
+          const uint32_t off = s * T::kTile + a * T::kCol;
+          tma_load_4d(base + kQ0 + off, &tq, bar, 64 * a, h, it * 64, b);
+          tma_load_4d(base + kO0 + off, &tdo, bar, 64 * a, h, it * 64, b);
+        }
+        bulk_load(base + kRows0 + s * 512, lse + lbase + it * 64, 256, bar);
+        bulk_load(base + kRows0 + s * 512 + 256, delta + lbase + it * 64,
+                  256, bar);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const float sl2 = scale * kLog2e;
+  float* pp = reinterpret_cast<float*>(sm + kP);
+  // the resident operand of this warpgroup's score product (K or V), the
+  // streamed one (Q or dO), and the B of its gradient product (dO or Q)
+  const uint32_t res = base + (wg ? kV : kK);
+  const uint32_t str0 = base + (wg ? kO0 : kQ0);
+  const uint32_t grad0 = base + (wg ? kQ0 : kO0);
+
+  float acc[DN / 2], sc[32];
+  uint32_t fa[4][4];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.0f;
+  if (wg == 1) bar_arrive_n(kBarPFree, 256);  // no P to read yet
+  mbar_wait(kv_full, 0);
+  mbar_wait(full0, 0);
+  issue_scores_wide<DN>(sc, res, str0);
+  wgmma_wait0();
+  fence_regs(sc);
+
+  // warpgroup 0 turns the scores into P^T and hands it over, warpgroup 1
+  // turns them into dS^T with it; both in place, then to bf16 fragments
+  auto scores_to_a = [&](int it) {
+    const float* rows =
+        reinterpret_cast<const float*>(sm + kRows0 + (it % S) * 512);
+    if (wg == 0) {
+      bar_sync_n(kBarPFree, 256);  // warpgroup 1 has read the last P
+      dkv_probs(sc, rows, pp, sl2);
+      bar_arrive_n(kBarPFull, 256);
+    } else {
+      bar_sync_n(kBarPFull, 256);
+      dkv_dscores(sc, rows + 64, pp);
+      if (it + 1 < n_tiles) bar_arrive_n(kBarPFree, 256);
+    }
+  };
+  scores_to_a(0);
+  pack_frags(sc, fa);
+  // per tile: the next score product and this tile's gradient product in
+  // flight, the next scores' elementwise step beside the gradient product
+  for (int it = 0; it + 1 < n_tiles; ++it) {
+    const int s = it % S;
+    const int s1 = (it + 1) % S;
+    mbar_wait(full0 + 8 * s1, ((it + 1) / S) & 1);
+    issue_scores_wide<DN>(sc, res, str0 + s1 * T::kTile);
+    issue_grad_wide<DN>(acc, fa, grad0 + s * T::kTile);
+    wgmma_wait<1>();  // the scores of tile it + 1
+    fence_regs(sc);
+    scores_to_a(it + 1);
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    pack_frags(sc, fa);
+  }
+  issue_grad_wide<DN>(acc, fa, grad0 + ((n_tiles - 1) % S) * T::kTile);
+  wgmma_wait0();
+  fence_regs(acc);
+
+  store_rows_bf16<DN>(wg ? dk : dv, acc, b, h, j0, L, H, D,
+                      wg ? scale : 1.0f);
+}
+
+// K7 bf16, D = 72-160: K6's design with the roles swapped.  One CTA per
+// (64-query tile, head, batch); Q and dO stay resident, K and V tiles of
+// 64 keys stream through the ring.  Warpgroup 0: S = Q K^T and P, handed
+// over in fp32; warpgroup 1: dP = dO V^T, dS = P (dP - Di), dQ += dS K
+// (K's tile read MN-major from the bytes the score product read K-major),
+// issuing the next tile's dP with this tile's dQ and waiting for both (K6's
+// overlap of the elementwise step was 6% slower here at [4, 1024, 8, 80]).
+template <int DN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int L, int H,
+                             int D, float scale) {
+  using T = WideTile<DN>;
+  constexpr int S = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  constexpr int kQ = 0, kO = T::kTile;
+  constexpr int kK0 = 2 * T::kTile, kV0 = kK0 + S * T::kTile;
+  constexpr int kP = kV0 + S * T::kTile;
+  const uint32_t q_full = base + kP + T::kPBuf;
+  const uint32_t full0 = q_full + 8;
+  const uint32_t empty0 = full0 + 8 * S;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.x * 64;
+  const int n_tiles = L / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * T::kTile);
+#pragma unroll
+      for (int a = 0; a < T::kAtoms; ++a) {
+        tma_load_4d(base + kQ + a * T::kCol, &tq, q_full, 64 * a, h, i0, b);
+        tma_load_4d(base + kO + a * T::kCol, &tdo, q_full, 64 * a, h, i0,
+                    b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        const uint32_t bar = full0 + 8 * s;
+        if (it >= S) mbar_wait(empty0 + 8 * s, ((it / S) - 1) & 1);
+        mbar_expect_tx(bar, 2 * T::kTile);
+#pragma unroll
+        for (int a = 0; a < T::kAtoms; ++a) {
+          const uint32_t off = s * T::kTile + a * T::kCol;
+          tma_load_4d(base + kK0 + off, &tk, bar, 64 * a, h, it * 64, b);
+          tma_load_4d(base + kV0 + off, &tv, bar, 64 * a, h, it * 64, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const float sl2 = scale * kLog2e;
+  float* pp = reinterpret_cast<float*>(sm + kP);
+  // this lane's query rows 16 warp + g and + 8: their lse (log2 units,
+  // warpgroup 0) or Di (warpgroup 1)
+  const long lrow = (static_cast<long>(b) * H + h) * L + i0 +
+                    ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const float c0 = wg ? delta[lrow] : lse[lrow] * kLog2e;
+  const float c1 = wg ? delta[lrow + 8] : lse[lrow + 8] * kLog2e;
+  float sc[32];
+  mbar_wait(q_full, 0);
+
+  // accumulator 4j + e: query 16 warp + g (+ 8 if e >= 2), key 8j + 2t +
+  // (e & 1)
+  if (wg == 0) {
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % S;
+      mbar_wait(full0 + 8 * s, (it / S) & 1);
+      issue_scores_wide<DN>(sc, base + kQ, base + kK0 + s * T::kTile);
+      wgmma_wait0();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = exp2f(fmaf(sc[i], sl2, (i & 2) ? -c1 : -c0));
+      }
+      bar_sync_n(kBarPFree, 256);  // warpgroup 1 has read the last P
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pp[i * 128 + tid] = sc[i];
+      bar_arrive_n(kBarPFull, 256);
+    }
+    return;
+  }
+
+  float acc[DN / 2];
+  uint32_t fa[4][4];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.0f;
+  bar_arrive_n(kBarPFree, 256);  // no P to read yet
+  mbar_wait(full0, 0);
+  issue_scores_wide<DN>(sc, base + kO, base + kV0);
+  wgmma_wait0();
+  fence_regs(sc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % S;
+    // dP into dS = P (dP - Di) in place, P read back from pp
+    bar_sync_n(kBarPFull, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = pp[i * 128 + tid] * (sc[i] - ((i & 2) ? c1 : c0));
+    }
+    pack_frags(sc, fa);
+    if (it + 1 < n_tiles) {
+      bar_arrive_n(kBarPFree, 256);
+      const int s1 = (it + 1) % S;
+      mbar_wait(full0 + 8 * s1, ((it + 1) / S) & 1);
+      issue_scores_wide<DN>(sc, base + kO, base + kV0 + s1 * T::kTile);
+    }
+    issue_grad_wide<DN>(acc, fa, base + kK0 + s * T::kTile);
+    wgmma_wait0();
+    fence_regs(acc);
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  store_rows_bf16<DN>(dq, acc, b, h, i0, L, H, D, scale);
+}
+
 // ---- K6, fp32, D = 72-160: 3xTF32 on mma.sync ----------------------------
 // 4 warps of 16 keys (64 keys a block); Q, dO, lse and Di stream in tiles of
 // 32 queries, double-buffered by cp.async.  NTD: D/8 that the registers are
@@ -1503,65 +1663,91 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
-bool bad_shape(int B, int L, int H, int D) {
-  return L % kBlockQ != 0 || L <= 0 || D % 8 != 0 || D <= 0 || D > kMaxD ||
-         B <= 0 || H <= 0 || B > 65535 || H > 65535;
+// The instance of K6 and K7 for this type and D (flash_attention.py::
+// bwd_tiles): the rows a CTA owns (keys in K6, queries in K7) and the width
+// it is built for.  bf16: the wgmma kernels of 128 rows up to D = 64 (the
+// k-steps read at run time), the wide ones of 64 rows at widths 80 and 160
+// above; fp32: the 3xTF32 wgmma kernels (64 rows, width 64) up to D = 64,
+// the mma.sync ones (64 rows, registers sized for 160) above.
+void bwd_instance(int is_bf16, int D, int& rows, int& width) {
+  if (is_bf16) {
+    rows = D <= 64 ? 128 : 64;
+    width = D <= 64 ? 64 : (D <= 80 ? 80 : kMaxD);
+  } else {
+    rows = 64;
+    width = D <= 64 ? 64 : kMaxD;
+  }
 }
 
-size_t bf16_smem(int extra_floats) {
-  return 4 * 64 * kStride * sizeof(__nv_bfloat16) +
-         sizeof(float) * extra_floats;
+// Whether the kernels refuse this shape or this instance.
+bool bad_call(int B, int L, int H, int D, int is_bf16, int rows,
+              int width) {
+  if (L <= 0 || D % 8 != 0 || D <= 0 || D > kMaxD || B <= 0 || H <= 0 ||
+      B > 65535 || H > 65535) {
+    return true;
+  }
+  int want_rows, want_width;
+  bwd_instance(is_bf16, D, want_rows, want_width);
+  return rows != want_rows || width != want_width || L % rows != 0;
+}
+
+// The four bf16 tensor maps: Q and dO with boxes of q_rows rows, K and V
+// of kv_rows.
+bool bf16_maps(CUtensorMap& tq, CUtensorMap& tdo, CUtensorMap& tk,
+               CUtensorMap& tv, const void* q, const void* dout,
+               const void* k, const void* v, int B, int L, int H, int D,
+               int q_rows, int kv_rows) {
+  return bf16_rows_map(&tq, q, B, L, H, D, q_rows) &&
+         bf16_rows_map(&tdo, dout, B, L, H, D, q_rows) &&
+         bf16_rows_map(&tk, k, B, L, H, D, kv_rows) &&
+         bf16_rows_map(&tv, v, B, L, H, D, kv_rows);
 }
 
 }  // namespace
 
 // q, k, v, dout, dk, dv: [B, L, H, D] contiguous, 16-byte aligned, all
 // bf16 (is_bf16 = 1) or fp32 (0); lse, delta: [B, H, L] fp32, 16-byte
-// aligned.  L % 64 == 0 (L % 128 == 0 for bf16 with D <= 64), D % 8 == 0,
-// D <= 160.
+// aligned.  D % 8 == 0, D <= 160.  rows, width: the instance
+// (flash_attention.py::bwd_tiles; rows a CTA and the width it is built
+// for); any other pair is refused, and L must be a multiple of rows.
 extern "C" int gsgen_flash_attn_bwd_dkv(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const void* lse, const void* delta,
                                         void* dk, void* dv, int B, int L,
                                         int H, int D, float scale,
-                                        int is_bf16, void* stream) {
-  if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                        int is_bf16, int rows, int width,
+                                        void* stream) {
+  if (bad_call(B, L, H, D, is_bf16, rows, width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(L / kBlockK, H, B);
+  const dim3 grid(L / rows, H, B);
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    const auto* qb = static_cast<const T*>(q);
-    const auto* kb = static_cast<const T*>(k);
-    const auto* vb = static_cast<const T*>(v);
-    const auto* ob = static_cast<const T*>(dout);
-    auto* dkb = static_cast<T*>(dk);
-    auto* dvb = static_cast<T*>(dv);
-    if (D <= 64) {
-      if (L % kDkvKeys != 0) return static_cast<int>(cudaErrorInvalidValue);
-      CUtensorMap tq, tdo, tk, tv;
-      if (!bf16_rows_map(&tq, q, B, L, H, D, kDkvQ) ||
-          !bf16_rows_map(&tdo, dout, B, L, H, D, kDkvQ) ||
-          !bf16_rows_map(&tk, k, B, L, H, D, kDkvKeys) ||
-          !bf16_rows_map(&tv, v, B, L, H, D, kDkvKeys)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      return launch(flash_bwd_dkv_wgmma_kernel, dim3(L / kDkvKeys, H, B),
-                    kWgThreads, kDkvSmem, s, tq, tdo, tk, tv, lf, df, dkb,
+    auto* dkb = static_cast<__nv_bfloat16*>(dk);
+    auto* dvb = static_cast<__nv_bfloat16*>(dv);
+    CUtensorMap tq, tdo, tk, tv;
+    if (!bf16_maps(tq, tdo, tk, tv, q, dout, k, v, B, L, H, D, kDkvQ,
+                   rows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (width == 64) {
+      return launch(flash_bwd_dkv_wgmma_kernel, grid, kWgThreads, kDkvSmem,
+                    s, tq, tdo, tk, tv, lf, df, dkb, dvb, L, H, D, scale);
+    }
+    if (width == 80) {
+      return launch(flash_bwd_dkv_wide_kernel<80>, grid, kWgThreads,
+                    WideTile<80>::kDkvSmem, s, tq, tdo, tk, tv, lf, df, dkb,
                     dvb, L, H, D, scale);
     }
-    return launch(flash_bwd_dkv_bf16_kernel, grid, 128,
-                  bf16_smem(128), s, qb, kb, vb, ob, lf, df, dkb, dvb, L,
-                  H, D, scale);
+    return launch(flash_bwd_dkv_wide_kernel<kMaxD>, grid, kWgThreads,
+                  WideTile<kMaxD>::kDkvSmem, s, tq, tdo, tk, tv, lf, df, dkb,
+                  dvb, L, H, D, scale);
   }
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* of = static_cast<const float*>(dout);
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
-  if (D <= 64) {
+  if (width == 64) {
     CUtensorMap tq, tdo, tk, tv;
     if (!f32_rows_map(&tq, q, B, L, H, D, 64) ||
         !f32_rows_map(&tdo, dout, B, L, H, D, 64) ||
@@ -1569,14 +1755,16 @@ extern "C" int gsgen_flash_attn_bwd_dkv(const void* q, const void* k,
         !f32_rows_map(&tv, v, B, L, H, D, 64)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch(flash_bwd_dkv_tf32_wgmma_kernel, dim3(L / 64, H, B),
-                  kWgThreads, kDkvTfSmem, s, tq, tdo, tk, tv, lf, df, dkf,
-                  dvf, L, H, D, scale);
+    return launch(flash_bwd_dkv_tf32_wgmma_kernel, grid, kWgThreads,
+                  kDkvTfSmem, s, tq, tdo, tk, tv, lf, df, dkf, dvf, L, H, D,
+                  scale);
   }
   const size_t smem =
       sizeof(float) * ((2 * kBlockK + 4 * kTfQ) * (D + 4) + 4 * kTfQ);
-  return launch(flash_bwd_dkv_tf32_kernel, grid, 128, smem, s, qf, kf, vf,
-                of, lf, df, dkf, dvf, L, H, D, scale);
+  return launch(flash_bwd_dkv_tf32_kernel, grid, 128, smem, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout),
+                lf, df, dkf, dvf, L, H, D, scale);
 }
 
 // As above, for dq.
@@ -1584,53 +1772,51 @@ extern "C" int gsgen_flash_attn_bwd_dq(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dq, int B, int L, int H, int D,
-                                       float scale, int is_bf16,
-                                       void* stream) {
-  if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+                                       float scale, int is_bf16, int rows,
+                                       int width, void* stream) {
+  if (bad_call(B, L, H, D, is_bf16, rows, width)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(L / rows, H, B);
   const auto* lf = static_cast<const float*>(lse);
   const auto* df = static_cast<const float*>(delta);
-  if (!is_bf16) {
-    // D <= 64: the wgmma kernel; D <= 160: 16
-    // queries a warp on mma.sync (one m16 tile's 20 accumulators and parts)
-    const auto* qf = static_cast<const float*>(q);
-    const auto* kf = static_cast<const float*>(k);
-    const auto* vf = static_cast<const float*>(v);
-    const auto* of = static_cast<const float*>(dout);
-    auto* dqf = static_cast<float*>(dq);
-    if (D <= 64) {
-      CUtensorMap tq, tdo, tk, tv;
-      if (!f32_rows_map(&tq, q, B, L, H, D, 64) ||
-          !f32_rows_map(&tdo, dout, B, L, H, D, 64) ||
-          !f32_rows_map(&tk, k, B, L, H, D, 64) ||
-          !f32_rows_map(&tv, v, B, L, H, D, 64)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      return launch(flash_bwd_dq_tf32_wgmma_kernel, dim3(L / 64, H, B),
-                    kWgThreads, kDqTfSmem, s, tq, tdo, tk, tv, lf, df, dqf, L,
-                    H, D, scale);
-    }
-    return launch(flash_bwd_dq_tf32_kernel, dim3(L / 64, H, B), 128,
-                  sizeof(float) * (D + 4) * (2 * 64 + 4 * kDqTfKeys), s, qf,
-                  kf, vf, of, lf, df, dqf, L, H, D, scale);
-  }
-  auto* dqb = static_cast<__nv_bfloat16*>(dq);
-  if (D <= 64) {
-    if (L % kDqQ != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16) {
+    auto* dqb = static_cast<__nv_bfloat16*>(dq);
     CUtensorMap tq, tdo, tk, tv;
-    if (!bf16_rows_map(&tq, q, B, L, H, D, kDqQ) ||
-        !bf16_rows_map(&tdo, dout, B, L, H, D, kDqQ) ||
-        !bf16_rows_map(&tk, k, B, L, H, D, kDqKeys) ||
-        !bf16_rows_map(&tv, v, B, L, H, D, kDqKeys)) {
+    if (!bf16_maps(tq, tdo, tk, tv, q, dout, k, v, B, L, H, D, rows,
+                   kDqKeys)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch(flash_bwd_dq_wgmma_kernel, dim3(L / kDqQ, H, B),
-                  kWgThreads, kDqSmem, s, tq, tdo, tk, tv, lf, df, dqb, L, H,
-                  D, scale);
+    if (width == 64) {
+      return launch(flash_bwd_dq_wgmma_kernel, grid, kWgThreads, kDqSmem, s,
+                    tq, tdo, tk, tv, lf, df, dqb, L, H, D, scale);
+    }
+    if (width == 80) {
+      return launch(flash_bwd_dq_wide_kernel<80>, grid, kWgThreads,
+                    WideTile<80>::kDqSmem, s, tq, tdo, tk, tv, lf, df, dqb, L,
+                    H, D, scale);
+    }
+    return launch(flash_bwd_dq_wide_kernel<kMaxD>, grid, kWgThreads,
+                  WideTile<kMaxD>::kDqSmem, s, tq, tdo, tk, tv, lf, df, dqb,
+                  L, H, D, scale);
   }
-  using T = __nv_bfloat16;
-  return launch(flash_bwd_dq_bf16_kernel, dim3(L / kBlockQ, H, B), 128,
-                bf16_smem(0), s, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(dout), lf, df, dqb, L, H, D, scale);
+  auto* dqf = static_cast<float*>(dq);
+  if (width == 64) {
+    CUtensorMap tq, tdo, tk, tv;
+    if (!f32_rows_map(&tq, q, B, L, H, D, 64) ||
+        !f32_rows_map(&tdo, dout, B, L, H, D, 64) ||
+        !f32_rows_map(&tk, k, B, L, H, D, 64) ||
+        !f32_rows_map(&tv, v, B, L, H, D, 64)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch(flash_bwd_dq_tf32_wgmma_kernel, grid, kWgThreads,
+                  kDqTfSmem, s, tq, tdo, tk, tv, lf, df, dqf, L, H, D,
+                  scale);
+  }
+  return launch(flash_bwd_dq_tf32_kernel, grid, 128,
+                sizeof(float) * (D + 4) * (2 * 64 + 4 * kDqTfKeys), s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(dout),
+                lf, df, dqf, L, H, D, scale);
 }

@@ -376,7 +376,8 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 
 // D(16x8) += A(16x8, row) B(8x8, col) in tf32, fp32 accumulate.  Fragments
 // (lane = 4g + t): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
-// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; C as mma_bf16.
+// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0, c1 = C[g][2t..2t+1],
+// c2, c3 = C[g+8][2t..2t+1].
 // Not volatile: independent products may be scheduled across each other.
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {

@@ -59,9 +59,9 @@ SIGNATURES = {
     "gsgen_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                              _I, _P, _P],
     "gsgen_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _F, _I, _P],
+                                 _I, _F, _I, _I, _I, _P],
     "gsgen_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _F, _I, _P],
+                                _F, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

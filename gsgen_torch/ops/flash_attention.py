@@ -22,9 +22,14 @@ function's layout, q, k, v, out and their gradients ``[B, L, H, D]``;
   wgmma + TMA kernel built at the P V widths of :data:`FP32_WIDTHS`, and
   an mma.sync kernel for D = 72-160.  :func:`fwd_tiles` picks the instance
   (keys a tile, width), which the C entry checks.  K6 and K7 run wgmma +
-  TMA at D <= 64 (bf16; fp32 as 3xTF32, one instance for every D <= 64)
-  and mma.sync above.  There is no fallback: a CUDA tensor launches its
-  kernel or raises.
+  TMA in bf16 at every D: up to 64 one instance of 128 rows a CTA, above
+  it instances of 64 rows at the widths of :data:`BF16_BWD_WIDTHS`, whose
+  two consumer warpgroups split the work (one forms the scores and P and
+  hands P to the other in fp32; each holds at most one gradient
+  accumulator); in fp32 (3xTF32) wgmma + TMA up to D = 64 and mma.sync
+  above.  :func:`bwd_tiles` picks the instance (rows a CTA, width), which
+  the C entries check.  There is no
+  fallback: a CUDA tensor launches its kernel or raises.
 * The plain versions: :func:`flash_self_attention_plain` is the einsum
   path of the JAX ``Attention`` (``unet2d.py:199-203``: fp32 scores and
   softmax, the normalised weights cast to v's type, the second einsum);
@@ -54,6 +59,9 @@ BF16_WIDTHS = (40, 64, 80, 160)
 FP32_WIDTHS = (16, 32, 64)
 FP32_KEY_TILE = 64
 FP32_WIDE_KEY_TILE = 32
+# widths of K6's and K7's bf16 instances above D = 64 (64 rows a CTA): SD
+# 1.5's D = 80 and 160 (bwd_tiles)
+BF16_BWD_WIDTHS = (80, 160)
 
 
 def fwd_tiles(dtype: torch.dtype, D: int) -> tuple[int, int]:
@@ -70,6 +78,23 @@ def fwd_tiles(dtype: torch.dtype, D: int) -> tuple[int, int]:
     if D <= FP32_WIDTHS[-1]:
         return FP32_KEY_TILE, next(w for w in FP32_WIDTHS if w >= D)
     return FP32_WIDE_KEY_TILE, MAX_D
+
+
+def bwd_tiles(dtype: torch.dtype, D: int) -> tuple[int, int]:
+    """K6's and K7's instance for this type and head width: (the rows a
+    CTA owns, keys in K6 and queries in K7; the width it is built for).
+    bf16: (128, 64) up to D = 64 (the k-steps read at run time), else 64
+    rows at the next of :data:`BF16_BWD_WIDTHS`, streaming tiles of 64
+    (TMA zero-fills the head dims past D); fp32: (64, 64) up to D = 64
+    (3xTF32 on wgmma), else the mma.sync instance (64, 160).  Raises past
+    :data:`MAX_D`."""
+    if not 0 < D <= MAX_D:
+        raise ValueError(f"K6 / K7 take 0 < D <= {MAX_D}, got {D}")
+    if D <= 64:
+        return (128 if dtype == torch.bfloat16 else 64), 64
+    if dtype == torch.bfloat16:
+        return 64, next(w for w in BF16_BWD_WIDTHS if w >= D)
+    return 64, MAX_D
 
 
 def flash_self_attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -205,7 +230,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
     cuda_lib.launch("gsgen_flash_attn_bwd_dkv", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H,
-                    D, float(scale), _DTYPES[q.dtype])
+                    D, float(scale), _DTYPES[q.dtype], *bwd_tiles(q.dtype, D))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -221,7 +246,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float):
     cuda_lib.launch("gsgen_flash_attn_bwd_dq", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), dq.data_ptr(), B, L, H, D,
-                    float(scale), _DTYPES[q.dtype])
+                    float(scale), _DTYPES[q.dtype], *bwd_tiles(q.dtype, D))
     flash_bwd_dq.launches += 1
     return dq
 

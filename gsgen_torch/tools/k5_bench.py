@@ -9,13 +9,14 @@ Forward shapes (:data:`SHAPES`, random inputs from a seed): in bf16 SD
 2.1's level 0 [8, 4096, 5, 64], SD 1.5's level 0 [8, 4096, 8, 40] and the
 two levels ``fused_attention: on`` adds, [8, 1024, 8, 80] and [8, 256, 8,
 160] (CFG batch 8); in fp32 (3xTF32) VSD's [8, 4096, 5, 64] and, with the
-lse that K6 and K7 read, [4, 4096, 5, 64], and the IF-II upsampler's
-levels [2, 16384, 8, 16] and [2, 4096, 8, 32]; ``--dtype`` keeps one
-type's forward shapes.
+lse that K6 and K7 read, [4, 4096, 5, 64], the IF-II upsampler's levels
+[2, 16384, 8, 16] and [2, 4096, 8, 32], and SD 1.5's `on` levels (the
+mma.sync instance of D = 72-160); ``--dtype`` keeps one type's forward
+shapes.
 Backward shapes (:data:`BWD_SHAPES`): VSD's fp32 [4, 4096, 5, 64] and the
-same SD 1.5 levels at batch 4 in bf16.  Each kernel time is device time: a
-CUDA graph of 50 calls (10 in the backward) replayed 5 times (3) between
-two events.  Beside it: SDPA's time on the same inputs (in the backward,
+same SD 1.5 levels at batch 4 in bf16, the `on` levels in fp32 too.  Each
+kernel time is device time: a CUDA graph of 50 calls (10 in the backward)
+replayed 5 times (3) between two events.  Beside it: SDPA's time on the same inputs (in the backward,
 one autograd call of SDPA computing dQ, dK and dV, its device ops' time
 from a profiler trace), each tree's error against the plain version,
 and the bound (:func:`bound_ms`, :func:`bwd_bound_ms`).
@@ -51,11 +52,15 @@ SHAPES = {"SD 2.1 level 0": ((8, 4096, 5, 64), "bfloat16", False),
           "VSD level 0": ((8, 4096, 5, 64), "float32", False),
           "VSD level 0 +lse": ((4, 4096, 5, 64), "float32", True),
           "IF-II level 1": ((2, 16384, 8, 16), "float32", False),
-          "IF-II level 2": ((2, 4096, 8, 32), "float32", False)}
+          "IF-II level 2": ((2, 4096, 8, 32), "float32", False),
+          "SD 1.5 level 1 (on) fp32": ((8, 1024, 8, 80), "float32", False),
+          "SD 1.5 level 2 (on) fp32": ((8, 256, 8, 160), "float32", False)}
 BWD_SHAPES = {"VSD level 0": ((4, 4096, 5, 64), "float32"),
               "SD 1.5 level 0": ((4, 4096, 8, 40), "bfloat16"),
               "SD 1.5 level 1 (on)": ((4, 1024, 8, 80), "bfloat16"),
-              "SD 1.5 level 2 (on)": ((4, 256, 8, 160), "bfloat16")}
+              "SD 1.5 level 2 (on)": ((4, 256, 8, 160), "bfloat16"),
+              "SD 1.5 level 1 (on) fp32": ((4, 1024, 8, 80), "float32"),
+              "SD 1.5 level 2 (on) fp32": ((4, 256, 8, 160), "float32")}
 PEAK_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 # K5-K7 in fp32 run 3xTF32: three TF32 tensor-core products per product,

@@ -330,11 +330,16 @@ def _qkv_dout(cuda, shape, dt, seed):
             for _ in range(4)]
 
 
-# fp32: the wgmma + TMA instance at every D % 8 == 0 up to 64 (one k-step
-# of 8 head dims at D = 8, the second TMA box wholly past D up to 32) and
-# the mma.sync instance kept for D = 72-160; one tile, a few, a long walk
+# bf16: the wgmma + TMA instance of D <= 64 and the wide ones of widths 80
+# (D = 72, 80) and 160 (D = 120, 160; at 120 the third 64-wide TMA box is
+# mostly past D), one tile of 128 to 16 tiles of 64; fp32: the wgmma + TMA
+# instance at every D % 8 == 0 up to 64 (one k-step of 8 head dims at D =
+# 8, the second TMA box wholly past D up to 32) and the mma.sync instance
+# kept for D = 72-160; one tile, a few, a long walk
 FLASH_BWD_CASES = (
-    [("bfloat16", D, 256) for D in (40, 64, 160)]
+    [("bfloat16", D, 256) for D in (40, 64)]
+    + [("bfloat16", D, L) for D in (72, 80, 120, 160)
+       for L in (128, 256, 1024)]
     + [("float32", D, L) for D in (8, 16, 24, 40, 64, 160)
        for L in (128, 256, 4096)])
 
@@ -348,7 +353,8 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, L):
     """K5's lse within 1e-5 (fp32) / 2e-2 (bf16) of the plain lse's
     largest value; K6 and K7 against flash_self_attention_bwd_plain within
     1e-4 (fp32) / 3e-2 (bf16) of each gradient's largest value (bf16: the
-    kernels round P and dS to bf16 for the second products)."""
+    kernels round P and dS to bf16 for the second products).  K6 twice on
+    the same inputs gives bitwise-equal dk and dv (no atomics)."""
     from gsgen_torch.ops import flash_attention as fa
     dt = getattr(torch, dtype)
     q, k, v, dout = _qkv_dout(cuda, _bwd_shape(L, D), dt, D + L + 1)
@@ -362,11 +368,13 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, D, L):
     delta = fa.attention_delta(out, dout)
     n6, n7 = fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches
     dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
     dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
     assert (fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == (
-        n6 + 1, n7 + 1)
+        n6 + 2, n7 + 1)
     want = fa.flash_self_attention_bwd_plain(q, k, v, out, lse, dout, scale)
     torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dt and got.shape == q.shape
         err = float((got.float() - ref.float()).abs().max())
@@ -399,13 +407,16 @@ def test_flash_long_sequence_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype, D, L", [
-    (dt, D, L) for dt in ("bfloat16",) for D in (40, 64, 160)
-    for L in (128, 4096)] + [
+    ("bfloat16", D, L) for D in (40, 64, 160) for L in (128, 4096)] + [
+    ("bfloat16", D, L) for D in (72, 80, 120, 160) for L in (256, 1024)]
+    + [("bfloat16", D, 128) for D in (72, 80, 120)] + [
     ("float32", D, L) for D in (8, 16, 24, 40, 64, 160)
     for L in (128, 256, 4096)])
 def test_flash_dq_kernel_matches_plain(cuda, dtype, D, L):
-    """K7 alone (D <= 64: wgmma + TMA, one tile at L = 128 and the whole
-    K / V ring at L = 4096, 3xTF32 in fp32; D = 160: mma.sync) against
+    """K7 alone (bf16 on wgmma + TMA: D <= 64 one tile of 128 queries at L
+    = 128 and the whole K / V ring at L = 4096, D = 72-160 the wide
+    instances of widths 80 and 160 from one tile of 64 to 64 tiles; fp32
+    3xTF32, wgmma + TMA up to 64, mma.sync at D = 160) against
     flash_bwd_dq_plain from the plain lse and Di: fp32 within 1e-5 of
     max|dq| (3xTF32 is about fp32 summation order; the chip gate is 1e-4),
     bf16 within 3e-2 (dS rounded to bf16).  One launch per call, and two
