@@ -181,30 +181,43 @@ Phases, each reported on its own line:
    (64 + 64 Karras steps at CFG 3), then a cache hit; (e) Make-It-3D at
    full width (random ViT-B/16 on the SD 2.1 bf16 backbone, 4 views at
    378^2, 2 original): loss_sds + loss_clip, the rgb gradient, ms;
-16. weights from model directories (random weights written by the script
-   as safetensors with a writer of its own, read back by the port's
-   reader; token ids made by the script, no tokenizer): (a) a random SD
-   1.5 diffusers directory (unet/ fp16, vae/ fp32, text_encoder/ the
-   ViT-L/14 text tower fp32), every tensor read back bitwise, and
-   base.yaml + guidance/sd.yaml + prompt/sd.yaml through
-   guidance.weights_path (512^2, batch 4, bf16, padded, fused attention
-   "auto") for 3 steps on that tower's prompt embeddings, the backbone's
-   weights bitwise the file's in bf16, K5 5 a step; its first view
+16. weights and tokenizers from model directories (random weights
+   written by the script as safetensors with a writer of its own, read
+   back by the port's reader; tokenizer files at full vocabulary size,
+   written by the script, read by the port's own reader,
+   prompt/tokenizer_files.py, with transformers and tokenizers never
+   imported; each tokenizer's host ms): (a) a random SD 1.5 diffusers
+   directory (unet/ fp16, vae/ fp32, text_encoder/ the ViT-L/14 text
+   tower fp32, tokenizer/ CLIP's 49,408 ids and 48,894 merges), every
+   tensor read back bitwise, and base.yaml + guidance/sd.yaml +
+   prompt/sd.yaml through guidance.weights_path and prompt.model_id
+   (512^2, batch 4, bf16, padded, fused attention "auto") for 3 steps
+   from the prompt's text (prompt, negative and view prompts through the
+   port's tokenizer: start / end / pad ids, one id a word, the words
+   back from the ids; then the ViT-L/14 tower), the backbone's weights
+   bitwise the file's in bf16, K5 5 a step; its first view
    through K1-K4 and the step's own K5 q, k, v [8, 4096, 8, 40] against
    their plain versions; one step profiled (render, vae, unet, other, K5's
    device ms); then 2 steps of the same directory under fused_attention
    "on" (K5 15 a step: also levels 1 and 2, [8, 1024, 8, 80] and [8, 256,
    8, 160]), one of them profiled; the step's own q, k, v at each of the
    three levels against the plain version, each timed beside SDPA and
-   the bound; (b) the T5 v1.1 XXL encoder (4096 wide, 24
-   layers, random fp32 weights made on the card) on [10, 77] ids with a
-   padding mask as the prompt encoder of guidance/if.yaml (IF_PIXEL) for
-   2 steps, its encode ms and peak memory; (c) BERT-base from a written
-   safetensors directory as the fill-mask probe of the prompt
-   processor's debiasing, the per-view prompts and the probe's ms; (d)
+   the bound; then python -m gsgen_torch.main on the same directory for
+   2 steps, the way a user starts a scene; (b) the T5 v1.1 XXL encoder
+   (4096 wide, 24 layers, random fp32 weights made on the card) as the
+   prompt encoder of guidance/if.yaml (IF_PIXEL) for 2 steps, its texts
+   tokenized from a spiece.model of 32,000 pieces + 100 extra ids (no
+   <unk>, </s> then <pad>, the pieces give the text back), [10, 77] ids
+   with a padding mask, its encode ms and peak memory; (c) BERT-base from
+   a written safetensors directory with a vocab.txt of 30,522 entries in
+   bert-base-uncased's layout as the fill-mask probe
+   (bert_fill_mask(model_dir)): [MASK] kept whole, no [UNK]; the per-view
+   prompts from get_debiased_prompt(model_dir=...) and through the prompt
+   processor's debiasing_model_id, the probe's ms; (d)
    init.type point_cloud (a .ply), mesh (an .obj icosphere) and shap_e
    (a full-width random text300M: 64 Karras steps at CFG 15 on the
-   projected text vector of (a)'s tower, decoded at grid 128 by a random
+   projected text vector of (a)'s tower on (a)'s tokenizer's ids,
+   decoded at grid 128 by a random
    vector decoder), each with its init seconds, then 2 mock steps at
    capacity 65,536;
 
@@ -220,8 +233,10 @@ Phases, each reported on its own line:
    render's n_dup within dup_cap, the first still through K1-K4 against
    plain, the normals' time; (c) the viewer on port 0: /, /render at
    256 / 512 / 1024^2, four at once, /stats, each image decoded; (d) the
-   rehearsal on a random SD 2.1 diffusers directory (512^2, batch 4,
-   bf16, 10 steps, eval every 5; K5 5 a step); (e) make_init_asset
+   rehearsal with --sd and --clip on a random SD 2.1 diffusers directory
+   (its OpenCLIP ViT-H/14 text tower, a tokenizer/ that pads with "!";
+   512^2, batch 4, bf16, 10 steps, eval every 5; K5 5 a step); (e)
+   make_init_asset
    point_e on seeded random checkpoints into a temporary
    GSGEN_ASSET_DIR, then init.type=point_e from that file; (f) PSNR /
    SSIM / LPIPS at 512^2 on random .pth files, (g) undistort on 2^20
@@ -255,6 +270,7 @@ import dataclasses
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -3919,10 +3935,8 @@ SD15_ATTN = (8, 4096, 8, 40)    # SD 1.5 level 0 under "auto" (CFG batch 8)
 SD15_ON_ATTN = {"level 1": (8, 1024, 8, 80), "level 2": (8, 256, 8, 160)}
 SAFETENSORS_CODES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16",
                      "int64": "I64", "int32": "I32"}
-T5_PAD, T5_EOS = 0, 1
-BERT_CLS, BERT_SEP, BERT_MASK = 101, 102, 103
-BERT_VIEW_IDS = (2217, 2392, 2067, 8964)   # the script's side/front/back/
-SHAP_E_PROMPT = "a shap-e corgi"           # overhead word ids
+T5_PAD, T5_EOS, T5_UNK = 0, 1, 2
+SHAP_E_PROMPT = "a shap-e corgi"
 
 
 def write_safetensors(torch, path, tensors):
@@ -3945,35 +3959,247 @@ def write_safetensors(torch, path, tensors):
                     .numpy().tobytes())
 
 
-def word_ids(texts, lo, hi, length, start=None, end=None, pad=0,
-             middle=None):
-    """Token ids without a tokenizer: ``start``, one id a word (from the
-    word's md5, in [lo, hi)), ``end``, then ``pad`` up to ``length``; each
-    text may be wrapped as ``middle(words) -> ids``.  Returns (ids,
-    mask) numpy arrays; the mask marks every id before the padding."""
-    import hashlib
+# the words that the script's tokenizer vocabularies are first made of:
+# the shipped configs' prompts, their view prompts and the debiasing probe
+TOKENIZER_CORPUS = (
+    "a corgi, side view; a corgi, front view; a corgi, back view; a corgi, "
+    "overhead view; side view of a corgi; front view of a corgi; backside "
+    "view of a corgi; overhead view of a corgi; a high quality photo of a "
+    "furry corgi; a highly detailed stone bust of theodoros kolokotronis; "
+    "michelangelo style statue of dog reading news on a cellphone; a test "
+    "blob; this image is depicting a view of; a shap-e corgi")
+CLIP_MERGES = 49152 - 256 - 2      # 48,894: CLIP's merges.txt
+CLIP_BOS, CLIP_EOS = 49406, 49407
+T5_PIECES = 32000
+BERT_VOCAB = 30522
+BERT_UNK, BERT_CLS, BERT_SEP, BERT_MASK = 100, 101, 102, 103
 
-    import numpy as np
-    ids = np.full((len(texts), length), pad, np.int64)
-    mask = np.zeros((len(texts), length), bool)
-    for i, t in enumerate(texts):
-        words = [lo + int(hashlib.md5(w.encode()).hexdigest()[:8], 16)
-                 % (hi - lo) for w in t.split()]
-        body = middle(words) if middle else words
-        head = [] if start is None else [start]
-        tail = [] if end is None else [end]
-        row = (head + body)[:length - len(tail)] + tail
-        ids[i, :len(row)] = row
-        mask[i, :len(row)] = True
-    return ids, mask
+
+def corpus_words():
+    """TOKENIZER_CORPUS's words (CLIP's split on lower-case ASCII), by
+    count, then in order."""
+    words = re.findall(r"[a-z]+|[0-9]|[^\sa-z0-9]+", TOKENIZER_CORPUS)
+    return sorted(dict.fromkeys(words), key=lambda w: -words.count(w))
+
+
+def clip_tokenizer_files(folder, pad):
+    """``folder/tokenizer`` of CLIP's size and layout: 49,408 ids (the 256
+    byte symbols in GPT-2's table order, their 256 ``</w>`` forms, one
+    token a merge, ``<|startoftext|>`` 49406, ``<|endoftext|>`` 49407) and
+    48,894 merges in a fixed order: pairs by count over TOKENIZER_CORPUS's
+    words first, then pairs of byte symbols in table order, each making a
+    token that is not yet in the vocabulary; SD 1.5's tokenizer_config
+    (``pad`` "<|endoftext|>") or SD 2.1's (``pad`` "!").  Returns the
+    vocabulary."""
+    from gsgen_torch.prompt.tokenizer_files import bytes_to_unicode
+
+    table = bytes_to_unicode()
+    syms = list(table.values())
+    vocab = {s: i for i, s in enumerate(syms)}
+    vocab.update({s + "</w>": 256 + i for i, s in enumerate(syms)})
+    merges = []
+
+    def merge(a, b):
+        merges.append((a, b))
+        vocab[a + b] = len(vocab)
+
+    seqs = {w: [table[b] for b in w.encode()] for w in corpus_words()}
+    for seq in seqs.values():
+        seq[-1] += "</w>"
+    counts = {w: TOKENIZER_CORPUS.count(w) for w in seqs}
+    while True:
+        pairs = {}
+        for w, seq in seqs.items():
+            for pair in zip(seq, seq[1:]):
+                if "".join(pair) not in vocab:
+                    pairs[pair] = pairs.get(pair, 0) + counts[w]
+        if not pairs:
+            break
+        a, b = max(pairs, key=lambda pr: (pairs[pr], pr))
+        merge(a, b)
+        for w, seq in seqs.items():
+            out, i = [], 0
+            while i < len(seq):
+                if seq[i:i + 2] == [a, b]:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            seqs[w] = out
+    for a in syms:
+        for b in syms + [s + "</w>" for s in syms]:
+            if len(merges) == CLIP_MERGES:
+                break
+            if a + b not in vocab:
+                merge(a, b)
+    vocab["<|startoftext|>"] = CLIP_BOS
+    vocab["<|endoftext|>"] = CLIP_EOS
+    require(len(vocab) == 49408 and len(merges) == CLIP_MERGES,
+            f"CLIP vocabulary {len(vocab)} ids, {len(merges)} merges")
+    d = Path(folder) / "tokenizer"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(
+        f"{a} {b}" for a, b in merges) + "\n")
+    special = {k: {"__type": "AddedToken", "content": v, "lstrip": False,
+                   "normalized": True, "rstrip": False, "single_word": False}
+               for k, v in (("bos_token", "<|startoftext|>"),
+                            ("eos_token", "<|endoftext|>"),
+                            ("unk_token", "<|endoftext|>"))}
+    special["pad_token"] = pad
+    (d / "tokenizer_config.json").write_text(json.dumps(dict(
+        special, add_prefix_space=False, do_lower_case=True,
+        model_max_length=77, tokenizer_class="CLIPTokenizer")))
+    (d / "special_tokens_map.json").write_text(json.dumps(special))
+    return vocab
+
+
+def clip_decode(vocab, ids):
+    """The words of CLIP ids between the start and end tokens: each
+    pre-token's symbols (up to ``</w>``) back through GPT-2's byte
+    table."""
+    from gsgen_torch.prompt.tokenizer_files import bytes_to_unicode
+
+    inv = {v: k for k, v in vocab.items()}
+    back = {c: b for b, c in bytes_to_unicode().items()}
+    ids = list(ids)
+    text = "".join(inv[i] for i in ids[1:ids.index(CLIP_EOS)])
+    return " ".join(bytes(back[c] for c in w).decode()
+                    for w in text.split("</w>") if w)
+
+
+def pb_varint(n):
+    n &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def pb_field(num, wire, payload):
+    """One protobuf field: a varint (wire 0), a float32 (wire 5) or
+    length-delimited bytes (wire 2)."""
+    key = pb_varint(num << 3 | wire)
+    if wire == 0:
+        return key + pb_varint(payload)
+    if wire == 5:
+        return key + struct.pack("<f", payload)
+    return key + pb_varint(len(payload)) + payload
+
+
+def t5_tokenizer_files(folder):
+    """``folder/tokenizer/spiece.model`` of T5 v1.1's size and layout,
+    written by the script's own protobuf writer: 32,000 Unigram pieces
+    (``<pad>`` 0 and ``</s>`` 1 control, ``<unk>`` 2), ``"▁" + word`` for
+    TOKENIZER_CORPUS's words, printable ASCII and ``"▁"``, then ``"▁" +``
+    two- and three-letter strings in a fixed order, scores falling with
+    the id; trainer spec unk 2, eos 1, pad 0; no precompiled charsmap; and
+    a tokenizer_config with T5's 100 extra ids (ids 32,000-32,099).
+    Returns the pieces."""
+    import itertools
+    import string
+
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2),
+              ("▁", -2.0, 1)]
+    seen = {p for p, _, _ in pieces}
+
+    def add(p, score):
+        if p not in seen and len(pieces) < T5_PIECES:
+            seen.add(p)
+            pieces.append((p, score, 1))
+
+    for i, w in enumerate(corpus_words()):
+        add("▁" + w, -5.0 - 0.01 * i)
+    for i, c in enumerate(string.ascii_letters + string.digits
+                          + string.punctuation):
+        add(c, -12.0 - 0.01 * i)
+    letters = string.ascii_lowercase
+    for n in (2, 3):
+        for i, t in enumerate(itertools.product(letters, repeat=n)):
+            add("▁" + "".join(t), -8.0 - n - 1e-5 * i)
+            add("".join(t), -9.0 - n - 1e-5 * i)
+    require(len(pieces) == T5_PIECES, f"T5 pieces {len(pieces)}")
+    proto = b"".join(pb_field(1, 2, pb_field(1, 2, p.encode())
+                              + pb_field(2, 5, s) + pb_field(3, 0, t))
+                     for p, s, t in pieces)
+    proto += pb_field(2, 2, pb_field(3, 0, 1) + pb_field(4, 0, T5_PIECES)
+                      + pb_field(40, 0, 2) + pb_field(41, 0, -1)
+                      + pb_field(42, 0, 1) + pb_field(43, 0, 0))
+    proto += pb_field(3, 2, pb_field(1, 2, b"identity") + pb_field(3, 0, 1)
+                      + pb_field(4, 0, 1) + pb_field(5, 0, 1))
+    d = Path(folder) / "tokenizer"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "spiece.model").write_bytes(proto)
+    (d / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "T5Tokenizer", "extra_ids": 100,
+         "model_max_length": 77}))
+    return pieces
+
+
+def bert_tokenizer_files(folder):
+    """``folder/vocab.txt`` of 30,522 entries in bert-base-uncased's
+    layout: ``[PAD]`` 0, ``[unused0-98]``, ``[UNK]`` 100, ``[CLS]`` 101,
+    ``[SEP]`` 102, ``[MASK]`` 103, ``[unused99-993]``, printable ASCII and
+    its ``##`` forms, TOKENIZER_CORPUS's words, then two- and three-letter
+    words and their ``##`` forms in a fixed order; do_lower_case.
+    Returns the vocabulary list."""
+    import itertools
+    import string
+
+    words = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+             + [f"[unused{i}]" for i in range(99, 994)])
+    seen = set(words)
+    chars = [c for c in string.printable[:94] if not c.isupper()]
+    for w in (chars + ["##" + c for c in chars] + corpus_words()
+              + ["".join(t) for n in (2, 3)
+                 for t in itertools.product(string.ascii_lowercase,
+                                            repeat=n)]
+              + ["##" + "".join(t) for n in (2, 3)
+                 for t in itertools.product(string.ascii_lowercase,
+                                            repeat=n)]):
+        if w not in seen and len(words) < BERT_VOCAB:
+            seen.add(w)
+            words.append(w)
+    require(len(words) == BERT_VOCAB, f"BERT vocabulary {len(words)}")
+    Path(folder).mkdir(parents=True, exist_ok=True)
+    (Path(folder) / "vocab.txt").write_text("\n".join(words) + "\n")
+    (Path(folder) / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "BertTokenizer", "do_lower_case": True}))
+    return words
+
+
+def timed_tokenizer():
+    """Wrap the port's ``Tokenizer.__call__``: each call's host ms, its
+    texts, ids and masks are kept.  Returns (calls, restore)."""
+    from gsgen_torch.prompt import tokenizer_files
+
+    calls = []
+    orig = tokenizer_files.Tokenizer.__call__
+
+    def call(self, texts, max_length):
+        texts = list(texts)
+        t0 = time.perf_counter()
+        ids, mask = orig(self, texts, max_length)
+        calls.append(dict(ms=1e3 * (time.perf_counter() - t0), texts=texts,
+                          ids=ids, mask=mask, path=self.path))
+        return ids, mask
+    tokenizer_files.Tokenizer.__call__ = call
+    return calls, lambda: setattr(tokenizer_files.Tokenizer, "__call__",
+                                  orig)
 
 
 def sd_directory(torch, folder, dev, preset="sd15"):
     """A random diffusers directory of ``preset`` (sd15 | sd21): unet/ in
-    fp16, vae/ in fp32; for SD 1.5 also text_encoder/, the ViT-L/14 text
-    tower in fp32 (config.json beside), and clip_textvec/: the same tower
-    with a text_projection (Point-E's and Shap-E's text vector).  Returns
-    the tensors written."""
+    fp16, vae/ in fp32, text_encoder/ the preset's CLIP text tower in fp32
+    (ViT-L/14 or OpenCLIP ViT-H/14, config.json beside) and tokenizer/ at
+    CLIP's full size (clip_tokenizer_files: SD 1.5 pads with
+    <|endoftext|>, SD 2.1 with "!"); for SD 1.5 also clip_textvec/: the
+    same tower with a text_projection (Point-E's and Shap-E's text
+    vector).  Returns the tensors written and the vocabulary."""
     from gsgen_torch.guidance.sd_unet import SD15, SD21, SDUNetBackbone
     from gsgen_torch.prompt import clip
 
@@ -3988,28 +4214,32 @@ def sd_directory(torch, folder, dev, preset="sd15"):
                           "diffusion_pytorch_model.safetensors",
                           written[name])
     del bb
-    if preset != "sd15":
-        return written
-    c = clip.SD15_TEXT
+    vocab = clip_tokenizer_files(
+        folder, "<|endoftext|>" if preset == "sd15" else "!")
+    c = clip.SD15_TEXT if preset == "sd15" else clip.SD21_TEXT
     hf = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
               intermediate_size=c.intermediate_size,
               num_hidden_layers=c.num_hidden_layers,
               num_attention_heads=c.num_attention_heads,
               max_position_embeddings=c.max_position_embeddings,
               hidden_act=c.hidden_act)
-    text = seeded_state(torch, clip.CLIPTextModel(c), 41)
+    with torch.device("meta"):
+        shapes = clip.CLIPTextModel(c)
+    text = seeded_state(torch, shapes, 41)
     written["text_encoder"] = text
-    for sub, arch, extra in (
-            ("text_encoder", "CLIPTextModel", {}),
-            ("clip_textvec/text_encoder", "CLIPTextModelWithProjection",
-             {"text_projection.weight": torch.randn(
-                 768, 768, generator=torch.Generator().manual_seed(42))
-              / math.sqrt(768)})):
+    towers = [("text_encoder", "CLIPTextModel", {})]
+    if preset == "sd15":
+        towers.append(("clip_textvec/text_encoder",
+                       "CLIPTextModelWithProjection",
+                       {"text_projection.weight": torch.randn(
+                           768, 768, generator=torch.Generator().manual_seed(
+                               42)) / math.sqrt(768)}))
+    for sub, arch, extra in towers:
         write_safetensors(torch, folder / sub / "model.safetensors",
                           {**text, **extra})
         (folder / sub / "config.json").write_text(json.dumps(dict(
             hf, architectures=[arch], projection_dim=768)))
-    return written
+    return written, vocab
 
 
 def k5_row(torch, q, k, v, time_ms):
@@ -4140,21 +4370,31 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
     from gsgen_torch.priors.shap_e import ShapEDecoder, sample_shap_e_latent
     from gsgen_torch.prompt import bert, debias, encoders, processors, t5
 
+    from gsgen_torch.prompt import tokenizer_files
+
     res = {}
     folder = Path(tempfile.mkdtemp(prefix="gsgen_weights_"))
     old_assets = os.environ.get("GSGEN_ASSET_DIR")
     os.environ["GSGEN_ASSET_DIR"] = str(folder / "assets")
+    calls, restore_tok = timed_tokenizer()
 
-    def clip_ids(texts):
-        return word_ids(texts, 0, 49406, 77, start=49406, end=49407,
-                        pad=49407)[0]
+    def tokenized(since, label):
+        """The tokenizer calls after ``since``: one at least; their host
+        ms and texts."""
+        made = calls[since:]
+        require(made, f"16 {label}: the port's tokenizer was not called")
+        return dict(ms=[round(c["ms"], 3) for c in made],
+                    texts=sum(len(c["texts"]) for c in made))
 
     try:
         # ---- a: SD 1.5 through guidance.weights_path ----
         t0 = time.perf_counter()
         sd_dir = folder / "sd15"
-        written = sd_directory(torch, sd_dir, dev)
+        written, vocab = sd_directory(torch, sd_dir, dev)
         write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clip_tok = tokenizer_files.load_tokenizer(str(sd_dir / "tokenizer"))
+        clip_load_ms = 1e3 * (time.perf_counter() - t0)
         t0 = time.perf_counter()
         n_read = 0
         for name in ("unet", "vae", "text_encoder"):
@@ -4166,10 +4406,6 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
                         f"16 a: {name} {k} not bitwise the one written")
                 n_read += 1
         read_s = time.perf_counter() - t0
-        tower = encoders.load_clip_text_dir(str(sd_dir), device=dev)
-
-        def clip_encode(texts):
-            return encoders.encode_ids(tower, clip_ids(texts))
 
         def prepare(tr):
             bb = tr.guidance.backbone
@@ -4182,10 +4418,9 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
                     require(torch.equal(mine[k].cpu(),
                                         v.float().to(torch.bfloat16)),
                             f"16 a: backbone {name} {k} is not the file's")
-            tr.prompt_processor = processors.PromptProcessor(
-                dataclasses.replace(tr.prompt_processor.cfg,
-                                    use_cache=False),
-                encode_fn=clip_encode, device=dev)
+            pcfg = tr.prompt_processor.cfg
+            require(pcfg.model_id == str(sd_dir) and not pcfg.use_cache,
+                    f"16 a: prompt.model_id {pcfg.model_id!r}")
 
         kept = {}
         orig_k5 = unet_mod.flash_self_attention
@@ -4197,14 +4432,15 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
                                           for x in (q, k, v))
             return orig_k5(q, k, v, scale)
 
+        sd_over = ["prompt.use_cache=false", f"prompt.model_id={sd_dir}",
+                   f"guidance.weights_path={sd_dir}"]
         rec, restore = record_render_inputs(torch)
         unet_mod.flash_self_attention = keep_qkv
+        n_calls = len(calls)
         try:
             trainer, a = drive(
                 torch, build_trainer, load_config, wrappers, SD15_CONFIGS,
-                ["prompt.use_cache=false",
-                 f"guidance.weights_path={sd_dir}"], 3,
-                dict(flash_attn_fwd=5), prepare=prepare)
+                sd_over, 3, dict(flash_attn_fwd=5), prepare=prepare)
         finally:
             unet_mod.flash_self_attention = orig_k5
             restore()
@@ -4212,6 +4448,22 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         require(tuple(emb.text.shape) == (77, 768) and bool(
             torch.isfinite(emb.text_vd).all()),
             f"16 a: prompt embedding {tuple(emb.text.shape)}")
+        # the path's own texts (prompt, negative, view prompts) through the
+        # port's tokenizer: start and end tokens, <|endoftext|> padding, the
+        # words back from the ids, one id a word (TOKENIZER_CORPUS's words
+        # are merged whole)
+        a["tokenize"] = tokenized(n_calls, "a")
+        call = calls[n_calls]
+        for text, row, m in zip(call["texts"], call["ids"], call["mask"]):
+            n = int(m.sum())
+            words = " ".join(re.findall(r"[a-z]+|[0-9]|[^\sa-z0-9]+",
+                                        text.lower()))
+            require(row[0] == CLIP_BOS and row[n - 1] == CLIP_EOS
+                    and (row[n:] == CLIP_EOS).all()
+                    and clip_decode(vocab, row) == words
+                    and n == len(words.split()) + 2,
+                    f"16 a: {text!r} tokenized as {row[:n].tolist()}")
+        prompt_ids = call["ids"][0][:int(call["mask"][0].sum())].tolist()
         a["kernel_note"] = check_view("16 a step 0 view 0", rec, trainer)
         require(list(kept) == [SD15_ATTN[-1]],
                 f"16 a: K5 saw head widths {list(kept)} under auto")
@@ -4225,7 +4477,12 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
               f"in {write_s:.1f} s (unet fp16, vae and text_encoder fp32), "
               f"{n_read} tensors read back bitwise in {read_s:.1f} s, the "
               "backbone's weights bitwise the file's in bf16 | prompt "
-              "embeddings from the ViT-L/14 text tower on script ids | "
+              "embeddings through prompt.model_id: the text and its view "
+              "prompts through the port's CLIP tokenizer (49,408 ids, "
+              f"48,894 merges; load {clip_load_ms:.1f} ms, tokenize "
+              f"{a['tokenize']['ms']} ms host for {a['tokenize']['texts']} "
+              f"texts; {prompt_ids} for {call['texts'][0]!r}) and the "
+              "ViT-L/14 text tower | "
               f"losses {a['losses']} | ms/step "
               f"{[round(x, 2) for x in a['ms_per_step']]} | peak "
               f"{a['peak_gib']:.2f} GiB | launches {a['launches']} | first "
@@ -4245,28 +4502,32 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         # and 2 (5 launches each a step), each level's own q, k, v held
         # against the plain version and timed
         unet_mod.flash_self_attention = keep_qkv
+        n_calls = len(calls)
         try:
             trainer, a_on = drive(
                 torch, build_trainer, load_config, wrappers, SD15_CONFIGS,
-                ["prompt.use_cache=false", "guidance.fused_attention=on",
-                 f"guidance.weights_path={sd_dir}"], 2,
+                sd_over + ["guidance.fused_attention=on"], 2,
                 dict(flash_attn_fwd=15), prepare=prepare)
         finally:
             unet_mod.flash_self_attention = orig_k5
         del written
+        a_on["tokenize"] = tokenized(n_calls, "a on")
         widths = {shp[-1]: shp for shp in (SD15_ATTN,
                                            *SD15_ON_ATTN.values())}
         require(sorted(kept) == sorted(widths),
                 f"16 a on: K5 saw head widths {sorted(kept)}")
         print(f"phase 16 a sd15 on: ok | card {card} | {a_on['config']}: "
-              f"{a_on['steps']} steps | losses {a_on['losses']} | ms/step "
+              f"{a_on['steps']} steps | the same texts through a new "
+              f"tokenizer of the directory: tokenize "
+              f"{a_on['tokenize']['ms']} ms host | losses "
+              f"{a_on['losses']} | ms/step "
               f"{[round(x, 2) for x in a_on['ms_per_step']]} | peak "
               f"{a_on['peak_gib']:.2f} GiB | launches {a_on['launches']}",
               flush=True)
         a_on["profile"] = profile_step(
             torch, trainer, ROOT / "gsgen_torch" / "_build" /
             "sd15_on_step_trace.json", vsd=False, phase="16 a on")
-        del trainer, tower, rec
+        del trainer, rec
         torch.cuda.empty_cache()
         k5["on_launches_per_step"] = (a_on["launches"]["flash_attn_fwd"]
                                       // a_on["steps"])
@@ -4293,6 +4554,27 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
               flush=True)
         torch.cuda.empty_cache()
 
+        # the same directory the way a user starts a scene
+        args = ["-m", "gsgen_torch.main", "--steps", "2", "--no-log",
+                *[a for n in SD15_CONFIGS for a in ("--config",
+                                                    f"configs/{n}")],
+                *sd_over]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *args], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        main_s = time.perf_counter() - t0
+        losses = [float(x) for x in re.findall(
+            r"^step +\d+ \| loss (\S+)", proc.stdout, re.M)]
+        require(proc.returncode == 0 and len(losses) == 2
+                and all(math.isfinite(x) for x in losses),
+                f"16 a main: exit code {proc.returncode}, losses {losses}: "
+                + (proc.stdout + proc.stderr)[-1500:])
+        res["a_main"] = dict(s=main_s, losses=losses)
+        print(f"phase 16 a main: ok | card {card} | python "
+              f"{' '.join(args)}: 2 steps from the prompt's text in "
+              f"{main_s:.1f} s (process start, build and weights included) "
+              f"| losses {losses}", flush=True)
+
         # ---- b: T5-XXL as if.yaml's prompt encoder ----
         torch.cuda.reset_peak_memory_stats()
         torch.manual_seed(70)
@@ -4304,10 +4586,14 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         build_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in holder["t5"].parameters())
         enc = {}
+        pieces = t5_tokenizer_files(folder / "t5")
+        t0 = time.perf_counter()
+        t5_tokenize = encoders.tokenizer(str(folder / "t5"), 77)
+        t5_load_ms = 1e3 * (time.perf_counter() - t0)
+        n_calls = len(calls)
 
         def t5_encode(texts):
-            ids, mask = word_ids(texts, 3, 32000, 77, end=T5_EOS,
-                                 pad=T5_PAD)
+            ids, mask = t5_tokenize(texts)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             out = encoders.encode_ids(holder["t5"], ids, mask)
@@ -4334,13 +4620,30 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
                 f"16 b: if.yaml on {tuple(emb.text.shape)} embeddings")
         require(enc["pad_zero"] and enc["finite"],
                 f"16 b: T5 output {enc}")
+        # if.yaml's texts through the spiece.model: no <unk>, </s> then
+        # <pad>, the pieces joined give the text back
+        b["tokenize"] = tokenized(n_calls, "b")
+        call = calls[n_calls]
+        for text, row, m in zip(call["texts"], call["ids"], call["mask"]):
+            n = int(m.sum())
+            back = "".join(pieces[i][0] for i in row[:n - 1]).replace(
+                "▁", " ").strip()
+            require(row[n - 1] == T5_EOS and (row[n:] == T5_PAD).all()
+                    and T5_UNK not in row[:n] and back == " ".join(
+                        text.split()),
+                    f"16 b: {text!r} tokenized as {row[:n].tolist()}")
+        t5_prompt_ids = call["ids"][0][:int(call["mask"][0].sum())].tolist()
         b.update(t5_params=n_params, t5_build_s=build_s, encode=enc)
         res["b"] = b
         print(f"phase 16 b t5: ok | card {card} | T5 v1.1 XXL encoder "
               f"({n_params / 1e9:.3f} B parameters, fp32, random on the "
-              f"card in {build_s:.1f} s): {enc['n']} prompts of 77 ids "
-              f"encoded in {enc['ms']:.1f} ms, peak {enc['peak_gib']:.2f} "
-              "GiB, zeros at padded rows | freed, then "
+              f"card in {build_s:.1f} s): {enc['n']} prompts tokenized by "
+              "the port from a spiece.model of 32,000 pieces + 100 extra "
+              f"ids (load {t5_load_ms:.1f} ms, tokenize "
+              f"{b['tokenize']['ms']} ms host; {t5_prompt_ids} for "
+              f"{call['texts'][0]!r}), 77 ids each encoded in "
+              f"{enc['ms']:.1f} ms, peak {enc['peak_gib']:.2f} GiB, zeros "
+              "at padded rows | freed, then "
               f"{b['config']}: {b['steps']} steps, batch {b['batch']} | "
               f"losses {b['losses']} | ms/step "
               f"{[round(x, 2) for x in b['ms_per_step']]} | peak "
@@ -4356,47 +4659,59 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
                           seeded_state(torch, bert.BertForMaskedLM(c_), 71))
         (bert_dir / "config.json").write_text(json.dumps(
             dataclasses.asdict(c_)))
-        mlm = bert.load_bert_mlm(convert.load_safetensors(bert_dir), c_,
-                                 device=dev)
-
-        # "[CLS] this image is depicting a [MASK] view of <text> [SEP]",
-        # 16 ids
-        head = word_ids(["this image is depicting a"], 1000, 30000, 5)[0]
-        tail = word_ids(["view of"], 1000, 30000, 2)[0]
-
-        def bert_ids(texts):
-            return word_ids(
-                texts, 1000, 30000, 16, start=BERT_CLS, end=BERT_SEP,
-                middle=lambda w: [*head[0], BERT_MASK, *tail[0], *w])
-
-        def fill_mask(texts):
-            ids, mask = bert_ids(texts)
-            return debias.view_probs(mlm, ids, mask, BERT_MASK,
-                                     BERT_VIEW_IDS)
-
+        bert_words = bert_tokenizer_files(bert_dir)
         prompt = load_config(ROOT / "configs" / "corgi.yaml")["prompt"][
             "prompt"]
         words = prompt.split(" ")
         variants = [prompt] + [" ".join(words[:i] + words[i + 1:])
                                for i in range(len(words))]
+        t0 = time.perf_counter()
+        tokenizer_files.load_tokenizer(str(bert_dir))
+        bert_load_ms = 1e3 * (time.perf_counter() - t0)
+        n_calls = len(calls)
+        t0 = time.perf_counter()
+        fill_mask = debias.bert_fill_mask(str(bert_dir), device=dev)
+        build_ms = 1e3 * (time.perf_counter() - t0)
         probe_ms = events_ms(torch, lambda: fill_mask(variants), 5)
-        views = debias.get_debiased_prompt(prompt, "", fill_mask=fill_mask)
+        c_tok = tokenized(n_calls, "c")
+        # the probe's texts: [CLS] ... [SEP], [MASK] once and kept whole,
+        # no [UNK], the words back from the pieces
+        call = calls[n_calls]
+        for text, row, m in zip(call["texts"], call["ids"], call["mask"]):
+            n = int(m.sum())
+            toks = [bert_words[i] for i in row[1:n - 1]]
+            back = " ".join(toks).replace(" ##", "")
+            want = " ".join(re.findall(r"\[MASK\]|[a-z0-9]+|[^\sa-z0-9]",
+                                       text.replace("[MASK]", "\0").lower()
+                                       )).replace("\0", "[MASK]")
+            require(row[0] == BERT_CLS and row[n - 1] == BERT_SEP
+                    and list(row).count(BERT_MASK) == 1
+                    and BERT_UNK not in row and (back == want if n < 16
+                                                 else want.startswith(back)),
+                    f"16 c: {text!r} tokenized as {row[:n].tolist()}")
+        views = debias.get_debiased_prompt(prompt, str(bert_dir), device=dev)
         pp = processors.PromptProcessor(processors.PromptProcessorConfig(
-            prompt=prompt, use_prompt_debiasing=True, use_cache=False),
-            device=dev, fill_mask=fill_mask)
+            prompt=prompt, use_prompt_debiasing=True, use_cache=False,
+            debiasing_model_id=str(bert_dir)), device=dev)
         require(bool(torch.isfinite(pp().text_vd).all()) and len(views) == 4,
                 f"16 c: debiased prompts {views}")
         probs = fill_mask(variants)
         require(np.allclose(probs.sum(-1), 1.0, atol=1e-5),
                 f"16 c: view probabilities {probs}")
         res["c"] = dict(prompt=prompt, views=views, probe_ms=probe_ms,
-                        variants=len(variants))
+                        variants=len(variants), tokenize=c_tok,
+                        build_ms=build_ms, tokenizer_load_ms=bert_load_ms)
         print(f"phase 16 c debias: ok | card {card} | BERT-base MLM "
-              "(random, from a written safetensors directory) as the "
-              f"fill-mask probe of {len(variants)} variants of "
-              f"{prompt!r}: {probe_ms:.2f} ms a probe | per-view prompts "
-              f"(side, front, back, overhead): {views}", flush=True)
-        del mlm, pp
+              "(random, from a written safetensors directory) and the "
+              "port's WordPiece tokenizer of its vocab.txt (30,522 entries; "
+              f"load {bert_load_ms:.1f} ms) built in {build_ms:.1f} ms, as "
+              "the fill-mask probe of "
+              f"{len(variants)} variants of {prompt!r}: {probe_ms:.2f} ms a "
+              f"probe (tokenizing included), tokenize {c_tok['ms'][0]} ms "
+              f"host for {len(call['texts'])} texts | per-view prompts "
+              "(side, front, back, overhead) through "
+              f"get_debiased_prompt(model_dir=...): {views}", flush=True)
+        del fill_mask, pp
         torch.cuda.empty_cache()
 
         # ---- d: the asset inits ----
@@ -4446,7 +4761,7 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
         vec_tower = encoders.load_clip_textvec_dir(
             str(sd_dir / "clip_textvec"), device=dev)
         textvec = torch.as_tensor(encoders.encode_ids(
-            vec_tower, clip_ids([SHAP_E_PROMPT]))[0], device=dev)
+            vec_tower, clip_tok([SHAP_E_PROMPT], 77)[0])[0], device=dev)
         del vec_tower
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4517,7 +4832,11 @@ def weights_phases(torch, dev, build_trainer, load_config, wrappers, card,
             del tr, sc
             torch.cuda.empty_cache()
         res["d"] = d
+        loaded = [m for m in ("transformers", "tokenizers")
+                  if m in sys.modules]
+        require(not loaded, f"phase 16: {loaded} imported")
     finally:
+        restore_tok()
         if old_assets is None:
             os.environ.pop("GSGEN_ASSET_DIR", None)
         else:
@@ -5047,19 +5366,35 @@ def tools_phases(torch, dev, build_trainer, load_config, wrappers, card,
 
         # ---- d: the rehearsal on a random SD 2.1 directory ----
         t0 = time.perf_counter()
-        sd_directory(torch, folder / "sd21", dev, preset="sd21")
+        _, vocab = sd_directory(torch, folder / "sd21", dev, preset="sd21")
         write_s = time.perf_counter() - t0
         cfg = rehearsal.build_rehearsal_config(
-            "a corgi", 10, sd_path=folder / "sd21", reso=512)
+            "a corgi", 10, sd_path=folder / "sd21", clip_path=folder / "sd21",
+            reso=512)
         cfg["prompt"]["use_cache"] = False
         out = folder / "rehearsal"
+        calls, restore_tok = timed_tokenizer()
         zero()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        losses = rehearsal.run(cfg, out, eval_every=5,
-                               log=lambda *a: None, device="cuda")
+        try:
+            losses = rehearsal.run(cfg, out, eval_every=5,
+                                   log=lambda *a: None, device="cuda")
+        finally:
+            restore_tok()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        # --clip: the prompt through the port's tokenizer of the SD 2.1
+        # directory, padded with "!" (id 0) after <|endoftext|>
+        require(len(calls) == 1, f"17 d: {len(calls)} tokenizer calls")
+        for text, row, m in zip(calls[0]["texts"], calls[0]["ids"],
+                                calls[0]["mask"]):
+            n = int(m.sum())
+            require(row[0] == CLIP_BOS and row[n - 1] == CLIP_EOS
+                    and (row[n:] == vocab["!"]).all() and vocab["!"] == 0
+                    and clip_decode(vocab, row) == " ".join(re.findall(
+                        r"[a-z]+|[0-9]|[^\sa-z0-9]+", text.lower())),
+                    f"17 d: {text!r} tokenized as {row.tolist()}")
         launches = counts()
         want = render_launches(4 * 10 + 2, 4 * 10, k5=5 * 10)
         require(launches == want, f"17 d: launches {launches}, expected "
@@ -5074,11 +5409,16 @@ def tools_phases(torch, dev, build_trainer, load_config, wrappers, card,
         require(evals == ["eval_00005.png", "eval_00010.png"],
                 f"17 d: eval images {evals}")
         res["d"] = dict(write_s=write_s, run_s=run_s, losses=losses,
+                        tokenize_ms=calls[0]["ms"],
                         grad_norms=[x["grad_norm"] for x in lines],
                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                         launches=launches)
         print(f"phase 17 d rehearsal: ok | card {card} | a random SD 2.1 "
-              f"diffusers directory written in {write_s:.1f} s; --sd on it, "
+              "diffusers directory (text_encoder/ the OpenCLIP ViT-H/14 "
+              "text tower, tokenizer/ at CLIP's size padding with \"!\") "
+              f"written in {write_s:.1f} s; --sd and --clip on it (tokenize "
+              f"{calls[0]['ms']:.3f} ms host for "
+              f"{len(calls[0]['texts'])} texts), "
               f"512^2, batch 4, bf16, 10 steps, eval every 5 in "
               f"{run_s:.2f} s (build and weights included) | losses "
               f"{[round(x, 5) for x in losses]} | grad norms "

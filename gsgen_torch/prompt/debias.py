@@ -8,11 +8,11 @@ fill-mask model predicts at a [MASK] slot is compared with and without the
 word; a word whose removal leaves the distribution nearly unchanged
 (PMI < 0.95) for a view is dropped from that view's prompt.
 
-The probe is :func:`view_probs` on token ids, so a caller without
-``transformers`` can run the tower on ids of its own;
-:func:`get_debiased_prompt` builds it from a local BERT directory
-(:mod:`.bert` through the port's safetensors reader, the tokenizer through
-:func:`.encoders.auto_tokenizer`) unless a ``fill_mask`` is given.
+The probe is :func:`view_probs` on token ids; :func:`get_debiased_prompt`
+builds it from a local BERT directory (:mod:`.bert` through the port's
+safetensors reader, the WordPiece tokenizer of its ``vocab.txt`` or
+``tokenizer.json`` through the port's own reader,
+:mod:`.tokenizer_files`) unless a ``fill_mask`` is given.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ def _build_pipeline(model_dir: str, device="cuda"):
     """(tokenizer, frozen BertForMaskedLM) of a local model directory."""
     from ..guidance.convert import load_safetensors
     from .bert import BertConfig, load_bert_mlm
-    from .encoders import _read_config, auto_tokenizer
-    tok = auto_tokenizer(model_dir)
+    from .encoders import _read_config
+    from .tokenizer_files import load_tokenizer
+    tok = load_tokenizer(model_dir)
     hf = _read_config(model_dir)
     cfg = BertConfig(**{k: hf.get(k, getattr(BertConfig, k)) for k in (
         "vocab_size", "hidden_size", "num_hidden_layers",
@@ -61,15 +62,11 @@ def bert_fill_mask(model_dir: str, max_length: int = 16,
     """``fill_mask(texts) -> [N, 4]`` from a local BERT directory: each
     text in :data:`PROBE`, padded / truncated to ``max_length``."""
     tok, model = _build_pipeline(model_dir, device)
-    view_ids = tok(" ".join(VIEWS), return_tensors="np").input_ids[0][1:5]
+    view_ids = tok.encode(" ".join(VIEWS))[1:5]
 
     def fill_mask(texts):
-        batch = tok([PROBE.format(t) for t in texts], padding="max_length",
-                    truncation=True, max_length=max_length,
-                    return_tensors="np")
-        return view_probs(model, batch["input_ids"],
-                          batch["attention_mask"].astype(bool),
-                          tok.mask_token_id, view_ids)
+        ids, mask = tok([PROBE.format(t) for t in texts], max_length)
+        return view_probs(model, ids, mask, tok.mask_token_id, view_ids)
     return fill_mask
 
 

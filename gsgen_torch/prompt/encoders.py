@@ -13,9 +13,11 @@ Hugging Face layout
 :class:`.processors.PromptProcessor`.  Tokenizing and encoding are kept
 apart: ``load_*`` builds a frozen tower from the directory (its weights
 through the port's own safetensors reader), which takes token ids on
-``device``; :func:`tokenizer` loads the directory's tokenizer with
-``transformers.AutoTokenizer(local_files_only=True)``, imported only there
-(without ``transformers`` it raises, naming the package).  T5's output is
+``device``; :func:`tokenizer` reads the directory's tokenizer files with
+the port's own reader (:mod:`.tokenizer_files`: CLIP's ``vocab.json`` +
+``merges.txt``, T5's ``spiece.model``, or a ``tokenizer.json``), which
+gives the ids that the JAX package's ``transformers.AutoTokenizer`` gives
+and needs neither ``transformers`` nor ``tokenizers``.  T5's output is
 zeroed at padded positions, as the reference's IF encoder does.
 """
 
@@ -31,6 +33,7 @@ import torch
 from ..guidance.convert import load_safetensors
 from .clip import CLIPTextConfig, load_clip_text, load_clip_textvec
 from .t5 import T5Config, load_t5_encoder
+from .tokenizer_files import load_tokenizer
 
 
 def _read_config(model_dir: str) -> dict:
@@ -47,29 +50,11 @@ def _subdir(root: str, name: str) -> str:
     return d if os.path.isdir(d) else root
 
 
-def auto_tokenizer(model_dir: str):
-    """``transformers.AutoTokenizer`` of a local directory (no download)."""
-    try:
-        from transformers import AutoTokenizer
-    except ImportError as e:
-        raise ImportError(
-            "tokenizing prompts needs the transformers package "
-            "(AutoTokenizer of the model directory's tokenizer files); "
-            "without it, encode token ids with the tower directly") from e
-    return AutoTokenizer.from_pretrained(model_dir, local_files_only=True)
-
-
 def tokenizer(root: str, max_length: int) -> Callable:
     """``tokenize(texts) -> (ids int64 [N, max_length], mask bool)`` from
     ``root/tokenizer`` (or ``root``), padded to ``max_length``."""
-    tok = auto_tokenizer(_subdir(root, "tokenizer"))
-
-    def tokenize(texts):
-        out = tok(list(texts), padding="max_length", max_length=max_length,
-                  truncation=True, return_tensors="np")
-        return (out["input_ids"].astype(np.int64),
-                out["attention_mask"].astype(bool))
-    return tokenize
+    tok = load_tokenizer(_subdir(root, "tokenizer"))
+    return lambda texts: tok(texts, max_length)
 
 
 def _clip_config(hf: dict, **default) -> CLIPTextConfig:

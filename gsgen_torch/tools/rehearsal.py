@@ -12,8 +12,10 @@ Usage (real weights):
         --prompt "a corgi" --steps 50 --out runs/rehearsal
 
 ``--sd`` is a diffusers-layout dir (unet/ + vae/ safetensors); --clip a
-transformers CLIP text-encoder dir (tokenizing needs ``transformers``;
-without --clip the prompt goes through base.yaml's encoder).  ``--mock``
+CLIP text-encoder dir in the transformers layout (text_encoder/ +
+tokenizer/, or both in one directory; the port reads the tokenizer files
+itself, prompt/tokenizer_files.py; without --clip the prompt goes through
+base.yaml's encoder).  ``--mock``
 runs the same code path (config assembly -> SDS guidance -> train steps
 -> eval image) on the tiny random-weight preset.  ``--device`` defaults
 to the card.

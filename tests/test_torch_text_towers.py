@@ -6,16 +6,18 @@ layout (built from the port's modules), handed over as numpy arrays or
 written as safetensors into model directories that the test writes with
 tokenizer files of tiny vocabularies (CLIP ``vocab.json`` +
 ``merges.txt``, BERT ``vocab.txt``, T5 a ``tokenizer.json`` made with the
-``tokenizers`` package); both packages load them through the same
-``transformers.AutoTokenizer``, so the comparison is of the encoders.
+``tokenizers`` package); the JAX package tokenizes them with
+``transformers.AutoTokenizer``, the port with its own reader
+(``prompt/tokenizer_files.py``, held to AutoTokenizer id for id by
+tests/test_torch_tokenize.py).
 Covered: T5 (``TINY_T5``, masked, and past ``relative_attention_max_
 distance``), its relative position buckets, BERT (``TINY_BERT`` MLM
 logits, with and without a tied decoder), the CLIP text vector from token
 ids, each ``build_*_encode_fn`` and ``build_encode_fn``'s kind detection,
 ``get_debiased_prompt`` with an injected probe, through the prompt
 processor and on a BERT directory, ``prompt.model_id`` and
-``auxiliary.clip_model_id`` through ``build_trainer``, and the error that
-names ``transformers`` when it is missing.
+``auxiliary.clip_model_id`` through ``build_trainer``, and every pipeline
+with ``transformers`` and ``tokenizers`` blocked.
 
 Tolerances: rtol 3e-4 / atol 3e-5 of the largest value (as
 tests/test_text_encoders.py holds the JAX towers to transformers); the
@@ -270,12 +272,25 @@ def test_encode_fns_match_jax(dirs, kind):
         assert not got[~mask].any() and got[mask].any()
 
 
-def test_tokenizer_needs_transformers(dirs, monkeypatch):
-    monkeypatch.setitem(sys.modules, "transformers", None)
-    with pytest.raises(ImportError, match="transformers"):
-        encoders.build_clip_encode_fn(str(dirs["clip"]), device="cpu")
-    # the tower itself needs no tokenizer
-    encoders.load_clip_text_dir(str(dirs["clip"]), device="cpu")
+def test_tokenizer_without_transformers(dirs, monkeypatch):
+    """With transformers and tokenizers blocked, build_clip_encode_fn,
+    build_t5_encode_fn, build_clip_textvec_fn and bert_fill_mask on the
+    test directories give the JAX functions' outputs (which tokenize
+    through AutoTokenizer)."""
+    texts = [PROMPT, "", "a corgi, side view", "a red corgi, back view"]
+    fns = {"clip": "build_clip_encode_fn", "t5": "build_t5_encode_fn",
+           "textvec": "build_clip_textvec_fn"}
+    want = {k: getattr(enc_j, f)(str(dirs[k]))(texts)
+            for k, f in fns.items()}
+    want_bert = _jax_view_probs(str(dirs["bert"]), texts)
+    for name in ("transformers", "tokenizers"):
+        monkeypatch.setitem(sys.modules, name, None)
+    for k, f in fns.items():
+        got = getattr(encoders, f)(str(dirs[k]), device="cpu")(texts)
+        assert got.shape == np.asarray(want[k]).shape, k
+        _close(got, want[k], k)
+    _close(debias.bert_fill_mask(str(dirs["bert"]), device="cpu")(texts),
+           want_bert)
 
 
 # ---- debiasing ----
@@ -310,13 +325,8 @@ def test_debias_injected_probe_and_processor():
                                       np.asarray(getattr(e_j, f)), f)
 
 
-def test_debias_bert_directory_matches_jax(dirs):
-    """The BERT probe built from a model directory: its view
-    probabilities against the JAX pipeline's, and the same prompts."""
-    root = str(dirs["bert"])
-    texts = [PROMPT, "a corgi", "red corgi"]
-    fill = debias.bert_fill_mask(root, device="cpu")
-    got = fill(texts)
+def _jax_view_probs(root, texts):
+    """The JAX BERT pipeline's view probabilities of ``texts`` in PROBE."""
     tok, apply = debias_j._build_pipeline(root)
     view_ids = tok(" ".join(debias_j.VIEWS),
                    return_tensors="np").input_ids[0][1:5]
@@ -331,7 +341,17 @@ def test_debias_bert_directory_matches_jax(dirs):
         e = np.exp(logits[i, p] - logits[i, p].max())
         q = (e / e.sum())[view_ids]
         want.append(q / q.sum())
-    _close(got, np.stack(want))
+    return np.stack(want)
+
+
+def test_debias_bert_directory_matches_jax(dirs):
+    """The BERT probe built from a model directory: its view
+    probabilities against the JAX pipeline's, and the same prompts."""
+    root = str(dirs["bert"])
+    texts = [PROMPT, "a corgi", "red corgi"]
+    fill = debias.bert_fill_mask(root, device="cpu")
+    got = fill(texts)
+    _close(got, _jax_view_probs(root, texts))
     np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-6)
     assert (debias.get_debiased_prompt(PROMPT, root, device="cpu")
             == debias_j.get_debiased_prompt(PROMPT, root))
