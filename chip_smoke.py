@@ -259,6 +259,18 @@ Phases, each reported on its own line:
    forward and backward device time, 4 Gaussian-sharded steps (ms/step)
    with a densify and a prune event; (c) dryrun_multichip over every card
    (NCCL, one rank a card);
+19. c2f and presets: (a) configs/flagship_rehearsal.yaml with its
+   resolution milestones moved to steps 10 and 20, 22 steps (SD 2.1 bf16,
+   batch 4, 64^2 -> 256^2 -> 512^2), one line a resolution with the
+   duplicate bucket before and at the switch, the bucket the JAX trainer's
+   rule predicts from the n_dup_max of the feedback step before it (a
+   bucket below it fails), n_dup_max, the padded demand against cap +
+   pad_budget, ms/step and K1-K5's launches; (b) renderer/split_by_scale,
+   renderer/progressive and shrink_then_densify through a densify event at
+   step 2 at capacity 65,536 (mock guidance; the live count must change;
+   the event's counts, ms and peak memory), and prompt/sd_perp_neg.yaml on
+   the SD 2.1 slice for 2 steps (the perp-neg weights of every view,
+   required each step);
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -1655,6 +1667,9 @@ def run(torch) -> int:
                                wrappers, card)
     torch.cuda.empty_cache()
 
+    # ---- phase 19: c2f switches, densify presets, perp-neg ----
+    c2f = c2f_phases(torch, build_trainer, load_config, wrappers, card)
+
     meta = dict(
         raster_fwd=("gsgen_torch/csrc/raster_fwd.cu",
                     reference_line("ops/pallas_raster.py", "_fwd_kernel")),
@@ -1698,6 +1713,7 @@ def run(torch) -> int:
                if k in RASTER else {}),
             **({"slab_launches": parallel["launches"][k]}
                if k in parallel["launches"] else {}),
+            c2f_launches=c2f["a"]["launches"][k],
             shapes="configs/base.yaml render (512^2, chunk 256, dup_cap "
                    "2^20)",
             bench=dict(shapes="100K Gaussians, 512^2, chunk 128, dup_cap "
@@ -1718,6 +1734,7 @@ def run(torch) -> int:
         fp32_bound_ms=1e3 * flash_ops / PEAK_3XTF32_FLOPS,
         if2_fp32=if2_times, path_launches=sampling["k5_launches"],
         sd15=weights["k5"],
+        c2f_launches=c2f["a"]["launches"]["flash_attn_fwd"],
         design="bf16, every D: wgmma + TMA (2 consumer warpgroups, 128 "
                "queries a CTA, 3-stage K/V ring, P V as wide as D rounded "
                "up to 40/64/80/160; the warpgroups take the tensor core in "
@@ -1778,6 +1795,7 @@ def run(torch) -> int:
                       "weights": {k: v for k, v in weights.items()
                                   if k != "k5"},
                       "tools": tools, "parallel": parallel,
+                      "c2f_presets": c2f,
                       "flash_bwd_bound_ms": bwd_bound,
                       "flash_bwd_sum_device_ms": bwd_sum,
                       "flash_bwd_sdpa_ms": sdpa_bwd,
@@ -5803,6 +5821,232 @@ def parallel_phases(torch, dev, build_trainer, load_config, wrappers, card):
         for k in PER_VIEW["padded"]}
     print(f"phase 18 c dryrun_multichip: ok | {n} rank(s), "
           f"{res['c']['s']:.1f} s", flush=True)
+    return res
+
+
+
+# phase 19: the c2f resolution switches and the presets no earlier phase
+# runs.  a: configs/flagship_rehearsal.yaml with its milestones moved to
+# steps 10 and 20 (64^2 -> 256^2 -> 512^2; the feedback steps 0 and 10
+# predict the buckets), 22 steps; b: three densify presets with the event
+# moved to step 2 of 3 (mock guidance, capacity 65,536), then
+# prompt/sd_perp_neg.yaml on the SD 2.1 slice
+C2F = ["data.reso_milestones=[10,20]", "prompt.use_cache=false"]
+C2F_STEPS = 22
+C2F_SPANS = ((64, 0, 10), (256, 10, 20), (512, 20, 22))   # reso, steps
+K1_K5 = ("raster_fwd", "raster_bwd", "expansion_rank", "gid_repack",
+         "flash_attn_fwd")
+DENSIFY_AT_2 = ["guidance.type=mock", "renderer.densify.warm_up=2",
+                "renderer.densify.period=2"]
+# split_by_scale splits scales above its scale_max (0.08), which base.yaml's
+# initial 0.02 never passes: its Gaussians start at 0.1
+DENSIFY_PRESETS = {
+    "split_by_scale": (["base.yaml", "renderer/split_by_scale.yaml"],
+                       ["init.svec_val=0.1"]),
+    "progressive": (["base.yaml", "renderer/progressive.yaml"], []),
+    "shrink_then_densify": (["shrink_then_densify.yaml"], []),
+}
+PERP_NEG = ["base.yaml", "prompt/sd_perp_neg.yaml"]
+
+
+def jax_bucket_rule(n_dup_max, reso, next_reso, bucket_min):
+    """The bucket the JAX trainer compiles ahead for the next resolution
+    at a feedback step (its Trainer.train_step): the demand scaled by
+    (next_reso / reso)^2, buckets doubling from ``bucket_min``."""
+    need = max(n_dup_max, 1) * (next_reso / max(reso, 1)) ** 2
+    b = bucket_min
+    while b < need:
+        b *= 2
+    return b
+
+
+def record_bins():
+    """Wrap the binning that render_view calls; each view's (width, bucket,
+    cap + pad_budget, demand, padded demand) goes to the returned list
+    (tensors: read them after a synchronize).  Returns it and a restore
+    function."""
+    from gsgen_torch.models import scene as scene_mod
+    orig = scene_mod.bin_gaussians
+    rec = []
+
+    def wrapped(*args, **kw):
+        bins = orig(*args, **kw)
+        # (mean2d, cov2d, depth, active, fx, fy, cx, cy, w, h, tile, cap)
+        rec.append((args[8], args[11], args[11] + kw["pad_budget"],
+                    bins.total, bins.padded_total))
+        return bins
+
+    scene_mod.bin_gaussians = wrapped
+
+    def restore():
+        scene_mod.bin_gaussians = orig
+    return rec, restore
+
+
+def c2f_phases(torch, build_trainer, load_config, wrappers, card):
+    """Phase 19 (a) the flagship across both resolution switches: each
+    step's bucket, n_dup_max and padded demand; a bucket at a switch below
+    the JAX rule's prediction from the feedback step's n_dup_max fails;
+    (b) split_by_scale, progressive and shrink_then_densify through their
+    densify event (the live count must change; the event's counts, ms
+    and peak memory), and the perp-neg prompt on the SD 2.1 slice (its
+    per-view weights, which must be read every step)."""
+    from gsgen_torch.models.density import should_run
+    from gsgen_torch.prompt.processors import PromptEmbedding
+
+    res = {}
+    # ---- a: the flagship across both switches ----
+    rec, restore = record_bins()
+    steps = []
+
+    def on_step(tr, step, metrics):
+        views = [(w, cap, capp, int(t), int(pt))
+                 for w, cap, capp, t, pt in rec]
+        rec.clear()
+        require(len({v[:3] for v in views}) == 1,
+                f"19 a step {step}: views differ in reso or bucket {views}")
+        steps.append(dict(reso=views[0][0], bucket=views[0][1],
+                          cap_padded=views[0][2],
+                          demand=max(v[3] for v in views),
+                          padded_demand=max(v[4] for v in views),
+                          n_dup_max=int(metrics["n_dup_max"]),
+                          launches={k: wrappers[k].launches
+                                    for k in K1_K5}))
+
+    try:
+        trainer, a = drive(torch, build_trainer, load_config, wrappers,
+                           "flagship_rehearsal.yaml", C2F, C2F_STEPS,
+                           dict(flash_attn_fwd=SD21_K5_PER_FWD),
+                           on_step=on_step)
+    finally:
+        restore()
+    bucket_min = trainer.cfg.dup_bucket_min
+    del trainer
+    torch.cuda.empty_cache()
+    spans = []
+    for i, (reso, lo, hi) in enumerate(C2F_SPANS):
+        seg = steps[lo:hi]
+        require({s["reso"] for s in seg} == {reso},
+                f"19 a steps {lo}-{hi - 1}: resos {[s['reso'] for s in seg]}")
+        prev = steps[lo - 1] if lo else None
+        span = dict(
+            reso=reso, steps=[lo, hi - 1],
+            bucket_before=prev and prev["bucket"], bucket_at=seg[0]["bucket"],
+            buckets=[s["bucket"] for s in seg],
+            n_dup_max=[s["n_dup_max"] for s in seg],
+            demand=max(s["demand"] for s in seg),
+            padded_demand=max(s["padded_demand"] for s in seg),
+            cap_padded=[s["cap_padded"] for s in seg],
+            drops=any(s["padded_demand"] > s["cap_padded"] for s in seg),
+            ms_per_step=a["ms_per_step"][lo:hi],
+            launches={k: seg[-1]["launches"][k]
+                      - (prev["launches"][k] if prev else 0)
+                      for k in K1_K5})
+        if lo:
+            fb, fb_reso = C2F_SPANS[i - 1][1], C2F_SPANS[i - 1][0]
+            span["predicted"] = jax_bucket_rule(
+                steps[fb]["n_dup_max"], fb_reso, reso, bucket_min)
+            span["feedback"] = dict(step=fb,
+                                    n_dup_max=steps[fb]["n_dup_max"])
+            require(span["bucket_at"] >= span["predicted"],
+                    f"19 a: the bucket at step {lo} is {span['bucket_at']}, "
+                    f"below the JAX rule's {span['predicted']} from "
+                    f"n_dup_max {steps[fb]['n_dup_max']} at step {fb}")
+        spans.append(span)
+        print(f"phase 19 a {reso}^2: ok | card {card} | steps {lo}-{hi - 1}"
+              + (f" | bucket {span['bucket_before']} before the switch, "
+                 f"{span['bucket_at']} at it; the JAX rule predicts "
+                 f"{span['predicted']} from n_dup_max "
+                 f"{span['feedback']['n_dup_max']} at step "
+                 f"{span['feedback']['step']}" if lo else
+                 f" | bucket {span['bucket_at']}")
+              + f" | buckets {span['buckets']} | n_dup_max "
+              f"{span['n_dup_max']} | padded demand max "
+              f"{span['padded_demand']} of cap + pad_budget "
+              f"{sorted(set(span['cap_padded']))} (demand max "
+              f"{span['demand']}; tiles dropped: "
+              f"{'yes' if span['drops'] else 'no'}) | ms/step "
+              f"{[round(x, 2) for x in span['ms_per_step']]} | launches "
+              f"{span['launches']}", flush=True)
+    res["a"] = dict(config=a["config"], losses=a["losses"],
+                    peak_gib=a["peak_gib"], launches=a["launches"],
+                    bucket_min=bucket_min, spans=spans)
+
+    # ---- b: three densify presets and perp-neg ----
+    res["b"] = {}
+    for name, (cfgs, extra) in DENSIFY_PRESETS.items():
+        live, ev = [], {}
+
+        def prepare(tr, ev=ev):
+            orig = tr.density_step
+
+            def measured(step):
+                d = tr.dcfg
+                if not should_run(step, d.enabled, d.warm_up, d.end,
+                                  d.period):
+                    return orig(step)
+                torch.cuda.synchronize()
+                ev["run_peak_gib"] = \
+                    torch.cuda.max_memory_allocated() / 2 ** 30
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                info = orig(step)
+                torch.cuda.synchronize()
+                ev.update(step=step, ms=1e3 * (time.perf_counter() - t0),
+                          peak_gib_above_start=(
+                              torch.cuda.max_memory_allocated() - base)
+                          / 2 ** 30, **info)
+                return info
+            tr.density_step = measured
+
+        trainer, r = drive(
+            torch, build_trainer, load_config, wrappers, cfgs,
+            DENSIFY_AT_2 + extra, 3, {}, prepare=prepare,
+            on_step=lambda tr, s, m, live=live: live.append(
+                int(tr.state.scene.active.sum())))
+        cap = trainer.state.scene.active.shape[0]
+        dtype = trainer.dcfg.type
+        del trainer
+        torch.cuda.empty_cache()
+        require(cap == 65536, f"19 b {name}: capacity {cap}")
+        require(ev.get("step") == 2 and live[2] != live[1],
+                f"19 b {name}: densify ({dtype}) at step 2 left the live "
+                f"count {live}: {ev}")
+        res["b"][name] = dict(r, type=dtype, live=live, event=ev)
+        print(f"phase 19 b {name}: ok | card {card} | {r['config']}: "
+              f"densify {dtype} at step 2, capacity {cap}: live per step "
+              f"{live} | event {ev} | losses {r['losses']} | ms/step "
+              f"{[round(x, 2) for x in r['ms_per_step']]} | launches "
+              f"{r['launches']}", flush=True)
+
+    weights = []
+    orig = PromptEmbedding.get_text_embeddings_perp_neg
+
+    def recorded(self, *args, **kw):
+        emb, w = orig(self, *args, **kw)
+        weights.append([[round(x, 4) for x in row]
+                        for row in w.detach().cpu().tolist()])
+        return emb, w
+
+    PromptEmbedding.get_text_embeddings_perp_neg = recorded
+    try:
+        trainer, p = drive(torch, build_trainer, load_config, wrappers,
+                           PERP_NEG, SLICE + ["prompt.use_cache=false"], 2,
+                           dict(flash_attn_fwd=SD21_K5_PER_FWD))
+    finally:
+        PromptEmbedding.get_text_embeddings_perp_neg = orig
+    del trainer
+    torch.cuda.empty_cache()
+    require(len(weights) == 2 and all(len(w) == p["batch"] for w in weights)
+            and any(x != 0 for w in weights for row in w for x in row),
+            f"19 b perp_neg: the perp-neg branch's weights {weights}")
+    res["b"]["perp_neg"] = dict(p, weights=weights)
+    print(f"phase 19 b perp_neg: ok | card {card} | {p['config']}: "
+          f"per-view weights (neg0, neg1) per step {weights} | losses "
+          f"{p['losses']} | ms/step "
+          f"{[round(x, 2) for x in p['ms_per_step']]} | peak "
+          f"{p['peak_gib']:.2f} GiB | launches {p['launches']}", flush=True)
     return res
 
 

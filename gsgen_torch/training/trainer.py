@@ -284,6 +284,11 @@ class Trainer:
                        for k, v in cfg.lr.items()}
         self.dup_bucket = rcfg.dup_cap
         self._shrink_streak = 0
+        # the (intrinsics, bucket) pairs the JAX trainer would have built or
+        # compiled ahead a step for (its _step_cache and _prewarm_threads);
+        # a step at new intrinsics jumps onto the smallest of them
+        self._bucket_keys = set()
+        self._last_intr = None
         self._prev_mean = None
 
     def _load_estimator(self, name: str, d: Dict):
@@ -517,20 +522,55 @@ class Trainer:
         out["n_dup_max"] = col.reduce_max(metrics["n_dup_max"], group)
         return out
 
-    def _adjust_dup_bucket(self, n_dup_max: int):
+    def _adjust_dup_bucket(self, n_dup_max: int, intr):
         """Grow on (near-)overflow, shrink after 20 undersubscribed
-        feedback events in a row."""
+        feedback events in a row; at 10 the half bucket is recorded for
+        ``intr``, where the JAX trainer compiles it ahead (JAX
+        trainer.py:498-524).  The JAX shrink waits for that compile; the
+        port has none, so it shrinks at 20, as the JAX trainer does once
+        the compile has landed."""
         cap = self.dup_bucket
         if n_dup_max > 0.7 * cap:
             self.dup_bucket = cap * 2
             self._shrink_streak = 0
         elif n_dup_max < 0.15 * cap and cap > self.cfg.dup_bucket_min:
             self._shrink_streak += 1
+            if self._shrink_streak >= 10:
+                self._bucket_keys.add((intr, cap // 2))
             if self._shrink_streak >= 20:
                 self.dup_bucket = cap // 2
                 self._shrink_streak = 0
         else:
             self._shrink_streak = 0
+
+    def _bucket_feedback(self, step: int, intr, n_dup_max: int):
+        """A feedback step's bucket policy (JAX trainer.py:557-589): adjust
+        the bucket; past 0.35 of it, record its double; within
+        ``reso_prewarm_lead`` steps of a resolution milestone, record the
+        bucket the next resolution will need and its double: footprints
+        scale about (r_next / r)^2, buckets double from ``dup_bucket_min``."""
+        self._adjust_dup_bucket(n_dup_max, intr)
+        if n_dup_max > 0.35 * self.dup_bucket:
+            self._bucket_keys.add((intr, self.dup_bucket * 2))
+        nxt = self.data.next_reso_change(step)
+        if nxt is not None and step >= nxt[0] - self.cfg.reso_prewarm_lead:
+            need = max(n_dup_max, 1) * (nxt[1] / max(self.data.reso, 1)) ** 2
+            b = self.cfg.dup_bucket_min
+            while b < need:
+                b *= 2
+            intr_next = self.data.intrinsics(reso=nxt[1])
+            self._bucket_keys.update(((intr_next, b), (intr_next, b * 2)))
+
+    def _bucket_at(self, intr):
+        """At the first step of new intrinsics, move onto the smallest
+        bucket recorded for them if it is larger (JAX trainer.py:527-539);
+        record this step's own pair."""
+        if intr != self._last_intr:
+            cand = [b for i, b in self._bucket_keys if i == intr]
+            if cand and min(cand) > self.dup_bucket:
+                self.dup_bucket = min(cand)
+            self._last_intr = intr
+        self._bucket_keys.add((intr, self.dup_bucket))
 
     # ---- host loop ----
     def _batch_tensors(self, batch: Dict[str, np.ndarray]):
@@ -542,6 +582,7 @@ class Trainer:
         """One training step on ``grad_accum`` batches of sampled poses."""
         self.data.update(step)
         intr = self.data.intrinsics()
+        self._bucket_at(intr)
         sched = self.sched_scalars(step)
         batches = [self.data.get_batch() for _ in range(self.cfg.grad_accum)]
         if self.data_mesh is not None:
@@ -554,9 +595,11 @@ class Trainer:
         metrics = self._train_step([self._batch_tensors(b) for b in batches],
                                    sched, intr, prev_mean)
         self._prev_mean = mean
-        # bucket feedback every 10 steps: int() waits for the device
+        # bucket feedback every 10 steps: int() waits for the device; under
+        # data_mesh, n_dup_max is already the max over the data ranks, so
+        # every rank moves to the same bucket
         if self.cfg.auto_dup_bucket and step % 10 == 0:
-            self._adjust_dup_bucket(int(metrics["n_dup_max"]))
+            self._bucket_feedback(step, intr, int(metrics["n_dup_max"]))
         return metrics
 
     def density_step(self, step: int) -> Dict[str, Any]:

@@ -132,6 +132,19 @@ def test_sharded_step_matches_one_process(port, one_process, case, batch):
         _check_step(res[case], one_process[batch], f"{case} rank {r}")
 
 
+def test_data_mesh_bucket_jumps_from_the_reduced_demand(port, jax_run):
+    """Across a resolution switch every data rank predicts the bucket from
+    n_dup_max reduced over the ranks, so all jump alike, as the
+    one-process trainer over the whole batch does."""
+    inp = ranks.c2f_inputs(dict(state=jax_run[0], rcfg=RKW, trainer=dict(
+        KW, cfg=dict(KW["cfg"], batch_size=4),
+        data=dict(KW["data"], batch_size=4))))
+    want = ranks.c2f_steps(ranks._trainer(inp))
+    assert want["bucket"][1] > want["bucket"][0], want
+    for r, res in enumerate(port):
+        assert res["data_c2f"] == want, (r, res["data_c2f"], want)
+
+
 @pytest.mark.parametrize("case", ["tile", "data", "data_tile"])
 def test_ranks_end_the_step_alike(port, case):
     """Every rank holds the same state after the step (the all-reduced

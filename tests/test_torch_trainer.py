@@ -52,8 +52,13 @@ LR = dict(mean=[0.005, 3.0e-5, 100, "exp"], svec=[0.003, 0.001, 100, "exp"],
           qvec=0.003, color=0.01, alpha=0.003, bg=0.003)
 
 
-def _pair():
-    kw = dict(max_steps=100, batch_size=2, lr=LR)
+def _pair(backend="pallas", data=None, **tkw):
+    """Both trainers from the same state.  ``backend`` is the JAX render
+    backend (Pallas in interpret mode, or its pure-XLA scan); ``data``
+    updates the sampler's keys (reso, reso_milestones); ``tkw`` the
+    trainer's, with ``dup_cap`` going to both render configs."""
+    rkw = dict(tile_size=8, chunk=128, dup_cap=tkw.pop("dup_cap", 4096))
+    kw = dict(max_steps=100, batch_size=2, lr=LR, **tkw)
     tcfg_j, tcfg_t = TcfgJ(**kw), TrainerConfig(**kw)
     # non-zero weights so every loss term reaches the gradients
     loss = dict(sds=1.0, sparsity=0.01, opague=0.01, z_var=0.001)
@@ -63,16 +68,14 @@ def _pair():
     tcfg_t = dataclasses.replace(tcfg_t, loss=dataclasses.replace(
         tcfg_t.loss, **loss), penalty={"alpha": {"type": "center_weighted",
                                                  "value": 0.01}})
-    rkw = dict(tile_size=8, chunk=128, dup_cap=4096)
     init = dict(num_points=96, capacity=128, svec_val=0.05, mean_std=0.4)
-    data = dict(batch_size=2, max_steps=100, reso=(RES,),
-                camera_distance=(2.0, 2.5))
+    data = dict(dict(batch_size=2, max_steps=100, reso=(RES,),
+                     camera_distance=(2.0, 2.5)), **(data or {}))
     dens = dict(enabled=False)
-    tj = TrainerJ(cfg=tcfg_j,
-                  rcfg=RenderJ(backend="pallas", pallas_interpret=True,
-                               mxu_scans=False, fast_fwd_cumprod=False,
-                               **rkw),
-                  init_cfg=InitJ(**init),
+    rcfg_j = (RenderJ(backend="xla", **rkw) if backend == "xla" else
+              RenderJ(backend="pallas", pallas_interpret=True,
+                      mxu_scans=False, fast_fwd_cumprod=False, **rkw))
+    tj = TrainerJ(cfg=tcfg_j, rcfg=rcfg_j, init_cfg=InitJ(**init),
                   bg_cfg=BgJ(type="fixed", color=(0.1, 0.6, 0.3)),
                   data_cfg=CamJ(**data), dcfg=DensJ(**dens),
                   pcfg=PruneJ(enabled=False))
@@ -93,19 +96,21 @@ def _pair():
     return tj, tt
 
 
-def test_trajectory_matches_jax_trainer():
-    tj, tt = _pair()
-    for s in range(STEPS):
-        m_j = tj.train_step(s)
-        m_t = tt.train_step(s)
-        for k in ("loss_sds", "loss_sparsity", "loss_opague", "loss_z_var",
-                  "pen_alpha", "loss_total"):
-            np.testing.assert_allclose(float(m_t[k]), float(m_j[k]),
-                                       rtol=1e-4, err_msg=f"step {s} {k}")
-        assert int(m_t["n_dup_max"]) == int(m_j["n_dup_max"])
+def check_step_metrics(m_t, m_j, s):
+    """One step's losses within rtol 1e-4 and its n_dup_max equal."""
+    for k in ("loss_sds", "loss_sparsity", "loss_opague", "loss_z_var",
+              "pen_alpha", "loss_total"):
+        np.testing.assert_allclose(float(m_t[k]), float(m_j[k]),
+                                   rtol=1e-4, err_msg=f"step {s} {k}")
+    assert int(m_t["n_dup_max"]) == int(m_j["n_dup_max"]), f"step {s}"
+
+
+def check_states_match(tj, tt, steps):
+    """The port's state after ``steps`` steps against the JAX trainer's,
+    at the tolerances of the module docstring."""
     arrays = _flatten_with_paths(tj.state)
     st = tt.state
-    assert st.step == int(arrays[".step"]) == STEPS
+    assert st.step == int(arrays[".step"]) == steps
     assert st.opt.count == int(arrays[".opt/.count"])
     for f in FIELDS:
         mu_j = arrays[f".opt/.mu/[0]/.{f}"]
@@ -115,7 +120,7 @@ def test_trajectory_matches_jax_trainer():
         p_t, p_j = st.scene.params[f].numpy(), arrays[f".scene/.params/.{f}"]
         lr = LR[f] if np.isscalar(LR[f]) else LR[f][0]
         diff = np.abs(p_t - p_j)
-        assert diff.max() <= 2 * lr * STEPS, f
+        assert diff.max() <= 2 * lr * steps, f
         assert np.mean(diff <= 1e-4 * lr + 1e-6) >= 0.999, f
     for s in ("grad_accum", "max_radii2d"):
         want = arrays[f".scene/.{s}"]
@@ -124,6 +129,13 @@ def test_trajectory_matches_jax_trainer():
                                    err_msg=s)
     np.testing.assert_array_equal(st.scene.grad_cnt.numpy(),
                                   arrays[".scene/.grad_cnt"])
+
+
+def test_trajectory_matches_jax_trainer():
+    tj, tt = _pair()
+    for s in range(STEPS):
+        check_step_metrics(tt.train_step(s), tj.train_step(s), s)
+    check_states_match(tj, tt, STEPS)
 
 
 def test_load_config_base_yaml_with_overrides(tmp_path):

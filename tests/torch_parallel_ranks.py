@@ -168,7 +168,29 @@ def trainer_cases(rank, folder):
                       device_type="cpu")
     tr = _trainer(inp4, data_mesh=mesh2, tile_mesh=mesh2)
     res["data_tile"] = _trainer_result(tr, tr.train_step(0))
+    tr = _trainer(c2f_inputs(inp4), data_mesh=make_mesh(
+        WORLD, ("data",), device_type="cpu"))
+    res["data_c2f"] = c2f_steps(tr)
     _save(folder, rank, res)
+
+
+def c2f_inputs(inp):
+    """``inp`` with a resolution switch at step 1 (32^2 -> 64^2) and the
+    duplicate bucket's policy on, from a 512 bucket."""
+    kw = inp["trainer"]
+    return dict(inp, rcfg={**inp["rcfg"], "dup_cap": 512}, trainer={
+        **kw, "cfg": {**kw["cfg"], "auto_dup_bucket": True,
+                      "dup_bucket_min": 256},
+        "data": {**kw["data"], "reso": (32, 64), "reso_milestones": (1,)}})
+
+
+def c2f_steps(tr):
+    """Two steps across the switch: each step's n_dup_max and bucket."""
+    out = dict(n_dup_max=[], bucket=[])
+    for s in range(2):
+        out["n_dup_max"].append(int(tr.train_step(s)["n_dup_max"]))
+        out["bucket"].append(tr.dup_bucket)
+    return out
 
 
 def gauss_cases(rank, folder):
