@@ -2782,7 +2782,7 @@ def extras_phases(torch, dev, build_trainer, load_config, wrappers, card):
     slice (bf16): 2 steps with the launch counters read around them, the
     MLP's Adam moments non-zero, then one step profiled with a
     "background" part (the MLP forward over 262,144 rays a view; its
-    backward runs on the backward thread, in "render") and the MLP's
+    backward follows the render's, under "backward") and the MLP's
     forward + backward for the step's 4 views timed alone.  (b)
     base.yaml + renderer/legacy.yaml (SH degree 1), mock guidance, 3
     steps.  (c) base.yaml + renderer/normal_as_rgb.yaml (estimated
@@ -2790,8 +2790,6 @@ def extras_phases(torch, dev, build_trainer, load_config, wrappers, card):
     profiled with a "normals" part; knn_self and the batched 3x3 eigh
     (in batches of EIGH_BATCH: cuSOLVER refuses 32,768 at once) timed
     alone; the card's normals against the CPU's on a sphere."""
-    import gsgen_torch.models.scene as scene_mod
-    import gsgen_torch.training.trainer as trainer_mod
     from gsgen_torch.models.background import mlp_background
     from gsgen_torch.ops import cuda_lib
     from gsgen_torch.ops.camera import get_rays_d
@@ -2810,8 +2808,7 @@ def extras_phases(torch, dev, build_trainer, load_config, wrappers, card):
             f"13 a: the MLP background got no gradient: {bg_mu}")
     a["profile"] = profile_step(
         torch, trainer, cuda_lib.BUILD / "mlp_bg_step_trace.json", False,
-        phase="13 a mlp_bg",
-        extra_spans=((trainer_mod, "apply_background", "background"),))
+        phase="13 a mlp_bg")
     intr = trainer.data.intrinsics()
     c2ws = torch.as_tensor(trainer.data.get_batch()["c2w"], device=dev)
     dirs = torch.stack([get_rays_d(c, intr) for c in c2ws])
@@ -2858,8 +2855,7 @@ def extras_phases(torch, dev, build_trainer, load_config, wrappers, card):
                        ["guidance.type=mock"], 2, {}, unread=("color",))
     c["profile"] = profile_step(
         torch, trainer, cuda_lib.BUILD / "normal_as_rgb_step_trace.json",
-        False, phase="13 c normal_as_rgb",
-        extra_spans=((scene_mod, "scene_normals", "normals"),))
+        False, phase="13 c normal_as_rgb")
     scene = trainer.state.scene
     k = trainer.rcfg.normal_neighborhood
     mean = scene.params["mean"].detach()
@@ -3242,155 +3238,26 @@ def fps_profile(torch, points, idx):
     return torch.stack(out)
 
 
-def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
-    """Phase 8 (SDS), the end of phase 9 (VSD) and phase 10 (SDS in the
-    compact layout): one step under
-    torch.profiler.  Each device op is attributed to the host range its
-    launch fell in: the render forward, the UNet (SDS: ``predict_noise``;
-    VSD: every UNet call, "unet_fwd"), the VAE forward and the VAE
-    backward (between the gradient reaching the latents and leaving the
-    images).  VSD's UNet backward ("unet_bwd") runs from the gradient
-    reaching the LoRA pass's output until the VAE backward starts: the
-    autograd engine takes the later-recorded UNet branch first.  Other
-    launches from the backward thread are the render backward, the rest is
-    "other" (optimizer, losses, guidance glue).  With an auxiliary
-    guidance (phase 12), its loss is the "point_e" part (FPS and the
-    Point-E transformer); FPS's own launches are counted too.  With
-    estimators (phase 15), the DPT network's forward and its backward
-    (from the gradient reaching its output until it leaves its input) are
-    the "dpt" part.
-    ``extra_spans``: (module, function name, part) triples, each call of
-    the function a part of its own (phase 13: the background, the
-    normals).  A guidance without a backbone (mock) has no UNet or VAE
-    part; its backward is the launches from threads other than the
-    render forward's."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+def profile_step(torch, trainer, trace, vsd, phase=None):
+    """Phase 8 (SDS), the end of phase 9 (VSD) and phases 10-16: one step
+    under torch.profiler, read by the program's own spans
+    (``gsgen:<name>``, ``gsgen_torch/utils/profiling.py``).  Each device
+    op goes to the innermost span open on the thread that launched it
+    (the render, the VAE, the UNet, an attention core, a layer's backward
+    on autograd's thread, the background, the normals, the Point-E
+    auxiliary guidance and its FPS, a DPT estimator, Adam, ...), else to
+    the latest-started span open on any thread (autograd's glue between
+    the layers goes to ``backward``); a part's device ms is the union of
+    its ops' spans."""
+    from torch.profiler import ProfilerActivity, profile
 
-    import gsgen_torch.guidance.point_e_aux as aux_mod
-    import gsgen_torch.training.trainer as trainer_mod
-
-    bb = getattr(trainer.guidance, "backbone", None)
-    orig_render = trainer_mod.render_batch
-    orig_encode = None if bb is None else bb.encode_images
-    span = {}
-
-    def open_span(name):
-        span[name] = record_function(f"step:{name}")
-        span[name].__enter__()
-
-    def close_span(name):
-        if name in span:
-            span.pop(name).__exit__(None, None, None)
-
-    def render_batch(*a, **kw):
-        with record_function("step:render"):
-            return orig_render(*a, **kw)
-
-    def encode_images(imgs):
-        def start(grad):
-            close_span("unet_bwd")
-            open_span("vae_bwd")
-
-        def stop(grad):
-            close_span("vae_bwd")
-            close_span("unet_bwd")
-
-        if imgs.requires_grad:
-            imgs.register_hook(stop)
-        with record_function("step:vae"):
-            z = orig_encode(imgs)
-        if z.requires_grad:
-            z.register_hook(start)
-        return z
-
-    if bb is None:
-        pass
-    elif vsd:
-        orig_unet = bb.unet.forward
-
-        def unet_forward(*a, **kw):
-            with record_function("step:unet_fwd"):
-                out = orig_unet(*a, **kw)
-            if out.requires_grad:
-                out.register_hook(lambda grad: open_span("unet_bwd"))
-            return out
-
-        bb.unet.forward = unet_forward
-    else:
-        orig_pred = bb.predict_noise
-
-        def predict_noise(*a, **kw):
-            with record_function("step:unet"):
-                return orig_pred(*a, **kw)
-
-        bb.predict_noise = predict_noise
-    aux = trainer.aux_guidance
-    orig_fps = aux_mod.farthest_point_sampling
-    ests = getattr(trainer, "estimators", {})
-    for est in ests.values():
-        orig_fwd = est.module.forward
-
-        def dpt_forward(x, _f=orig_fwd):
-            # the estimator's backward: from the gradient reaching its
-            # output until it leaves its input
-            if x.requires_grad:
-                x.register_hook(lambda grad: close_span("dpt_bwd"))
-            with record_function("step:dpt"):
-                out = _f(x)
-            if out.requires_grad:
-                out.register_hook(lambda grad: open_span("dpt_bwd"))
-            return out
-
-        est.module.forward = dpt_forward
-    if aux is not None:
-        orig_aux = aux.loss
-
-        def aux_loss(*a, **kw):
-            with record_function("step:point_e"):
-                return orig_aux(*a, **kw)
-
-        def fps(*a, **kw):
-            with record_function("step:fps"):
-                return orig_fps(*a, **kw)
-
-        aux.loss = aux_loss
-        aux_mod.farthest_point_sampling = fps
-    trainer_mod.render_batch = render_batch
-    if bb is not None:
-        bb.encode_images = encode_images
-    saved = []
-    for mod, fname, part in extra_spans:
-        orig_fn = getattr(mod, fname)
-        saved.append((mod, fname, orig_fn))
-
-        def wrapped(*a, _f=orig_fn, _p=part, **kw):
-            with record_function(f"step:{_p}"):
-                return _f(*a, **kw)
-
-        setattr(mod, fname, wrapped)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.fit(1)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    finally:
-        trainer_mod.render_batch = orig_render
-        aux_mod.farthest_point_sampling = orig_fps
-        for mod, fname, orig_fn in saved:
-            setattr(mod, fname, orig_fn)
-        if aux is not None:
-            del aux.loss
-        for est in ests.values():
-            del est.module.forward
-        if bb is not None:
-            del bb.encode_images
-            if vsd:
-                del bb.unet.forward
-            else:
-                del bb.predict_noise
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(1)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     prof.export_chrome_trace(str(trace))
     what = "a VSD step" if vsd else "a training step"
     ev = [e for e in json.loads(trace.read_text())["traceEvents"]
@@ -3398,33 +3265,28 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
     dev_ev = [e for e in ev if e.get("cat") in DEVICE_CATS]
     require(len(dev_ev) > 0, f"the profiler saw no device work in {what}")
     launch = {e["args"]["correlation"]: (e["ts"], e["tid"]) for e in ev
-              if e.get("cat") == "cuda_runtime"
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})}
-    spans = [(e["name"][5:], e["ts"], e["ts"] + e["dur"], e["tid"])
-             for e in ev if e.get("cat") == "user_annotation"
-             and e["name"].startswith("step:")]
-    bwd_tids = {tid for name, _, _, tid in spans if name == "vae_bwd"}
-    if not bwd_tids:
-        # no VAE (mock guidance): the backward's launches are those from
-        # threads other than the one that ran the render forward
-        main = {tid for name, _, _, tid in spans if name == "render"}
-        bwd_tids = {tid for _, tid in launch.values()} - main
+    spans = sorted(((e["name"][6:], e["ts"], e["ts"] + e["dur"], e["tid"])
+                    for e in ev if e.get("cat") == "cpu_op"
+                    and e["name"].startswith("gsgen:")),
+                   key=lambda s: s[1])
 
     def group(e):
-        """The innermost span around the op's launch."""
+        """The innermost span around the op's launch on its thread, else
+        the latest-started one on any thread."""
         hit = launch.get(e.get("args", {}).get("correlation"))
         if hit is None:
             return "unattributed"
         ts, tid = hit
         inner = None
         for name, a, b, stid in spans:
-            if stid == tid and a <= ts <= b and (inner is None
-                                                 or a > inner[1]):
-                inner = (name, a)
-        if inner is not None:
-            return (inner[0][:3] if inner[0].startswith(("vae", "dpt"))
-                    else inner[0])
-        return "render" if tid in bwd_tids else "other"
+            if a > ts:
+                break
+            if b >= ts and (stid == tid or inner is None
+                            or inner[1] != tid):
+                inner = (name, stid)
+        return "other" if inner is None else inner[0]
 
     # a part's device ms is the union of its ops' spans: cuDNN runs some
     # fp32 convolutions on side streams, so kernel times overlap
@@ -3433,7 +3295,6 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
         grp = group(e)
         if grp == "fps":
             fps_ev.append(e)
-            grp = "point_e"
         by_group.setdefault(grp, []).append(e)
         key = (grp, kernel_key(e["name"]))
         by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3
@@ -3462,10 +3323,8 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
                 device_ms_by_part=by_group,
                 top_device_ms=[[g, k, v] for (g, k), v in top])
     fps_note = ""
-    if aux is not None:
-        fps_host = [e["dur"] / 1e3 for e in ev
-                    if e.get("cat") == "user_annotation"
-                    and e["name"] == "step:fps"]
+    fps_host = [(b - a) / 1e3 for name, a, b, _ in spans if name == "fps"]
+    if fps_host:
         info.update(fps_device_ops_per_step=len(fps_ev),
                     fps_device_ms=busy_us(fps_ev) / 1e3,
                     fps_host_ms=sum(fps_host))
@@ -3476,13 +3335,14 @@ def profile_step(torch, trainer, trace, vsd, phase=None, extra_spans=()):
         fps_note += (f" | K5 {info['k5_device_ms']:.2f} device ms in "
                      f"{info['k5_launches']} launches (its split pass "
                      f"{info['k5_split_device_ms']:.2f} in "
-                     f"{info['k5_split_launches']}), unet_fwd "
-                     f"{by_group.get('unet_fwd', 0.0):.2f}"
+                     f"{info['k5_split_launches']}), unet "
+                     f"{by_group.get('unet', 0.0):.2f}"
                      f" | K6 {info['k6_device_ms']:.2f} device ms in "
                      f"{info['k6_k7_launches'][0]} launches, K7 "
                      f"{info['k7_device_ms']:.2f} in "
                      f"{info['k6_k7_launches'][1]}, unet_bwd "
-                     f"{by_group.get('unet_bwd', 0.0):.2f}")
+                     f"{by_group.get('unet_bwd', 0.0):.2f}, attn_bwd "
+                     f"{by_group.get('attn_bwd', 0.0):.2f}")
     phase = phase or ("9 vsd" if vsd else "8 sds")
     print(f"phase {phase} profile: ok 1 "
           f"traced step, {wall_ms:.2f} ms, device "

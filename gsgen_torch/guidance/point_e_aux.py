@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiling
 from ..utils.ops import farthest_point_sampling
 from .diffusion import cosine_schedule
 
@@ -139,8 +140,9 @@ class PointEAuxGuidance:
         and ``noise`` [B, 6, P] are drawn from ``generator`` unless given."""
         cfg = self.cfg
         B = cfg.batch_size
-        idx = farthest_point_sampling(mean.detach(), cfg.num_points,
-                                      mask=active)
+        with profiling.span("fps"):
+            idx = farthest_point_sampling(mean.detach(), cfg.num_points,
+                                          mask=active)
         xyz, rgb = mean[idx], color[idx]
         if cfg.normalize:
             scale = torch.amax(torch.linalg.norm(xyz.detach(), dim=-1))

@@ -41,6 +41,7 @@ from typing import Mapping, Optional
 import torch
 from torch import nn
 
+from ..utils import profiling
 from . import convert
 from .diffusion import resize_bilinear
 from .unet2d import (IF_PIXEL, SD15, SD21, TINY, TINY_VSD,
@@ -138,7 +139,10 @@ class SDUNetBackbone(nn.Module):
                 x = torch.cat([x, x.new_zeros(
                     *x.shape[:3], self.latent_channels - 3)], dim=-1)
             return x * 2.0 - 1.0
-        z = self.vae.encode((imgs * 2.0 - 1.0).to(self._vae_dtype()))
+        x = (imgs * 2.0 - 1.0).to(self._vae_dtype())
+        with profiling.span("vae"):
+            z = self.vae.encode(x)
+        profiling.backward_span("vae_bwd", [z], [x])
         return z.to(torch.float32)
 
     @torch.no_grad()

@@ -44,6 +44,7 @@ from torch import nn
 
 from ..ops.flash_attention import (flash_self_attention,
                                    flash_self_attention_plain)
+from ..utils import profiling
 
 FUSED_ATTENTION_MODES = ("auto", "on", "off")
 
@@ -157,11 +158,17 @@ class Attention(nn.Module):
         eligible = (L == S and L % 128 == 0
                     and q.dtype == k.dtype == v.dtype)
         mode = self.fused_attention
-        if eligible and (mode == "on" or (mode == "auto" and L >= 2048
-                                          and q.is_cuda)):
-            out = flash_self_attention(q, k, v, scale)
+        core = (flash_self_attention
+                if eligible and (mode == "on" or (mode == "auto"
+                                                  and L >= 2048
+                                                  and q.is_cuda))
+                else flash_self_attention_plain)
+        if L == S:
+            with profiling.span("attn"):
+                out = core(q, k, v, scale)
+            profiling.backward_span("attn_bwd", [out], [q, k, v])
         else:
-            out = flash_self_attention_plain(q, k, v, scale)
+            out = core(q, k, v, scale)
         out = out.reshape(B, L, self.heads * self.head_dim)
         y = self.to_out[0](out)
         if self.lora_rank:
@@ -543,6 +550,19 @@ class UNet2DConditionModel(nn.Module):
         class_labels (integer [B] for the "timestep" class embedding,
         [B, class_embed_proj_dim] for the projection one) or None -> eps
         [B, H, W, C_out]."""
+        with profiling.span("unet"):
+            eps = self._eps(sample, timesteps, encoder_hidden_states,
+                            class_labels, lora_scale)
+        if profiling.recording() and eps.requires_grad:
+            # a differentiated pass (VSD's LoRA pass): until its inputs
+            # and trainable leaves have their gradients
+            profiling.backward_span(
+                "unet_bwd", [eps], [sample, encoder_hidden_states,
+                                    class_labels, *self.parameters()])
+        return eps
+
+    def _eps(self, sample, timesteps, encoder_hidden_states, class_labels,
+             lora_scale):
         c = self.cfg
         temb = get_timestep_embedding(
             timesteps, c.block_out_channels[0],

@@ -35,7 +35,9 @@ a run directory ``<log root>/<prompt>/<date>/<time>/`` with
 ``config.json``, the code snapshot, ``scalars.jsonl``, eval images and
 orbit videos, guidance samples and periodic checkpoints (the trainer's
 periods), the profiler trace of ``trainer.profile_steps`` under
-``profile/``, then the final checkpoint and the ``export.types`` exports
+``profile/`` (with the step's ``gsgen:`` spans: render, guidance, VAE,
+UNet, attention, each layer's backward, Adam, ...), then the final
+checkpoint and the ``export.types`` exports
 (default ply and splat) under ``exports/``.
 """
 
@@ -79,7 +81,10 @@ def main(argv=None):
                          "(with ckpt=)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("overrides", nargs="*",
-                    help="dotted config overrides, e.g. trainer.max_steps=100")
+                    help="dotted config overrides, e.g. trainer.max_steps=100"
+                         "; trainer.profile_steps=[a,b] writes a profiler "
+                         "trace of steps a..b-1 under the run's profile/, "
+                         "its layers marked by gsgen: spans")
     args = ap.parse_intermixed_args(argv)
 
     from .config import build_trainer, load_config

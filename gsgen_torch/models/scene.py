@@ -41,6 +41,7 @@ from ..ops.cuda_raster import rasterize_tiles_cuda
 from ..ops.projection import (conic_from_cov2d, project_gaussians,
                               screen_radii)
 from ..ops.sh import eval_sh_color
+from ..utils import profiling
 from ..utils.activations import act, inv_act
 from ..utils.ops import estimate_pointcloud_normals
 
@@ -376,8 +377,10 @@ def render_batch(params, active, c2ws, intr, cfg, bgs, fxs=None, fys=None,
     if tile_mesh is not None:
         from ..parallel.sharded_render import render_view_tile_sharded
         view = functools.partial(render_view_tile_sharded, mesh=tile_mesh)
-    normals = (scene_normals(params, active, cfg)
-               if _needs_normals(cfg, params, light_pos, rgb_only) else None)
+    normals = None
+    if _needs_normals(cfg, params, light_pos, rgb_only):
+        with profiling.span("normals"):
+            normals = scene_normals(params, active, cfg)
     B = len(c2ws)
     outs = []
     for b in range(B):
@@ -387,4 +390,8 @@ def render_batch(params, active, c2ws, intr, cfg, bgs, fxs=None, fys=None,
             fy=pick(fys), cx=pick(cxs), cy=pick(cys), rgb_only=rgb_only,
             mean2d_tap=pick(mean2d_taps), light_pos=pick(light_pos),
             light_color=pick(light_color), normals=normals))
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    # K1-K4's work: the duplicates of every view
+    profiling.count("render.views", B)
+    profiling.count("render.dups", out["n_dup"])
+    return out

@@ -40,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class DPTConfig:
@@ -451,8 +453,11 @@ class DPTEstimator:
         x = resize_2d(rgb.permute(0, 3, 1, 2), (size, size), "linear")
         if self.mode == "depth":
             x = (x - 0.5) / 0.5
-        out = torch.clamp(self.module(x.permute(0, 2, 3, 1)), 0.0, 1.0)
-        out = resize_2d(out.permute(0, 3, 1, 2), (H, W), "cubic")
+        x = x.permute(0, 2, 3, 1)
+        y = self.module(x)
+        profiling.backward_span("estimator_bwd", [y], [x])
+        out = resize_2d(torch.clamp(y, 0.0, 1.0).permute(0, 3, 1, 2),
+                        (H, W), "cubic")
         return out.permute(0, 2, 3, 1)
 
     __call__ = estimate

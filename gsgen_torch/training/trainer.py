@@ -32,7 +32,15 @@ Every ``guidance_eval_period`` steps the logger also gets a CFG sample of
 the guidance at a fixed pose (``eval/guidance_sample``,
 :meth:`Trainer._guidance_sample`), and ``profile_steps: [a, b]`` writes a
 ``torch.profiler`` trace of steps a to b - 1 under the run directory's
-``profile/`` (:func:`..utils.profiling.trace`).
+``profile/`` (:func:`..utils.profiling.trace`).  While any profiler
+records, the step marks its layers with ``gsgen:`` spans
+(:func:`..utils.profiling.span`): ``step`` (with its index) around ``cameras``, ``background``, ``render``, ``guidance``
+(``vae``, ``unet``, ``attn`` inside), ``aux_guidance``, ``estimator``,
+``losses``, ``backward`` (the layers' backward spans ``unet_bwd``,
+``attn_bwd``, ``vae_bwd``, ``render_bwd`` on autograd's thread),
+``adam``, ``stats`` and ``sync`` (a host read of a device value), and
+``density`` after the step; the renders count their views and
+duplicates (:func:`..utils.profiling.counters`).
 
 Image-to-3D (:mod:`.sit3d`): with an ``image_target``, a batch that
 carries ``is_original`` adds ``w_image · loss_image + w_depth ·
@@ -88,6 +96,7 @@ from ..ops.camera import get_rays_d
 from ..parallel import collectives as col
 from ..parallel.mesh import (axis_group, axis_rank, axis_size, replicate,
                              shard_batch)
+from ..utils import profiling
 from ..utils.schedule import C, make_lr_schedule
 from .losses import PENALTIES, pearson_depth_loss, penalty
 from .optimizer import AdamState, adam_init, adam_update
@@ -349,30 +358,42 @@ class Trainer:
         cfg = self.cfg
         B = batch["c2w"].shape[0]
         # the mlp reads the static intrinsics' rays, not the jittered focal
-        dirs = ([get_rays_d(c, intr) for c in batch["c2w"]]
-                if self.bg_cfg.type == "mlp" else [None] * B)
-        bgs = torch.stack([apply_background(bg, self.bg_cfg, self.generator,
-                                            self.device, dirs=d,
-                                            training=True) for d in dirs])
-        if not cfg.use_bg:
-            bgs = torch.zeros_like(bgs)
+        with profiling.span("background"):
+            dirs = ([get_rays_d(c, intr) for c in batch["c2w"]]
+                    if self.bg_cfg.type == "mlp" else [None] * B)
+            bgs = torch.stack([apply_background(
+                bg, self.bg_cfg, self.generator, self.device, dirs=d,
+                training=True) for d in dirs])
+            if not cfg.use_bg:
+                bgs = torch.zeros_like(bgs)
         lights = {}
         if rcfg.pbr and "light_pos" in batch:
             lights = dict(light_pos=batch["light_pos"],
                           light_color=batch["light_color"])
-        outs = render_batch(params, self.state.scene.active, batch["c2w"],
-                            intr, rcfg, bgs, batch["fx"], batch["fy"],
-                            batch["cx"], batch["cy"], rgb_only=cfg.rgb_only,
-                            mean2d_taps=taps, tile_mesh=self.tile_mesh,
-                            **lights)
+        with profiling.span("render"):
+            outs = render_batch(params, self.state.scene.active,
+                                batch["c2w"], intr, rcfg, bgs, batch["fx"],
+                                batch["fy"], batch["cx"], batch["cy"],
+                                rgb_only=cfg.rgb_only, mean2d_taps=taps,
+                                tile_mesh=self.tile_mesh, **lights)
+        if profiling.recording():
+            # the render's backward: from the gradient reaching its outputs
+            # to the scene's leaves, the taps and the backgrounds receiving
+            # theirs
+            profiling.backward_span(
+                "render_bwd",
+                [v for v in outs.values() if v.is_floating_point()],
+                [*params.values(), taps, bgs])
         embedding = (self.prompt_processor()
                      if self.prompt_processor is not None else None)
-        g = self.guidance.loss(outs["rgb"], embedding, batch["elevation"],
-                               batch["azimuth"], batch["camera_distance"],
-                               generator=self.generator, sched=sched,
-                               c2ws=batch["c2w"], fxs=batch["fx"],
-                               fys=batch["fy"], cxs=batch["cx"],
-                               cys=batch["cy"], train=gp)
+        with profiling.span("guidance"):
+            g = self.guidance.loss(outs["rgb"], embedding,
+                                   batch["elevation"], batch["azimuth"],
+                                   batch["camera_distance"],
+                                   generator=self.generator, sched=sched,
+                                   c2ws=batch["c2w"], fxs=batch["fx"],
+                                   fys=batch["fy"], cxs=batch["cx"],
+                                   cys=batch["cy"], train=gp)
         loss = sched["w_sds"] * g.get("loss_sds", 0.0)
         if "loss_vsd" in g:
             loss = loss + sched["w_vsd"] * g["loss_vsd"]
@@ -380,51 +401,55 @@ class Trainer:
             loss = loss + sched["w_lora"] * g["loss_lora"]
         metrics = dict(g)
         if self.image_target is not None and "is_original" in batch:
-            sl = sit3d_losses(outs, batch, self.image_target)
-            loss = (loss + sched["w_image"] * sl["loss_image"]
-                    + sched["w_depth"] * sl["loss_depth"])
-            metrics.update(sl)
+            with profiling.span("losses"):
+                sl = sit3d_losses(outs, batch, self.image_target)
+                loss = (loss + sched["w_image"] * sl["loss_image"]
+                        + sched["w_depth"] * sl["loss_depth"])
+                metrics.update(sl)
         if self.aux_guidance is not None:
-            col = activate(params, rcfg)[3]
-            ag = self.aux_guidance.loss(
-                params["mean"], col, self.state.scene.active,
-                embedding.text if embedding is not None else None,
-                generator=self.generator)
-            loss = loss + sched["w_aux"] * ag["loss_aux"]
-            metrics.update(ag)
+            with profiling.span("aux_guidance"):
+                col = activate(params, rcfg)[3]
+                ag = self.aux_guidance.loss(
+                    params["mean"], col, self.state.scene.active,
+                    embedding.text if embedding is not None else None,
+                    generator=self.generator)
+                loss = loss + sched["w_aux"] * ag["loss_aux"]
+                metrics.update(ag)
         for name, est in self.estimators.items():
             # reference estimator_loss_step (trainer.py:424-456)
-            pred = est.estimate(outs["rgb"])
-            if name == "depth":
-                depth = outs["depth"].reshape(pred.shape[:3])
-                est_loss = torch.mean(torch.stack([
-                    pearson_depth_loss(p, d)
-                    for p, d in zip(pred[..., 0], depth)]))
-            else:
-                nrm = outs["normal"].reshape(pred.shape)
-                est_loss = torch.mean((nrm - torch.clamp(pred, 0.0, 1.0))
-                                      ** 2)
-            loss = loss + sched[f"w_est_{name}"] * est_loss
-            metrics[f"loss_est_{name}"] = est_loss
-        if not cfg.rgb_only:
-            opacity = outs["opacity"]
-            sparsity = torch.mean(torch.sqrt(opacity ** 2 + 0.01))
-            o = torch.clamp(opacity, 1e-3, 1.0 - 1e-3)
-            opague = torch.mean(-(o * torch.log(o)
-                                  + (1 - o) * torch.log(1 - o)))
-            z_var = torch.mean(outs["z_var"] / o * (o > 0.5))
-            loss = (loss + sched["w_sparsity"] * sparsity
-                    + sched["w_opague"] * opague
-                    + sched["w_z_var"] * z_var)
-            metrics.update(loss_sparsity=sparsity, loss_opague=opague,
-                           loss_z_var=z_var)
-        for name, p in cfg.penalty.items():
-            pen = penalty(name, p, params, self.state.scene.active, rcfg,
-                          prev_mean)
-            loss = loss + sched[f"w_pen_{name}"] * pen
-            metrics[f"pen_{name}"] = pen
-        metrics["loss_total"] = loss
-        metrics["n_dup_max"] = torch.amax(outs["n_dup"])
+            with profiling.span("estimator"):
+                pred = est.estimate(outs["rgb"])
+                if name == "depth":
+                    depth = outs["depth"].reshape(pred.shape[:3])
+                    est_loss = torch.mean(torch.stack([
+                        pearson_depth_loss(p, d)
+                        for p, d in zip(pred[..., 0], depth)]))
+                else:
+                    nrm = outs["normal"].reshape(pred.shape)
+                    est_loss = torch.mean(
+                        (nrm - torch.clamp(pred, 0.0, 1.0)) ** 2)
+                loss = loss + sched[f"w_est_{name}"] * est_loss
+                metrics[f"loss_est_{name}"] = est_loss
+        with profiling.span("losses"):
+            if not cfg.rgb_only:
+                opacity = outs["opacity"]
+                sparsity = torch.mean(torch.sqrt(opacity ** 2 + 0.01))
+                o = torch.clamp(opacity, 1e-3, 1.0 - 1e-3)
+                opague = torch.mean(-(o * torch.log(o)
+                                      + (1 - o) * torch.log(1 - o)))
+                z_var = torch.mean(outs["z_var"] / o * (o > 0.5))
+                loss = (loss + sched["w_sparsity"] * sparsity
+                        + sched["w_opague"] * opague
+                        + sched["w_z_var"] * z_var)
+                metrics.update(loss_sparsity=sparsity, loss_opague=opague,
+                               loss_z_var=z_var)
+            for name, p in cfg.penalty.items():
+                pen = penalty(name, p, params, self.state.scene.active,
+                              rcfg, prev_mean)
+                loss = loss + sched[f"w_pen_{name}"] * pen
+                metrics[f"pen_{name}"] = pen
+            metrics["loss_total"] = loss
+            metrics["n_dup_max"] = torch.amax(outs["n_dup"])
         return loss, outs, metrics
 
     def _train_step(self, batches, sched, intr, prev_mean):
@@ -451,9 +476,13 @@ class Trainer:
             loss, outs, metrics = self._loss(params, bg, gp, taps, batch,
                                              sched, intr, rcfg, prev_mean)
             names = list(leaves)
-            grads = torch.autograd.grad(
-                loss / D, [leaves[k] for k in names] + [taps],
-                allow_unused=True)
+            with profiling.span("backward"):
+                try:
+                    grads = torch.autograd.grad(
+                        loss / D, [leaves[k] for k in names] + [taps],
+                        allow_unused=True)
+                finally:
+                    profiling.close_all()
             for k, gr in zip(names, grads[:-1]):
                 if gr is not None:
                     gsum[k] = gsum[k] + gr
@@ -478,11 +507,12 @@ class Trainer:
         lrs.update({f"bg/{k}": sched["lr_bg"] for k in state.bg})
         lrs.update({f"gp/{k}": sched.get("lr_guidance", 1e-4)
                     for k in state.gp})
-        new, opt = adam_update(grads, state.opt,
-                               _opt_params(scene.params, state.bg, state.gp),
-                               lrs)
+        with profiling.span("adam"):
+            new, opt = adam_update(
+                grads, state.opt,
+                _opt_params(scene.params, state.bg, state.gp), lrs)
 
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("stats"):
             tg = torch.cat(tap_grads, dim=0)                 # [A*B, M, 2]
             gnorm = torch.linalg.norm(tg, dim=-1)
             if vis_list:
@@ -580,26 +610,33 @@ class Trainer:
 
     def train_step(self, step: int) -> Dict[str, torch.Tensor]:
         """One training step on ``grad_accum`` batches of sampled poses."""
-        self.data.update(step)
-        intr = self.data.intrinsics()
-        self._bucket_at(intr)
-        sched = self.sched_scalars(step)
-        batches = [self.data.get_batch() for _ in range(self.cfg.grad_accum)]
-        if self.data_mesh is not None:
-            batches = [shard_batch(b, self.data_mesh) for b in batches]
-        # the move penalty's reference: the means before the previous update
-        mean = self.state.scene.params["mean"]
-        prev_mean = self._prev_mean
-        if prev_mean is None or prev_mean.shape != mean.shape:
-            prev_mean = mean
-        metrics = self._train_step([self._batch_tensors(b) for b in batches],
-                                   sched, intr, prev_mean)
-        self._prev_mean = mean
-        # bucket feedback every 10 steps: int() waits for the device; under
-        # data_mesh, n_dup_max is already the max over the data ranks, so
-        # every rank moves to the same bucket
-        if self.cfg.auto_dup_bucket and step % 10 == 0:
-            self._bucket_feedback(step, intr, int(metrics["n_dup_max"]))
+        with profiling.span("step", step):
+            with profiling.span("cameras"):
+                self.data.update(step)
+                intr = self.data.intrinsics()
+                self._bucket_at(intr)
+                sched = self.sched_scalars(step)
+                batches = [self.data.get_batch()
+                           for _ in range(self.cfg.grad_accum)]
+                if self.data_mesh is not None:
+                    batches = [shard_batch(b, self.data_mesh)
+                               for b in batches]
+                batches = [self._batch_tensors(b) for b in batches]
+            # the move penalty's reference: the means before the previous
+            # update
+            mean = self.state.scene.params["mean"]
+            prev_mean = self._prev_mean
+            if prev_mean is None or prev_mean.shape != mean.shape:
+                prev_mean = mean
+            metrics = self._train_step(batches, sched, intr, prev_mean)
+            self._prev_mean = mean
+            # bucket feedback every 10 steps: int() waits for the device;
+            # under data_mesh, n_dup_max is already the max over the data
+            # ranks, so every rank moves to the same bucket
+            if self.cfg.auto_dup_bucket and step % 10 == 0:
+                with profiling.span("sync"):
+                    n_dup_max = int(metrics["n_dup_max"])
+                self._bucket_feedback(step, intr, n_dup_max)
         return metrics
 
     def density_step(self, step: int) -> Dict[str, Any]:
@@ -613,30 +650,33 @@ class Trainer:
                            self.pcfg.end, self.pcfg.period)
         if not (due_d or due_p):
             return info
-        opt = self.state.opt
-        fields = present_fields(self.state.scene.params)
-        scene_opt = AdamState(mu={k: opt.mu[k] for k in fields},
-                              nu={k: opt.nu[k] for k in fields},
-                              count=opt.count)
-        scene = self.state.scene
-        if due_d:
-            scene, scene_opt, dinfo = densify(scene, scene_opt, self.dcfg,
-                                              self.rcfg, self.generator)
-            info.update(dinfo)
-        if due_p:
-            scene, scene_opt, pinfo = prune(
-                scene, scene_opt, self.pcfg, self.rcfg,
-                C(self.pcfg.radii2d_thresh, step),
-                C(self.pcfg.alpha_thresh, step))
-            info.update(pinfo)
-        if self.data_mesh is not None:
-            # the ranks drew apart: data rank 0's event for all of them
-            scene, scene_opt = replicate((scene, scene_opt), self.data_mesh,
-                                         "data")
-        opt = AdamState(mu={**opt.mu, **scene_opt.mu},
-                        nu={**opt.nu, **scene_opt.nu}, count=opt.count)
-        self.state = dataclasses.replace(self.state, scene=scene, opt=opt)
-        return {k: int(v) for k, v in info.items()}
+        with profiling.span("density"):
+            opt = self.state.opt
+            fields = present_fields(self.state.scene.params)
+            scene_opt = AdamState(mu={k: opt.mu[k] for k in fields},
+                                  nu={k: opt.nu[k] for k in fields},
+                                  count=opt.count)
+            scene = self.state.scene
+            if due_d:
+                scene, scene_opt, dinfo = densify(
+                    scene, scene_opt, self.dcfg, self.rcfg, self.generator)
+                info.update(dinfo)
+            if due_p:
+                scene, scene_opt, pinfo = prune(
+                    scene, scene_opt, self.pcfg, self.rcfg,
+                    C(self.pcfg.radii2d_thresh, step),
+                    C(self.pcfg.alpha_thresh, step))
+                info.update(pinfo)
+            if self.data_mesh is not None:
+                # the ranks drew apart: data rank 0's event for all of them
+                scene, scene_opt = replicate((scene, scene_opt),
+                                             self.data_mesh, "data")
+            opt = AdamState(mu={**opt.mu, **scene_opt.mu},
+                            nu={**opt.nu, **scene_opt.nu}, count=opt.count)
+            self.state = dataclasses.replace(self.state, scene=scene,
+                                             opt=opt)
+            with profiling.span("sync"):
+                return {k: int(v) for k, v in info.items()}
 
     def fit(self, n_steps: Optional[int] = None,
             callback: Optional[Callable[[int, Dict], None]] = None):
