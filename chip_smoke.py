@@ -10,8 +10,9 @@ Phases, each reported on its own line:
 2. build: compile gsgen_torch/csrc/*.cu with nvcc for sm_90a; the raster
    kernels' ptxas lines (registers, shared memory, spills: none allowed)
    and those of K5's fp32 wgmma + TMA instances (P V 16, 32 and 64 wide),
-   K6 / K7's fp32 ones and K6 / K7's bf16 instances of widths 80 and 160
-   (no spill, and no wgmma that ptxas serialised);
+   K6 / K7's fp32 ones, K6 / K7's bf16 instances of widths 80 and 160 and
+   the 3xTF32 convolution's 1x1 and 3x3 instances (no spill, and no wgmma
+   that ptxas serialised);
 3. kernels: every kernel of the render path against its plain PyTorch
    version on the card, at a small size, at the bench workload (100K
    Gaussians, 512^2, dup_cap 2^18, chunk 128), at configs/base.yaml's
@@ -49,6 +50,11 @@ Phases, each reported on its own line:
    one k-step of head dims) and [2, 256, 2, 160]
    in fp32, each error also as a share of the gradient's max, and
    autograd through K5 + K6 + K7 against autograd through the plain path;
+   and the 3xTF32 convolution against F.conv2d in fp32 within 1e-5 of
+   the output's largest value (CONV_CASES: the VSD path's shapes at
+   batch 8 and 4 with each K split split_k picks there, 1, 2, 4 and 8
+   ways; CONV_EDGE_CASES: the VAE's (0, 1) padding, ragged channel and
+   pixel tiles);
 4. train: configs/base.yaml with guidance.type=mock, 5 training steps at
    full width through build_trainer / fit, with every kernel's launch
    counter read around the run;
@@ -271,6 +277,12 @@ Phases, each reported on its own line:
    the event's counts, ms and peak memory), and prompt/sd_perp_neg.yaml on
    the SD 2.1 slice for 2 steps (the perp-neg weights of every view,
    required each step);
+20. conv: the 3xTF32 convolution's device ms at the seven SD 2.1 shapes
+   with the most work, at batch 8, beside its plain version (cuDNN IEEE
+   fp32, cudnn.benchmark off), cuDNN with cudnn.benchmark on (a fresh
+   process) and the bound; its kernels row also carries its launches in
+   phase 9's VSD steps (VSD_CONV a step, required) and phase 7's SDS
+   drives (none, required);
 
 then one JSON line with the kernels, the card line, and the result line.
 Exits non-zero before the result line if any phase fails.
@@ -338,6 +350,9 @@ SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
          "guidance.backbone_dtype=bfloat16"]
 VSD_CONFIGS = ["base.yaml", "guidance/vsd.yaml", "prompt/vsd.yaml"]
 VSD_FLASH = dict(flash_attn_fwd=15, flash_attn_bwd_dkv=5, flash_attn_bwd_dq=5)
+# the 3xTF32 convolution a VSD step: three fp32 UNet passes, each of SD
+# 2.1's 66 convolutions but conv_out (4 channels: cuDNN)
+VSD_CONV = 3 * 65
 LIB_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 COMPACT = ["renderer.binning_layout=compact"]
 # base.yaml + renderer/regular.yaml on mock guidance, with a densify event
@@ -410,7 +425,7 @@ def run(torch) -> int:
     from gsgen_torch.models.init import InitConfig, initialize
     from gsgen_torch.models.scene import (RenderConfig, activate,
                                           render_view)
-    from gsgen_torch.ops import (binning, cuda_lib, cuda_raster,
+    from gsgen_torch.ops import (binning, conv, cuda_lib, cuda_raster,
                                  expansion_rank, flash_attention,
                                  gid_repack)
     from gsgen_torch.ops.camera import (CameraIntrinsics, get_frustum,
@@ -464,8 +479,9 @@ def run(torch) -> int:
         f"{k}: {v}" for k, v in raster_ptxas.items()), flush=True)
     # K5 fp32 on wgmma: one kernel a P V width (16, 32, 64); K6 / K7 fp32
     # on wgmma: one kernel each; K6 / K7 bf16 above D = 64: one kernel a
-    # width (80, 160); none spills, and ptxas serialised no wgmma in them
-    # (its C75xx notes name the function)
+    # width (80, 160); the 3xTF32 convolution: one kernel a kernel size (1,
+    # 3); none spills, and ptxas serialised no wgmma in them (its C75xx
+    # notes name the function)
     gated = ("tf32_wgmma", "_wide_kernel")
     require(not [f for f in spills if any(g in f for g in gated)],
             f"an fp32 or wide bf16 wgmma kernel spills: {spills}")
@@ -475,7 +491,8 @@ def run(torch) -> int:
     for what, needle, kind, want in (
             ("fp32 fwd", "fwd_tf32_wgmma", "tf32_wgmma", 3),
             ("fp32 bwd", "bwd_d", "tf32_wgmma", 2),
-            ("bf16 bwd D 72-160", "bwd_d", "_wide_kernel", 4)):
+            ("bf16 bwd D 72-160", "bwd_d", "_wide_kernel", 4),
+            ("fp32 conv", "conv_tf32_wgmma", "tf32_wgmma", 2)):
         gated_ptxas = {k: v for k, v in ptxas_lines(
             cuda_lib.build_info["log"], needle).items() if kind in k}
         require(len(gated_ptxas) == want, f"ptxas names "
@@ -1007,6 +1024,8 @@ def run(torch) -> int:
                  + ", ".join(a_errs))
     del q, k, v, dout, ps, out, got, ref_ps, want
     torch.cuda.empty_cache()
+    conv_notes, errs["conv2d_3xtf32"] = conv_checks(torch, dev)
+    notes += conv_notes
     print("phase 3 kernels: ok | " + " | ".join(notes), flush=True)
 
     # ---- phase 4: train configs/base.yaml (guidance.type=mock) ----
@@ -1509,7 +1528,12 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 7: SDS on the SD 2.1 UNet + VAE (the slice) ----
-    sds = sds_phases(torch, dev, build_trainer, load_config, wrappers)
+    # phases 7 and 9 count the 3xTF32 convolution too: VSD_CONV a VSD
+    # step, none in the bf16 SDS drives (the other phases run fp32 UNets
+    # whose convolution counts no check predicts, so it is kept out of
+    # wrappers there)
+    counted = dict(wrappers, conv2d_3xtf32=conv.conv2d_3xtf32)
+    sds = sds_phases(torch, dev, build_trainer, load_config, counted)
     launches = sds["launches"]
 
     # ---- phase 8: where an SDS step's device time goes ----
@@ -1518,7 +1542,7 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 9: VSD on the SD 2.1 UNet (LoRA + camera), K6 / K7 ----
-    vsd = vsd_phases(torch, dev, build_trainer, load_config, wrappers)
+    vsd = vsd_phases(torch, dev, build_trainer, load_config, counted)
     vsd_profile = profile_step(torch, vsd.pop("trainer"),
                                cuda_lib.BUILD / "vsd_step_trace.json", True)
     vsd_launches = vsd["slice"]["launches"]
@@ -1781,6 +1805,39 @@ def run(torch) -> int:
                     "dP^T, dS^T, dQ^T = K^T dS^T; dS as [query][key] hi/lo "
                     "planes); fp32 D>64: 3xTF32 on mma.sync m16n8k8"),
             bf16=times_bwd[(name, "bfloat16")]))
+    conv_rows = conv_times(torch, dev)
+    conv_top = next(iter(conv_rows.values()))
+    kernels.append(dict(
+        name="conv2d_3xtf32", route="cuda",
+        source="gsgen_torch/csrc/conv_3xtf32.cu",
+        replaces="none: XLA's convolution (nn.Conv in the JAX package's "
+                 "guidance/unet2d.py)",
+        launches=vsd_launches["conv2d_3xtf32"],
+        sds_launches=launches["conv2d_3xtf32"],
+        max_abs_err=errs["conv2d_3xtf32"],
+        **{k: conv_top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        shapes=f"{next(iter(conv_rows))} (SD 2.1's UNet, the most work a "
+               "VSD step); plain_ms: cuDNN IEEE fp32, cudnn.benchmark off "
+               "(the port's route before); library_ms: cudnn.benchmark on "
+               "in a fresh process",
+        by_shape={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms")}
+                  for k, r in conv_rows.items()},
+        design="implicit GEMM in 3xTF32 on wgmma + TMA: 128 pixels x 160 "
+               "channels a CTA of 256 threads; the weights' tile by TMA, "
+               "its raw fp32 as hi and a lo plane split in shared memory; "
+               "the activations gathered from NCHW, split and stored as "
+               "K-major planes; three SS wgmma m64n160k8 a k-step, partial "
+               "sums folded every 64 k; K split 2-8 ways where the tiles "
+               "fill too few SMs, a reduce kernel adding the splits in "
+               "order"))
+    print(f"phase 20 conv: ok {len(conv_rows)} shapes at batch 8 | "
+          + "; ".join(f"{k}: kernel {r['ms']:.4f} ms "
+                      f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound "
+                      f"{r['bound_ms']:.4f}), cuDNN IEEE {r['plain_ms']:.4f}"
+                      f", benchmark on {r['library_ms']:.4f}"
+                      for k, r in conv_rows.items()), flush=True)
     print(json.dumps({"kernels": kernels, "render_fwd_bwd_ms": render,
                       "render_fwd_bwd_ms_compact": render_compact,
                       "render_fwd_bwd_ms_again": render_again,
@@ -1805,6 +1862,95 @@ def run(torch) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# the 3xTF32 convolution against its plain version (cuDNN in IEEE fp32):
+# (Cin, Cout, kernel, stride, pad, side, batch, VAE-style (0, 1) padding
+# first).  The VSD path's own shapes at its batches (8 in the CFG passes,
+# 4 in the LoRA pass), with each K split that ops/conv.py::split_k picks
+# there: conv_in; the 64^2, 32^2 and 16^2 3x3 at batch 8, no split; 16^2
+# at batch 4, 2 ways; 8^2 at batch 8, 4 ways, and at batch 4, 8 ways; 1x1
+# shortcuts unsplit (64^2) and 4 ways (8^2); the stride-2 downsamples
+# unsplit (64^2), 2 ways (32^2) and 8 ways (16^2 at batch 4)
+CONV_CASES = [(4, 320, 3, 1, 1, 64, 8, False),
+              (320, 320, 3, 1, 1, 64, 8, False),
+              (640, 640, 3, 1, 1, 32, 8, False),
+              (1280, 1280, 3, 1, 1, 16, 8, False),
+              (1280, 1280, 3, 1, 1, 16, 4, False),
+              (1280, 1280, 3, 1, 1, 8, 8, False),
+              (2560, 1280, 3, 1, 1, 8, 4, False),
+              (960, 320, 1, 1, 0, 64, 8, False),
+              (2560, 1280, 1, 1, 0, 8, 8, False),
+              (320, 320, 3, 2, 1, 64, 8, False),
+              (640, 640, 3, 2, 1, 32, 8, False),
+              (1280, 1280, 3, 2, 1, 16, 4, False)]
+# off the VSD path: the VAE's (0, 1)-padded downsample (taken when a VAE
+# runs in fp32), a Cout of 40 (a ragged channel tile) and 100 pixels (a
+# ragged pixel tile)
+CONV_EDGE_CASES = [(256, 256, 3, 2, 0, 64, 2, True),
+                   (64, 40, 3, 1, 1, 16, 1, False),
+                   (32, 64, 3, 1, 1, 10, 1, False)]
+# each CONV_CASES entry's split: (M, Cout, K) as the wrapper sees them, on
+# the H100's 132 SMs
+CONV_SPLITS = [1, 1, 1, 1, 2, 4, 8, 1, 4, 1, 2, 8]
+CONV_TOL = 1e-5     # of the output's largest value (both are about 1e-6)
+
+
+def conv_checks(torch, dev):
+    """Phase 3's convolution rows: the kernel against F.conv2d in fp32 at
+    :data:`CONV_CASES` (each with the split :data:`CONV_SPLITS` names) and
+    :data:`CONV_EDGE_CASES`, one launch each.  Returns the notes and the
+    largest error over the output's largest value."""
+    import torch.nn.functional as F
+
+    from gsgen_torch.ops import conv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms == 132:
+        got = [conv.split_k(B * conv.out_size(H + asym, R, st, pad) ** 2,
+                            Cout, Cin * R * R, sms)
+               for Cin, Cout, R, st, pad, H, B, asym in CONV_CASES]
+        require(got == CONV_SPLITS, f"conv splits {got}, expected "
+                f"{CONV_SPLITS}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(70)
+    errs = []
+    for Cin, Cout, R, st, pad, H, B, asym in CONV_CASES + CONV_EDGE_CASES:
+        x = torch.randn(B, Cin, H, H, generator=gen, device=dev)
+        if asym:
+            x = F.pad(x, (0, 1, 0, 1))
+        w = torch.randn(Cout, Cin, R, R, generator=gen, device=dev) / (
+            Cin * R * R) ** 0.5
+        b = torch.randn(Cout, generator=gen, device=dev)
+        n0 = conv.conv2d_3xtf32.launches
+        got = conv.conv2d_3xtf32(x, w, b, st, pad)
+        want = conv.conv2d_plain(x, w, b, st, pad)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max() / want.abs().max())
+        require(conv.conv2d_3xtf32.launches == n0 + 1 and bool(
+            torch.isfinite(got).all()) and err <= CONV_TOL,
+            f"conv 3xTF32 {(Cin, Cout, R, st, pad, H, B, asym)}: err "
+            f"{err:.2e} of max (tol {CONV_TOL})")
+        errs.append(err)
+    n = len(CONV_CASES) + len(CONV_EDGE_CASES)
+    return [f"conv 3xTF32 vs plain at {n} shapes (splits "
+            f"{sorted(set(CONV_SPLITS))}): max err {max(errs):.2e} of max "
+            f"(tol {CONV_TOL})"], max(errs)
+
+
+def conv_times(torch, dev):
+    """The convolution kernel's timings for the kernels line: the device ms
+    of the kernel and of its plain version (cuDNN in IEEE fp32,
+    ``cudnn.benchmark`` off) and the bound at ``conv_bench``'s largest
+    shapes at batch 8, and cuDNN with ``cudnn.benchmark`` on in a fresh
+    process (the library's best, which the port never calls), by shape."""
+    from gsgen_torch.tools import conv_bench
+
+    todo = conv_bench.top_shapes(conv_bench.unet_shapes())
+    rows = conv_bench.rows_for(todo, False, 20, dev)
+    lib = conv_bench.cudnn_benchmark_rows()
+    for name, r in rows.items():
+        r["library_ms"] = lib[name]
+    return rows
 
 
 def k3_edge_cases(torch, dev, expansion_rank):
@@ -2131,16 +2277,16 @@ PER_VIEW = dict(padded=("raster_fwd", "raster_bwd", "expansion_rank",
 
 
 def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
-          n_steps, flash_per_step, layout="padded", on_step=None,
+          n_steps, per_step, layout="padded", on_step=None,
           unread=(), prepare=None):
     """``n_steps`` training steps of a config (one file or a list merged in
     order) through build_trainer / fit with every kernel counter set to 0
     just before and read just after; losses finite and changing, every
     scene parameter and some trainable guidance leaf (if any) moved, the
     render kernels of ``layout`` (K1-K4, or K8, K9 and K3) once per view and
-    no other render kernel, and each flash kernel ``flash_per_step[name]``
-    (default 0) times a step.  ``on_step(trainer, step, metrics)`` runs
-    after each step.  ``unread``: scene fields the config's render does not
+    no other render kernel, and each flash kernel and each kernel named in
+    ``per_step`` ``per_step[name]`` (default 0) times a step.
+    ``on_step(trainer, step, metrics)`` runs after each step.  ``unread``: scene fields the config's render does not
     read (normal_as_rgb's colour), which must stay exactly as they were.
     ``prepare(trainer)`` runs once after the build, before the counters
     are set to 0."""
@@ -2182,7 +2328,8 @@ def drive(torch, build_trainer, load_config, wrappers, cfg_names, overrides,
     require(gp_moved is None or gp_moved > 0,
             f"{label}: no trainable guidance leaf moved")
     for k, c in launches.items():
-        want = (flash_per_step.get(k, 0) * n_steps if k.startswith("flash")
+        want = (per_step.get(k, 0) * n_steps
+                if k.startswith("flash") or k in per_step
                 else views if k in PER_VIEW[layout] else 0)
         require(c == want, f"{label}: {k} launched {c} times in {n_steps} "
                 f"steps, expected {want}")
@@ -2340,7 +2487,8 @@ def vsd_phases(torch, dev, build_trainer, load_config, wrappers):
     del bb_cpu, bb_dev
 
     trainer, slice_res = drive(torch, build_trainer, load_config, wrappers,
-                               VSD_CONFIGS, [], 3, VSD_FLASH)
+                               VSD_CONFIGS, [], 3,
+                               dict(VSD_FLASH, conv2d_3xtf32=VSD_CONV))
     res = dict(tiny_card_vs_cpu=dict(
         loss_vsd=[v_c, v_d], loss_lora=[l_c, l_d], n_grads=len(names),
         worst_grad=[worst, g_errs[worst]]), slice=slice_res)

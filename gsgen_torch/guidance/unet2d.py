@@ -15,6 +15,9 @@ diffusers checkpoint's keys therefore match without renaming.
 * Attention: to_q/k/v without bias, ``to_out.0`` with bias, fp32 scores
   and softmax.  Self-attention goes through kernels K5-K7
   (:mod:`..ops.flash_attention`) as :func:`set_fused_attention` selects.
+* Every convolution is a :class:`Conv2d`: an fp32 CUDA call that the
+  3xTF32 kernel takes (:func:`..ops.conv.supported`) runs on it, every
+  other call on ``F.conv2d`` (the CPU, bf16, ``conv_out``'s 4 channels).
 * LoRA (``lora_rank``): diffusers' LoRALinearLayer pairs ``*_lora.down`` /
   ``*_lora.up`` on to_q/k/v/out, scaled by ``lora_scale``; a projection
   class embedding (``class_embed_proj_dim``, VSD's camera condition) adds
@@ -42,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv
 from ..ops.flash_attention import (flash_self_attention,
                                    flash_self_attention_plain)
 from ..utils import profiling
@@ -77,6 +81,23 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, sample):
         return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and state-dict keys) whose fp32 CUDA
+    calls go to the 3xTF32 kernel where :func:`..ops.conv.supported` says
+    it takes them; every other call is ``nn.Conv2d``'s.  While a profiler
+    records, an fp32 CUDA call left to cuDNN counts in ``conv.library``."""
+
+    def forward(self, x):
+        if self.padding_mode == "zeros" and conv.supported(
+                x, self.weight, self.bias, self.stride, self.padding,
+                self.dilation, self.groups):
+            return conv.conv2d(x, self.weight, self.bias, self.stride,
+                               self.padding)
+        if x.is_cuda and x.dtype == torch.float32:
+            profiling.count("conv.library", 1)
+        return super().forward(x)
 
 
 def set_fused_attention(module: nn.Module, mode: str) -> None:
@@ -231,8 +252,8 @@ class Transformer2DModel(nn.Module):
             self.proj_in = nn.Linear(in_channels, inner)
             self.proj_out = nn.Linear(inner, in_channels)
         else:
-            self.proj_in = nn.Conv2d(in_channels, inner, 1)
-            self.proj_out = nn.Conv2d(inner, in_channels, 1)
+            self.proj_in = Conv2d(in_channels, inner, 1)
+            self.proj_out = Conv2d(inner, in_channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, head_dim, cross_dim,
                                   lora_rank)
@@ -267,13 +288,13 @@ class ResnetBlock2D(nn.Module):
                  groups: int = 32):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
             self.time_emb_proj = nn.Linear(temb_channels, out_channels)
         self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, temb=None):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -292,8 +313,8 @@ class Downsample2D(nn.Module):
     def __init__(self, channels: int, asym_pad: bool = False):
         super().__init__()
         self.asym_pad = asym_pad
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
-                              padding=0 if asym_pad else 1)
+        self.conv = Conv2d(channels, channels, 3, stride=2,
+                           padding=0 if asym_pad else 1)
 
     def forward(self, x):
         if self.asym_pad:
@@ -306,7 +327,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -489,7 +510,7 @@ class UNet2DConditionModel(nn.Module):
         xdim = c.cross_attention_dim
         lin = c.use_linear_projection
         lora = c.lora_rank
-        self.conv_in = nn.Conv2d(c.in_channels, ch0, 3, padding=1)
+        self.conv_in = Conv2d(c.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, tdim)
         if c.class_embed_type == "timestep":
             self.class_embedding = TimestepEmbedding(ch0, tdim)
@@ -542,7 +563,7 @@ class UNet2DConditionModel(nn.Module):
         self.up_blocks = nn.ModuleList(up)
 
         self.conv_norm_out = nn.GroupNorm(32, ch0, eps=1e-5)
-        self.conv_out = nn.Conv2d(ch0, c.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch0, c.out_channels, 3, padding=1)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 class_labels=None, lora_scale: float = 1.0):

@@ -37,8 +37,10 @@ LIB_NAME = "libgsgen_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # K5, K6 and K7: held to their plain versions at 1e-4 x max|value| in fp32
-# and 2e-2 (K5) / 3e-2 (K6, K7) in bf16 (chip_smoke.py FLASH_TOL)
-FUSED_FMA_SOURCES = {"flash_attn_fwd.cu", "flash_attn_bwd.cu"}
+# and 2e-2 (K5) / 3e-2 (K6, K7) in bf16 (chip_smoke.py FLASH_TOL); the
+# 3xTF32 convolution to an fp64 F.conv2d at 1e-5 x max|value|
+FUSED_FMA_SOURCES = {"flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                     "conv_3xtf32.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +64,8 @@ SIGNATURES = {
                                  _I, _F, _I, _I, _I, _P],
     "gsgen_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _F, _I, _I, _I, _P],
+    "gsgen_conv2d_3xtf32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -147,7 +147,8 @@ def count(name: str, n: Union[int, torch.Tensor]) -> None:
 def counters() -> Dict[str, float]:
     """Every counter (the device ones in one transfer), and the hand-
     written kernels' launch counts as ``launches.<kernel>``."""
-    from ..ops import cuda_raster, expansion_rank, flash_attention, gid_repack
+    from ..ops import (conv, cuda_raster, expansion_rank, flash_attention,
+                       gid_repack)
     with _lock:
         out = dict(_host)
         dev = dict(_device)
@@ -158,7 +159,8 @@ def counters() -> Dict[str, float]:
                cuda_raster.raster_fwd_compact,
                cuda_raster.raster_bwd_compact, expansion_rank.expansion_gid,
                gid_repack.repack_gid, flash_attention.flash_self_attention,
-               flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dq):
+               flash_attention.flash_bwd_dkv, flash_attention.flash_bwd_dq,
+               conv.conv2d_3xtf32):
         out[f"launches.{fn.__name__}"] = fn.launches
     return out
 

@@ -11,7 +11,9 @@ z^2 and the normal of render_normal).  Tolerances as in test_pallas.py: T rtol 1
 1e-4 / atol 1e-5, gradients rtol 2e-3 / atol 2e-4; index kernels and the
 processed chunk / window counts exact.  On the deep multi-window scenes
 the gradient's atol is 2e-4 of each row's largest value, as chip_smoke.py
-scales it at full size (sums over thousands of lanes).
+scales it at full size (sums over thousands of lanes).  The 3xTF32
+convolution is held to an fp64 F.conv2d within 1e-5 of the output's
+largest value, its gradients to cuDNN's within 1e-6 of theirs.
 """
 
 import numpy as np
@@ -19,7 +21,8 @@ import pytest
 import torch
 
 from gsgen_torch.models.scene import RenderConfig, render_view
-from gsgen_torch.ops import binning, cuda_raster, expansion_rank, gid_repack
+from gsgen_torch.ops import (binning, conv, cuda_raster, expansion_rank,
+                             gid_repack)
 from gsgen_torch.ops.camera import CameraIntrinsics
 from gsgen_torch.utils.precision import exact_fp32
 from torch_fixtures import (CHUNK, FX, RES, TILE, conic_np, poison_padding,
@@ -1010,3 +1013,141 @@ def test_slab_render_on_card_matches_full_rows(cuda, y0):
         scale = float(g_full[f].abs().max())
         torch.testing.assert_close(g[f], g_full[f], rtol=2e-3,
                                    atol=2e-4 * scale + 1e-12)
+
+
+# SD 2.1's UNet convolutions at a 64^2 latent, in the order of their first
+# call (gsgen_torch/tools/conv_bench.py::unet_shapes): (Cin, Cout, kernel,
+# stride, pad, input side); the last is conv_out, which the port leaves to
+# cuDNN (Cout 4)
+CONV_SHAPES = [
+    (4, 320, 3, 1, 1, 64), (320, 320, 3, 1, 1, 64), (320, 320, 3, 2, 1, 64),
+    (320, 640, 3, 1, 1, 32), (640, 640, 3, 1, 1, 32), (320, 640, 1, 1, 0, 32),
+    (640, 640, 3, 2, 1, 32), (640, 1280, 3, 1, 1, 16),
+    (1280, 1280, 3, 1, 1, 16), (640, 1280, 1, 1, 0, 16),
+    (1280, 1280, 3, 2, 1, 16), (1280, 1280, 3, 1, 1, 8),
+    (2560, 1280, 3, 1, 1, 8), (2560, 1280, 1, 1, 0, 8),
+    (2560, 1280, 3, 1, 1, 16), (2560, 1280, 1, 1, 0, 16),
+    (1920, 1280, 3, 1, 1, 16), (1920, 1280, 1, 1, 0, 16),
+    (1280, 1280, 3, 1, 1, 32), (1920, 640, 3, 1, 1, 32),
+    (1920, 640, 1, 1, 0, 32), (1280, 640, 3, 1, 1, 32),
+    (1280, 640, 1, 1, 0, 32), (960, 640, 3, 1, 1, 32),
+    (960, 640, 1, 1, 0, 32), (640, 640, 3, 1, 1, 64), (960, 320, 3, 1, 1, 64),
+    (960, 320, 1, 1, 0, 64), (640, 320, 3, 1, 1, 64), (640, 320, 1, 1, 0, 64),
+    (320, 4, 3, 1, 1, 64)]
+CONV_TOL = 1e-5     # of the output's largest value
+
+
+def _conv_inputs(cuda, shape, B, seed):
+    Cin, Cout, R, _, _, H = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    x = torch.randn(B, Cin, H, H, generator=gen, device=cuda)
+    w = torch.randn(Cout, Cin, R, R, generator=gen, device=cuda) / (
+        Cin * R * R) ** 0.5
+    return x, w, torch.randn(Cout, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("B", (8, 4))
+@pytest.mark.parametrize("shape", CONV_SHAPES,
+                         ids=["x".join(map(str, s)) for s in CONV_SHAPES])
+def test_conv_kernel_matches_fp64(cuda, shape, B):
+    """The 3xTF32 convolution (with its bias) against an fp64 F.conv2d at
+    every UNet shape, at the CFG passes' batch 8 and the LoRA pass's 4."""
+    import torch.nn.functional as F
+
+    _, Cout, _, s, p, _ = shape
+    x, w, b = _conv_inputs(cuda, shape, B, sum(shape) + B)
+    if Cout % 8:
+        assert not conv.supported(x, w, b, s, p)
+        with pytest.raises(ValueError):
+            conv.conv2d_3xtf32(x, w, b, s, p)
+        return
+    n0 = conv.conv2d_3xtf32.launches
+    got = conv.conv2d_3xtf32(x, w, b, s, p)
+    assert conv.conv2d_3xtf32.launches == n0 + 1
+    want = F.conv2d(x.double(), w.double(), b.double(), s, p)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert err <= CONV_TOL, err
+
+
+@pytest.mark.parametrize("shape", [(320, 320, 3, 1, 1, 64),
+                                   (320, 320, 3, 2, 1, 64),
+                                   (960, 320, 1, 1, 0, 64),
+                                   (2560, 1280, 3, 1, 1, 8)])
+def test_conv_autograd_matches_cudnn(cuda, shape):
+    """Gradients through the kernel's autograd Function equal cuDNN's: the
+    backward is cuDNN's from the saved input and weight (and nothing
+    more is saved), for every input or for the input alone (VSD's frozen
+    weights)."""
+    import torch.nn.functional as F
+
+    _, _, _, s, p, _ = shape
+    x, w, b = _conv_inputs(cuda, shape, 2, 80 + sum(shape))
+    dout = None
+    for need in ((True, True, True), (True, False, False)):
+        mine = [v.clone().requires_grad_(r) for v, r in zip((x, w, b), need)]
+        ref = [v.clone().requires_grad_(r) for v, r in zip((x, w, b), need)]
+        out = conv.conv2d(*mine, s, p)
+        assert out.grad_fn is not None
+        assert len(out.grad_fn.saved_tensors) == 2
+        if dout is None:
+            dout = torch.randn_like(out)
+        got = torch.autograd.grad(out, [v for v in mine if v.requires_grad],
+                                  dout)
+        want = torch.autograd.grad(F.conv2d(*ref, s, p),
+                                   [v for v in ref if v.requires_grad], dout)
+        for g, h in zip(got, want):
+            assert float((g - h).abs().max()) <= 1e-6 * float(
+                h.abs().max())
+
+
+def test_conv_kernel_unaligned(cuda):
+    """Contiguous operands at addresses that are not 16-byte aligned still
+    go to the kernel: x and the bias are read a float at a time, and the
+    weight is copied for its TMA map."""
+    import torch.nn.functional as F
+
+    shape = (320, 320, 3, 1, 1, 32)
+    x, w, b = _conv_inputs(cuda, shape, 2, 95)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t).copy_(t)
+
+    xs, ws, bs = shifted(x), shifted(w), shifted(b)
+    assert all(t.is_contiguous() and t.data_ptr() % 16
+               for t in (xs, ws, bs))
+    assert conv.supported(xs, ws, bs, 1, 1)
+    n0 = conv.conv2d_3xtf32.launches
+    got = conv.conv2d_3xtf32(xs, ws, bs, 1, 1)
+    assert conv.conv2d_3xtf32.launches == n0 + 1
+    want = F.conv2d(x.double(), w.double(), b.double(), 1, 1)
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert err <= CONV_TOL, err
+
+
+def test_unet_conv_launches(cuda, monkeypatch):
+    """A full-width SD 2.1 UNet forward in fp32 launches the convolution
+    kernel for each of its 66 convolutions but conv_out (65) and matches
+    the same forward on cuDNN; in bf16 it launches it 0 times."""
+    from gsgen_torch.guidance.unet2d import SD21, UNet2DConditionModel
+
+    torch.manual_seed(0)
+    with torch.device(cuda):
+        unet = UNet2DConditionModel(SD21).eval()
+        sample = torch.randn(1, 64, 64, 4)
+        ctx = torch.randn(1, 77, SD21.cross_attention_dim)
+    t_ = torch.tensor([500.0], device=cuda)
+    n0 = conv.conv2d_3xtf32.launches
+    with torch.no_grad():
+        eps = unet(sample, t_, ctx)
+        assert conv.conv2d_3xtf32.launches - n0 == 65
+        with monkeypatch.context() as m:
+            m.setattr(conv, "supported", lambda *a, **k: False)
+            eps_ref = unet(sample, t_, ctx)
+        assert float((eps - eps_ref).abs().max()) <= 1e-4 * float(
+            eps_ref.abs().max())
+        n1 = conv.conv2d_3xtf32.launches
+        unet.to(torch.bfloat16)
+        unet(sample.bfloat16(), t_, ctx.bfloat16())
+        assert conv.conv2d_3xtf32.launches == n1
