@@ -38,7 +38,8 @@ Phases, each reported on its own line:
    16] and [2, 4096, 8, 32] in fp32 and bf16 (bf16 there also each
    element within one bf16 step plus 5% of the output's RMS) and at phase
    14 d's TINY_SR level 0 [8, 65536, 2, 16] in fp32 (the plain version on
-   its first, a middle and its last 2,048 queries); and
+   its first, a middle and its last 2,048 queries) and SDXL's level 1
+   [8, 4096, 10, 64] in bf16 (the 1024^2 SDS step's K5 shape); and
    K5's lse, K6 (dK, dV) and K7 (dQ) against
    the plain backward at the VSD path's [4, 4096, 5, 64] in fp32 and
    bf16 (K7 fp32 there also within 1e-5 of max|dq|), a small
@@ -83,7 +84,12 @@ Phases, each reported on its own line:
    batch 4, with K1-K5's launch counters read around the run; first the
    SDS loss and its render gradient on a TINY backbone on the card
    against the same on the CPU; then 2 steps each of configs/base.yaml
-   as it is (SDS on MockUNet) and configs/flagship_rehearsal.yaml;
+   as it is (SDS on MockUNet) and configs/flagship_rehearsal.yaml; then
+   2 steps of SDS on SDXL base 1.0 at full width (configs/base.yaml +
+   guidance/sdxl.yaml + prompt/sd.yaml, 4 views of 1024^2, 4,096
+   Gaussians at capacity 65,536) with the counters set to 0 just before:
+   K5 10 times a step (SDXL_K5_PER_STEP), K1-K4 once a view, no 3xTF32
+   convolution (bf16);
 8. sds profile: one slice step under torch.profiler, device time split
    into render, VAE and UNet (trace: gsgen_torch/_build/sds_step_trace.json);
 9. vsd: the VSD losses and the gradients of the render and of every
@@ -345,6 +351,13 @@ K5_QUERY_BLOCK = 2048
 # past D (phase 3)
 K5_BF16_WIDTHS = (16, 24, 40, 64, 72, 80, 96, 128, 136, 160)
 SD21_K5_PER_FWD = 5   # SD 2.1's level 0: 2 down + 3 up transformer blocks
+SDXL_ATTN = (8, 4096, 10, 64)   # SDXL level-1 self-attention (CFG batch 8)
+# SDXL's 4,096-token level: 2 down + 3 up stacks of 2 transformer blocks,
+# one CFG pass a step (its 1,024-token level takes the plain path)
+SDXL_K5_PER_STEP = 10
+SDXL_CONFIGS = ["base.yaml", "guidance/sdxl.yaml", "prompt/sd.yaml"]
+SDXL_SDS = ["data.reso=[1024]", "trainer.batch_size=4",
+            "init.num_points=4096", "init.capacity=65536"]
 IF_CONFIGS = ["base.yaml", "guidance/if.yaml", "prompt/if.yaml"]
 SLICE = ["guidance.backbone=sd_unet", "guidance.backbone_preset=sd21",
          "guidance.backbone_dtype=bfloat16"]
@@ -864,7 +877,8 @@ def run(torch) -> int:
             ("one tile, TMA zero fill", (2, 128, 3, 40), "bfloat16"),
             *((label, shape, dtn) for label, shape in IF2_ATTN.items()
               for dtn in ("float32", "bfloat16")),
-            ("TINY_SR level 0 (fine-tune)", TINY_SR_ATTN, "float32"))):
+            ("TINY_SR level 0 (fine-tune)", TINY_SR_ATTN, "float32"),
+            ("SDXL level 1", SDXL_ATTN, "bfloat16"))):
         dt = getattr(torch, dtn)
         q, k, v = qkv(shape, dt, 20 + i)
         scale = shape[-1] ** -0.5
@@ -2411,6 +2425,18 @@ def sds_phases(torch, dev, build_trainer, load_config, wrappers):
               f"{[round(x, 2) for x in r['ms_per_step']]} | peak "
               f"{r['peak_gib']:.2f} GiB | launches {r['launches']}",
               flush=True)
+    # SDXL at its native 1024^2: the counters are set to 0 just before the
+    # steps and every kernel's launches a step are required
+    other, r = drive(torch, build_trainer, load_config, wrappers,
+                     SDXL_CONFIGS, SDXL_SDS, 2,
+                     dict(flash_attn_fwd=SDXL_K5_PER_STEP))
+    del other
+    torch.cuda.empty_cache()
+    res["sdxl"] = r
+    print(f"phase 7 sds: ok {r['config']}: 2 steps, batch {r['batch']}, "
+          f"{r['reso']}^2 | losses {r['losses']} | ms/step "
+          f"{[round(x, 2) for x in r['ms_per_step']]} | peak "
+          f"{r['peak_gib']:.2f} GiB | launches {r['launches']}", flush=True)
     res["trainer"] = trainer
     return res
 

@@ -34,7 +34,7 @@ from .models.background import BackgroundConfig
 from .models.density import DensifyConfig, PruneConfig
 from .models.init import InitConfig
 from .models.scene import RenderConfig
-from .prompt.encoders import build_encode_fn
+from .prompt.encoders import build_encode_fn, build_text_time_fns
 from .prompt.processors import PromptProcessor, PromptProcessorConfig
 from .training.trainer import LossConfig, Trainer, TrainerConfig
 from .utils.precision import exact_fp32
@@ -156,12 +156,39 @@ def load_config(path, overrides: Optional[List[str]] = None) -> Dict:
     return cfg
 
 
-def _build_prompt_processor(prompt_d: Dict, device) -> PromptProcessor:
+def _build_prompt_processor(prompt_d: Dict, device,
+                            unet_cfg=None) -> PromptProcessor:
     """PromptProcessor on ``device``: the CLIP / T5 encoder of a local
-    ``prompt.model_id`` directory, or mock embeddings."""
+    ``prompt.model_id`` directory, or mock embeddings.  A UNet config with
+    text-time conditioning (SDXL) takes mock embeddings at its widths,
+    uncached (the cache's key holds no width), with pooled ones beside."""
     pcfg = _from_dict(PromptProcessorConfig, prompt_d)
+    pooled_dim = None if unet_cfg is None else unet_cfg.pooled_dim
+    if pooled_dim is not None:
+        encode_fn, pooled_fn = build_text_time_fns(
+            pcfg.model_id, unet_cfg.cross_attention_dim, pooled_dim)
+        return PromptProcessor(dataclasses.replace(pcfg, use_cache=False),
+                               encode_fn=encode_fn, device=device,
+                               pooled_fn=pooled_fn)
     return PromptProcessor(pcfg, encode_fn=build_encode_fn(
         pcfg.model_id, device=device), device=device)
+
+
+def _unet_preset(g_d: Dict):
+    """The UNetConfig that the guidance block's ``backbone_preset`` names,
+    or None for the default backbone, MockUNet."""
+    kind = g_d.get("backbone", "mock")
+    if kind == "mock":
+        return None
+    if kind != "sd_unet":
+        raise NotImplementedError(f"backbone {kind}")
+    from .guidance.sd_unet import IF_PIXEL, SD15, SD21, SDXL, TINY, TINY_SDXL
+    presets = {"tiny": TINY, "sd15": SD15, "sd21": SD21, "sdxl": SDXL,
+               "tiny_sdxl": TINY_SDXL, "if_pixel": IF_PIXEL}
+    preset = g_d.get("backbone_preset", "tiny")
+    if preset not in presets:
+        raise NotImplementedError(f"backbone preset {preset}")
+    return presets[preset]
 
 
 def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
@@ -170,7 +197,8 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
     the UNet preset with LoRA adapters and a camera class embedding, and
     keeps the UNet in fp32 (the JAX VSD path applies it to the fp32
     masters; only the VAE runs in ``backbone_dtype``)."""
-    kind = g_d.pop("backbone", "mock")
+    cfg = _unet_preset(g_d)
+    g_d.pop("backbone", None)
     preset = g_d.pop("backbone_preset", "tiny")
     weights = g_d.pop("weights_path", None)
     dtype = g_d.pop("backbone_dtype", None)
@@ -182,23 +210,17 @@ def _build_backbone(g_d: Dict, device, vsd: Optional[Dict] = None):
     from .guidance.unet2d import FUSED_ATTENTION_MODES, set_fused_attention
     if fused_attn not in FUSED_ATTENTION_MODES:
         raise ValueError(f"fused attention mode {fused_attn!r}")
-    if kind == "mock":
+    if cfg is None:
         return None
-    if kind != "sd_unet":
-        raise NotImplementedError(f"backbone {kind}")
-    from .guidance.sd_unet import (IF_PIXEL, SD15, SD21, TINY,
-                                   SDUNetBackbone, load_diffusers_weights)
-    presets = {"tiny": TINY, "sd15": SD15, "sd21": SD21,
-               "if_pixel": IF_PIXEL}
-    if preset not in presets:
-        raise NotImplementedError(f"backbone preset {preset}")
-    cfg = presets[preset]
+    from .guidance.sd_unet import SDUNetBackbone, load_diffusers_weights
+    if vsd and cfg.pooled_dim is not None:
+        raise NotImplementedError("VSD on a text-time UNet (SDXL)")
     if vsd:
         cfg = dataclasses.replace(
             cfg, lora_rank=int(vsd["lora_rank"]),
             class_embed_proj_dim=int(vsd["camera_condition_dim"]))
     # if_pixel: DeepFloyd's pixel space, no VAE
-    kw = dict(latent_size=8 if preset == "tiny" else 64, compute_dtype=dtype,
+    kw = dict(latent_size=cfg.sample_size, compute_dtype=dtype,
               device=device, fp32_unet=bool(vsd), use_vae=preset != "if_pixel")
     bb = (load_diffusers_weights(weights, cfg, **kw) if weights
           else SDUNetBackbone(cfg, **kw))
@@ -247,12 +269,12 @@ def build_trainer(cfg: Dict, device="cuda", logger=None) -> Trainer:
         guidance = MockGuidance(**{k: v for k, v in g_d.items()
                                    if k in ("mode", "color")})
     elif g_type in ("sds", "deep_floyd", "if"):
-        prompt_processor = _build_prompt_processor(
-            dict(cfg.get("prompt", {})), device)
         if g_type != "sds":
             # DeepFloyd: SDS in pixel space at 64^2 with CFG 20
             g_d.setdefault("rgb_as_latents", True)
             g_d.setdefault("guidance_scale", 20.0)
+        prompt_processor = _build_prompt_processor(
+            dict(cfg.get("prompt", {})), device, _unet_preset(g_d))
         backbone = _build_backbone(g_d, device)
         guidance = SDSGuidance(_from_dict(SDSConfig, g_d), backbone,
                                device=device)

@@ -7,7 +7,13 @@ the interface of :class:`.diffusion.MockUNet` (NHWC at the boundary):
   .encode_images(imgs)  [B, H, W, 3] in [0, 1] -> scaled latents
   .decode_latents(latents) -> [B, H, W, 3] in [0, 1]
   .predict_noise(latents_noisy, t, text, class_labels=None,
-                 lora_scale=1.0) -> eps (fp32)
+                 lora_scale=1.0, text_embeds=None) -> eps (fp32)
+
+Under SDXL's text-time conditioning (``.pooled_dim`` is not None)
+``predict_noise`` takes the pooled text embedding as ``text_embeds`` and
+adds the time ids of :meth:`SDUNetBackbone.time_ids`: original size, crop
+corner and target size, (S, S, 0, 0, S, S) at the image side S, the
+SDXL pipeline's default.
 
 ``compute_dtype="bfloat16"`` keeps frozen bf16 copies of the weights and
 casts the inputs (and, inside the UNet, the timestep embedding) to bf16;
@@ -44,12 +50,12 @@ from torch import nn
 from ..utils import profiling
 from . import convert
 from .diffusion import resize_bilinear
-from .unet2d import (IF_PIXEL, SD15, SD21, TINY, TINY_VSD,
-                     UNet2DConditionModel, UNetConfig, init_lora_)
-from .vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
+from .unet2d import (IF_PIXEL, SD15, SD21, SDXL, TINY, TINY_SDXL, TINY_VSD,
+                     UNetConfig, init_lora_, unet_for)
+from .vae import SD_VAE, SDXL_VAE, TINY_VAE, AutoencoderKL, VAEConfig
 
-__all__ = ["SDUNetBackbone", "UNetConfig", "TINY", "TINY_VSD", "SD21",
-           "SD15", "IF_PIXEL", "backbone_from_jax_params",
+__all__ = ["SDUNetBackbone", "UNetConfig", "TINY", "TINY_VSD", "TINY_SDXL",
+           "SD21", "SD15", "SDXL", "IF_PIXEL", "backbone_from_jax_params",
            "load_diffusers_weights"]
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
@@ -97,6 +103,7 @@ class SDUNetBackbone(nn.Module):
                                         class_embed_proj_dim=None)
         if use_vae:
             self.vae_cfg = vae_cfg or (SD_VAE if sd_family in (SD21, SD15)
+                                       else SDXL_VAE if sd_family == SDXL
                                        else TINY_VAE)
             self.image_size = latent_size * 2 ** (
                 len(self.vae_cfg.block_out_channels) - 1)
@@ -104,7 +111,7 @@ class SDUNetBackbone(nn.Module):
             self.vae_cfg = None
             self.image_size = latent_size
         with dev:
-            self.unet = UNet2DConditionModel(cfg)
+            self.unet = unet_for(cfg)
             self.vae = AutoencoderKL(self.vae_cfg) if use_vae else None
         if random_init and dev.type != "meta":
             if generator is None:
@@ -113,6 +120,12 @@ class SDUNetBackbone(nn.Module):
             init_lora_(self.unet, generator)
         self.requires_grad_(False).eval()
         self._cast()
+        if cfg.pooled_dim is not None:
+            # built once, in fp32 after the cast: a tensor made per call
+            # would be a blocking host-to-device copy every UNet pass
+            s = float(self.image_size)
+            self.register_buffer("_time_ids", torch.tensor(
+                [[s, s, 0.0, 0.0, s, s]], device=dev), persistent=False)
 
     def _cast(self):
         if self.compute_dtype is not None:
@@ -156,13 +169,28 @@ class SDUNetBackbone(nn.Module):
             torch.float32)
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
 
+    @property
+    def pooled_dim(self) -> Optional[int]:
+        """Width of the pooled text embedding the UNet takes, or None."""
+        return self.cfg.pooled_dim
+
+    def time_ids(self, n: int) -> torch.Tensor:
+        """[n, 6]: SDXL's size and crop conditioning for an uncropped
+        square image of ``image_size``."""
+        return self._time_ids.expand(n, 6)
+
     def predict_noise(self, latents_noisy, t, text, class_labels=None,
-                      lora_scale: float = 1.0):
+                      lora_scale: float = 1.0, text_embeds=None):
         dt = self._unet_dtype()
         if class_labels is not None and class_labels.is_floating_point():
             class_labels = class_labels.to(dt)
+        kw = {}
+        if self.pooled_dim is not None:
+            kw = dict(text_embeds=text_embeds,
+                      time_ids=self.time_ids(text.shape[0]))
         eps = self.unet(latents_noisy.to(dt), t, text.to(dt),
-                        class_labels=class_labels, lora_scale=lora_scale)
+                        class_labels=class_labels, lora_scale=lora_scale,
+                        **kw)
         return eps.to(torch.float32)
 
 

@@ -8,7 +8,8 @@ Port of the JAX package's ``guidance/sds.py``:
 * ``t ~ U{min_t..max_t}`` with the bounds from host-evaluated ``C()``
   schedule scalars (:meth:`SDSGuidance.sched_scalars`);
 * classifier-free guidance (``text + s (text - uncond)``), optionally with
-  Perp-Neg removal of the negative directions;
+  Perp-Neg removal of the negative directions; a text-time backbone
+  (SDXL) takes the pooled embeddings in the context's order;
 * ``w(t)`` in {sds: 1 - ac, uniform, fantasia3d: ac^0.5 (1 - ac)};
 * the reparameterised loss ``0.5 |latents - sg(latents - grad)|^2 / B``
   with nan_to_num and an optional clip of ``grad``;
@@ -86,14 +87,22 @@ class SDSGuidance:
         ``num_steps``; ``x`` (the initial latents) and ``noise`` (the
         sampler's per-step draws) come from ``generator`` unless given."""
         bb = self.backbone
-        emb = embedding.get_text_embedding(
-            elevation, azimuth, camera_distance,
-            self.cfg.use_view_dependent_prompt)
+        args = (elevation, azimuth, camera_distance,
+                self.cfg.use_view_dependent_prompt)
+        emb = embedding.get_text_embedding(*args)
+        kw = self._pooled(embedding.get_pooled_embedding, *args)
         return backbone_sample(
             bb, self.cfg.scheduler, self.schedule, elevation.shape[0],
             self.cfg.guidance_scale,
-            lambda lat2, t2: bb.predict_noise(lat2, t2, emb), num_steps,
-            generator, emb.device, x=x, noise=noise)
+            lambda lat2, t2: bb.predict_noise(lat2, t2, emb, **kw),
+            num_steps, generator, emb.device, x=x, noise=noise)
+
+    def _pooled(self, get, *args) -> Dict[str, torch.Tensor]:
+        """``{"text_embeds": get(*args)}`` for a text-time backbone,
+        else nothing."""
+        if getattr(self.backbone, "pooled_dim", None) is None:
+            return {}
+        return {"text_embeds": get(*args)}
 
     def sched_scalars(self, step: int, max_steps: int) -> Dict[str, float]:
         """Host-side t-range annealing."""
@@ -134,8 +143,11 @@ class SDSGuidance:
         if cfg.use_perp_negative:
             emb, neg_w = embedding.get_text_embeddings_perp_neg(
                 elevation, azimuth, camera_distance)
+            kw = self._pooled(embedding.get_pooled_embeddings_perp_neg,
+                              elevation, azimuth, camera_distance)
             eps = split_variance(bb.predict_noise(
-                torch.cat([latents_noisy] * 4), torch.cat([t] * 4), emb))
+                torch.cat([latents_noisy] * 4), torch.cat([t] * 4), emb,
+                **kw))
             eps_text, eps_uncond, eps_neg = eps[:B], eps[B:2 * B], eps[2 * B:]
             e_pos = eps_text - eps_uncond
             accum = torch.zeros_like(e_pos)
@@ -144,11 +156,12 @@ class SDSGuidance:
                 accum = accum + neg_w[:, i].reshape(-1, 1, 1, 1) * \
                     perpendicular_component(e_i, e_pos)
             return eps_uncond + cfg.guidance_scale * (e_pos + accum)
-        emb = embedding.get_text_embedding(
-            elevation, azimuth, camera_distance,
-            cfg.use_view_dependent_prompt)
+        args = (elevation, azimuth, camera_distance,
+                cfg.use_view_dependent_prompt)
+        emb = embedding.get_text_embedding(*args)
         eps = split_variance(bb.predict_noise(
-            torch.cat([latents_noisy] * 2), torch.cat([t] * 2), emb))
+            torch.cat([latents_noisy] * 2), torch.cat([t] * 2), emb,
+            **self._pooled(embedding.get_pooled_embedding, *args)))
         eps_text, eps_uncond = eps[:B], eps[B:]
         return eps_text + cfg.guidance_scale * (eps_text - eps_uncond)
 

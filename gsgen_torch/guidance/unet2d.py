@@ -22,6 +22,15 @@ diffusers checkpoint's keys therefore match without renaming.
   ``*_lora.up`` on to_q/k/v/out, scaled by ``lora_scale``; a projection
   class embedding (``class_embed_proj_dim``, VSD's camera condition) adds
   ``class_embedding(class_labels)`` to the time embedding.
+* SDXL: ``transformer_layers_per_block`` stacks that many
+  BasicTransformerBlocks in each Transformer2DModel of a level (the mid
+  block takes the last level's, the up path the list reversed);
+  ``addition_embed_type="text_time"`` adds ``add_embedding(cat[pooled
+  text embedding, add_time_proj(time ids)])`` to the time embedding, each
+  of the six time ids through an ``addition_time_embed_dim``-wide
+  sinusoid (diffusers' ``added_cond_kwargs`` ``text_embeds`` and
+  ``time_ids``, which :class:`UNet2DConditionModelXL`'s forward takes;
+  :func:`unet_for` picks the class).
 * DeepFloyd IF: ``class_embed_type="timestep"`` runs integer class labels
   (IF-II's noise level) through the sinusoidal embedding at
   ``block_out_channels[0]`` before the class ``TimestepEmbedding``;
@@ -39,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -179,12 +188,11 @@ class Attention(nn.Module):
         eligible = (L == S and L % 128 == 0
                     and q.dtype == k.dtype == v.dtype)
         mode = self.fused_attention
-        core = (flash_self_attention
-                if eligible and (mode == "on" or (mode == "auto"
-                                                  and L >= 2048
-                                                  and q.is_cuda))
-                else flash_self_attention_plain)
+        fused = eligible and (mode == "on" or (mode == "auto" and L >= 2048
+                                               and q.is_cuda))
+        core = flash_self_attention if fused else flash_self_attention_plain
         if L == S:
+            profiling.count("attn.fused" if fused else "attn.plain", 1)
             with profiling.span("attn"):
                 out = core(q, k, v, scale)
             profiling.backward_span("attn_bwd", [out], [q, k, v])
@@ -260,6 +268,10 @@ class Transformer2DModel(nn.Module):
             for _ in range(depth)])
 
     def forward(self, x, ctx, lora_scale: float = 1.0):
+        with profiling.span("xformer"):
+            return self._forward(x, ctx, lora_scale)
+
+    def _forward(self, x, ctx, lora_scale):
         B, C, H, W = x.shape
         h = self.norm(x)
         if self.use_linear_projection:
@@ -336,7 +348,7 @@ class Upsample2D(nn.Module):
 class CrossAttnDownBlock2D(nn.Module):
     def __init__(self, in_channels, out_channels, num_layers, heads,
                  head_dim, temb_channels, cross_dim, add_downsample=True,
-                 use_linear_projection=True, lora_rank=0):
+                 use_linear_projection=True, lora_rank=0, depth=1):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -344,8 +356,7 @@ class CrossAttnDownBlock2D(nn.Module):
             for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, head_dim, cross_dim,
-                               use_linear_projection=use_linear_projection,
-                               lora_rank=lora_rank)
+                               depth, use_linear_projection, lora_rank)
             for _ in range(num_layers)])
         if add_downsample:
             self.downsamplers = nn.ModuleList([Downsample2D(out_channels)])
@@ -385,15 +396,14 @@ class DownBlock2D(nn.Module):
 
 class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, channels, heads, head_dim, temb_channels, cross_dim,
-                 use_linear_projection=True, lora_rank=0):
+                 use_linear_projection=True, lora_rank=0, depth=1):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_channels)
             for _ in range(2)])
         self.attentions = nn.ModuleList([
-            Transformer2DModel(channels, heads, head_dim, cross_dim,
-                               use_linear_projection=use_linear_projection,
-                               lora_rank=lora_rank)])
+            Transformer2DModel(channels, heads, head_dim, cross_dim, depth,
+                               use_linear_projection, lora_rank)])
 
     def forward(self, x, temb, ctx, lora_scale=1.0):
         x = self.attentions[0](self.resnets[0](x, temb), ctx, lora_scale)
@@ -414,15 +424,15 @@ def _up_resnets(in_channels, out_channels, prev_output_channel, num_layers,
 class CrossAttnUpBlock2D(nn.Module):
     def __init__(self, in_channels, out_channels, prev_output_channel,
                  num_layers, heads, head_dim, temb_channels, cross_dim,
-                 add_upsample=True, use_linear_projection=True, lora_rank=0):
+                 add_upsample=True, use_linear_projection=True, lora_rank=0,
+                 depth=1):
         super().__init__()
         self.resnets = _up_resnets(in_channels, out_channels,
                                    prev_output_channel, num_layers,
                                    temb_channels)
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, head_dim, cross_dim,
-                               use_linear_projection=use_linear_projection,
-                               lora_rank=lora_rank)
+                               depth, use_linear_projection, lora_rank)
             for _ in range(num_layers)])
         if add_upsample:
             self.upsamplers = nn.ModuleList([Upsample2D(out_channels)])
@@ -474,6 +484,29 @@ class UNetConfig:
     class_embed_type: str = "projection"
     encoder_hid_dim: Optional[int] = None
     lora_rank: int = 0
+    # BasicTransformerBlocks per Transformer2DModel, one entry a level
+    # (the mid block takes the last); an int means every level
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    # SDXL's added conditioning: "text_time" or None
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: Optional[int] = None
+    projection_class_embeddings_input_dim: Optional[int] = None
+    # latent side the model is trained at (diffusers' sample_size)
+    sample_size: int = 64
+
+    def depth(self, level: int) -> int:
+        """Transformer blocks a Transformer2DModel at ``level``."""
+        d = self.transformer_layers_per_block
+        return d if isinstance(d, int) else d[level]
+
+    @property
+    def pooled_dim(self) -> Optional[int]:
+        """Width of the pooled text embedding that the text-time
+        conditioning takes (the rest of its input is six time ids)."""
+        if self.addition_embed_type != "text_time":
+            return None
+        return (self.projection_class_embeddings_input_dim
+                - 6 * self.addition_time_embed_dim)
 
 
 # SD 2.1 / 2.1-base (stabilityai/stable-diffusion-2-1*/unet/config.json)
@@ -491,10 +524,27 @@ IF_PIXEL = UNetConfig(in_channels=3, out_channels=6,
                       attention_head_dim=(8, 8, 8, 8),
                       cross_attn_levels=(False, True, True, True),
                       encoder_hid_dim=4096)
+# SDXL base 1.0 (stabilityai/stable-diffusion-xl-base-1.0/unet/config.json)
+SDXL = UNetConfig(block_out_channels=(320, 640, 1280),
+                  cross_attention_dim=2048, attention_head_dim=(5, 10, 20),
+                  cross_attn_levels=(False, True, True),
+                  transformer_layers_per_block=(1, 2, 10),
+                  addition_embed_type="text_time", addition_time_embed_dim=256,
+                  projection_class_embeddings_input_dim=2816, sample_size=128)
 TINY = UNetConfig(block_out_channels=(32, 64), layers_per_block=1,
                   cross_attention_dim=1024, attention_head_dim=(2, 2),
-                  cross_attn_levels=(True, True))
+                  cross_attn_levels=(True, True), sample_size=8)
 TINY_VSD = dataclasses.replace(TINY, class_embed_proj_dim=16, lora_rank=4)
+# SDXL's shape at a width the CPU runs: no attention at the top level,
+# stacks of 2 and 3 blocks, text-time conditioning from 8-wide time ids
+TINY_SDXL = UNetConfig(block_out_channels=(32, 64, 64),
+                       cross_attention_dim=64, attention_head_dim=(2, 2, 4),
+                       cross_attn_levels=(False, True, True),
+                       transformer_layers_per_block=(0, 2, 3),
+                       addition_embed_type="text_time",
+                       addition_time_embed_dim=8,
+                       projection_class_embeddings_input_dim=6 * 8 + 16,
+                       sample_size=8)
 
 
 class UNet2DConditionModel(nn.Module):
@@ -519,6 +569,12 @@ class UNet2DConditionModel(nn.Module):
                                                      tdim)
         if c.encoder_hid_dim is not None:
             self.encoder_hid_proj = nn.Linear(c.encoder_hid_dim, xdim)
+        if c.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"addition_embed_type {c.addition_embed_type!r}")
+        if c.addition_embed_type == "text_time":
+            # add_time_proj (diffusers' Timesteps) holds no parameter
+            self.add_embedding = TimestepEmbedding(
+                c.projection_class_embeddings_input_dim, tdim)
 
         down = []
         out_ch = ch0
@@ -530,7 +586,8 @@ class UNet2DConditionModel(nn.Module):
                 down.append(CrossAttnDownBlock2D(
                     in_ch, ch, c.layers_per_block, heads, ch // heads, tdim,
                     xdim, add_downsample=not last,
-                    use_linear_projection=lin, lora_rank=lora))
+                    use_linear_projection=lin, lora_rank=lora,
+                    depth=c.depth(lvl)))
             else:
                 down.append(DownBlock2D(in_ch, ch, c.layers_per_block, tdim,
                                         add_downsample=not last))
@@ -538,9 +595,11 @@ class UNet2DConditionModel(nn.Module):
 
         mid_heads = c.attention_head_dim[-1]
         mid_ch = c.block_out_channels[-1]
+        n_lvl = len(c.block_out_channels)
         self.mid_block = UNetMidBlock2DCrossAttn(
             mid_ch, mid_heads, mid_ch // mid_heads, tdim, xdim,
-            use_linear_projection=lin, lora_rank=lora)
+            use_linear_projection=lin, lora_rank=lora,
+            depth=c.depth(n_lvl - 1))
 
         up = []
         rev = list(reversed(c.block_out_channels))
@@ -555,7 +614,8 @@ class UNet2DConditionModel(nn.Module):
                 up.append(CrossAttnUpBlock2D(
                     in_ch, ch, prev, c.layers_per_block + 1, heads,
                     ch // heads, tdim, xdim, add_upsample=not last,
-                    use_linear_projection=lin, lora_rank=lora))
+                    use_linear_projection=lin, lora_rank=lora,
+                    depth=c.depth(n_lvl - 1 - lvl)))
             else:
                 up.append(UpBlock2D(in_ch, ch, prev, c.layers_per_block + 1,
                                     tdim, add_upsample=not last))
@@ -571,9 +631,14 @@ class UNet2DConditionModel(nn.Module):
         class_labels (integer [B] for the "timestep" class embedding,
         [B, class_embed_proj_dim] for the projection one) or None -> eps
         [B, H, W, C_out]."""
+        return self._forward(sample, timesteps, encoder_hidden_states,
+                             class_labels, lora_scale, None, None)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states,
+                 class_labels, lora_scale, text_embeds, time_ids):
         with profiling.span("unet"):
             eps = self._eps(sample, timesteps, encoder_hidden_states,
-                            class_labels, lora_scale)
+                            class_labels, lora_scale, text_embeds, time_ids)
         if profiling.recording() and eps.requires_grad:
             # a differentiated pass (VSD's LoRA pass): until its inputs
             # and trainable leaves have their gradients
@@ -583,7 +648,7 @@ class UNet2DConditionModel(nn.Module):
         return eps
 
     def _eps(self, sample, timesteps, encoder_hidden_states, class_labels,
-             lora_scale):
+             lora_scale, text_embeds, time_ids):
         c = self.cfg
         temb = get_timestep_embedding(
             timesteps, c.block_out_channels[0],
@@ -603,6 +668,9 @@ class UNet2DConditionModel(nn.Module):
             elif c.class_embed_proj_dim is not None:
                 temb = temb + self.class_embedding(
                     class_labels.to(sample.dtype))
+        if c.addition_embed_type == "text_time":
+            temb = temb + self._add_embed(text_embeds, time_ids,
+                                          sample.dtype)
         ctx = encoder_hidden_states
         if c.encoder_hid_dim is not None:
             ctx = self.encoder_hid_proj(ctx)
@@ -620,3 +688,43 @@ class UNet2DConditionModel(nn.Module):
             h = blk(h, blk_skips, temb, ctx, lora_scale)
         h = self.conv_out(F.silu(self.conv_norm_out(h)))
         return h.permute(0, 2, 3, 1)
+
+    def _add_embed(self, text_embeds, time_ids, dtype):
+        """add_embedding(cat[text_embeds, add_time_proj(time_ids)])."""
+        if text_embeds is None or time_ids is None:
+            raise ValueError("text-time conditioning needs text_embeds "
+                             "and time_ids")
+        c = self.cfg
+        with profiling.span("add_embed"):
+            t = get_timestep_embedding(
+                time_ids.reshape(-1), c.addition_time_embed_dim,
+                flip_sin_to_cos=c.flip_sin_to_cos,
+                downscale_freq_shift=c.freq_shift)
+            t = t.reshape(text_embeds.shape[0], -1)
+            return self.add_embedding(
+                torch.cat([text_embeds.to(dtype), t.to(dtype)], dim=-1))
+
+
+class UNet2DConditionModelXL(UNet2DConditionModel):
+    """The UNet of a config with SDXL's text-time conditioning, whose
+    forward takes the added conditioning (diffusers' ``added_cond_kwargs``)
+    beside the SD arguments.  The SD models keep the SD signature: the
+    benchmark's stage check binds a forward's whole signature and hands
+    every parameter on to its SD reference."""
+
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                class_labels=None, lora_scale: float = 1.0,
+                text_embeds=None, time_ids=None):
+        """As :meth:`UNet2DConditionModel.forward`, with ``text_embeds``
+        [B, pooled_dim] (the pooled text embedding) and ``time_ids`` [B, 6]
+        (original size, crop corner, target size)."""
+        return self._forward(sample, timesteps, encoder_hidden_states,
+                             class_labels, lora_scale, text_embeds, time_ids)
+
+
+def unet_for(cfg: UNetConfig) -> UNet2DConditionModel:
+    """The UNet of ``cfg``: :class:`UNet2DConditionModelXL` under
+    text-time conditioning, else :class:`UNet2DConditionModel`."""
+    if cfg.addition_embed_type == "text_time":
+        return UNet2DConditionModelXL(cfg)
+    return UNet2DConditionModel(cfg)

@@ -116,6 +116,9 @@ class VAEConfig:
 
 
 SD_VAE = VAEConfig()
+# SDXL base 1.0 (stabilityai/stable-diffusion-xl-base-1.0/vae/config.json):
+# SD's widths, another scaling
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 TINY_VAE = VAEConfig(block_out_channels=(32, 64), layers_per_block=1)
 
 

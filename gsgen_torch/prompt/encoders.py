@@ -25,13 +25,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..guidance.convert import load_safetensors
 from .clip import CLIPTextConfig, load_clip_text, load_clip_textvec
+from .processors import mock_encode, mock_pooled
 from .t5 import T5Config, load_t5_encoder
 from .tokenizer_files import load_tokenizer
 
@@ -160,4 +161,19 @@ def build_encode_fn(model_id: str, kind: Optional[str] = None,
     kind = kind or encoder_kind(model_id)
     return (build_t5_encode_fn if kind == "t5"
             else build_clip_encode_fn)(model_id, device=device)
+
+
+def build_text_time_fns(model_id: str, width: int, pooled_dim: int
+                        ) -> Tuple[Callable, Callable]:
+    """(encode_fn, pooled_fn) for a UNet with SDXL's text-time
+    conditioning: the context [N, 77, width] and the pooled embedding
+    [N, pooled_dim].  Only the mock rule gives them: SDXL's two text
+    towers (CLIP ViT-L and OpenCLIP ViT-bigG, whose penultimate states
+    are concatenated and whose projected pooled output is the pooled
+    embedding) wait for their files."""
+    if model_id and model_id != "mock":
+        raise NotImplementedError(
+            "SDXL's text towers are not ported; use prompt.model_id=mock")
+    return (lambda texts: mock_encode(texts, D=width),
+            lambda texts: mock_pooled(texts, P=pooled_dim))
 

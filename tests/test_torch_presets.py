@@ -1,4 +1,4 @@
-"""Every shipped config builds a Trainer in the port: the 34 overlays
+"""Every shipped config builds a Trainer in the port: the 35 overlays
 composed onto configs/base.yaml and the 5 top-level configs, one case
 each, under the SHRINK overrides of the JAX package's
 tests/test_presets.py (tiny scene, TINY backbone preset, 32^2) on the CPU.
@@ -39,7 +39,7 @@ SHRINK = [
 
 
 def test_preset_lists_are_complete():
-    assert len(OVERLAYS) == 34
+    assert len(OVERLAYS) == 35
     assert sorted(p.stem for p in CONFIGS.glob("*.yaml")) == sorted(TOPLEVEL)
 
 

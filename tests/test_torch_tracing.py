@@ -30,7 +30,7 @@ OVERRIDES = ["init.num_points=64", "init.capacity=128", "data.reso=[16]",
              "renderer.densify.warm_up=0", "renderer.densify.period=1"]
 # every span of the step; `step` holds the ones on the main thread
 SPANS = {"step", "cameras", "background", "render", "guidance", "vae",
-         "unet", "attn", "aux_guidance", "fps", "estimator", "losses",
+         "unet", "xformer", "attn", "aux_guidance", "fps", "estimator", "losses",
          "backward", "unet_bwd", "vae_bwd", "attn_bwd", "render_bwd",
          "estimator_bwd", "adam", "stats", "sync", "density"}
 
@@ -108,6 +108,14 @@ def test_render_dups_count_the_step_duplicates(traced):
     assert c["launches.raster_fwd"] == 0       # the CPU renders plainly
 
 
+def test_attention_counters_count_one_core_a_site(traced):
+    """TINY's 7 self-attention sites (one transformer block each) in each
+    of VSD's 3 UNet passes, on the plain path on the CPU."""
+    _, spans, _, c = traced
+    assert len(spans["xformer"]) == c["attn.plain"] == 3 * 7
+    assert "attn.fused" not in c
+
+
 def test_no_profiler_no_span_no_hook_no_count(traced, monkeypatch):
     tr = traced[0]
     profiling.reset_counters()
@@ -134,4 +142,4 @@ def test_no_profiler_no_span_no_hook_no_count(traced, monkeypatch):
     assert calls == []
     assert profiling._hooks == [] and profiling._open == {}
     c = profiling.counters()
-    assert not any(k.startswith("render.") for k in c)
+    assert not any(k.startswith(("render.", "attn.")) for k in c)
